@@ -1,0 +1,61 @@
+"""Device policy of the port (counterpart of ``src/repro/kernels/dispatch.py``).
+
+* Entry points that create tensors take ``device``; :func:`resolve_device`
+  makes ``None`` mean ``cuda`` and raises when there is no card, so the
+  port never quietly runs on the CPU.
+* A kernel wrapper asks :func:`on_cuda` where its tensors lie.  On CUDA it
+  launches its hand-written kernel through :func:`launch`, which raises on
+  any launch error; on the CPU it runs the plain PyTorch version.  There is
+  no fallback from one to the other and no switch that routes the card to
+  the plain version.
+* :data:`LAUNCHES` counts kernel launches by kernel name, so a run can
+  show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda``; raises when CUDA is absent and the caller did
+    not ask for another device explicitly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU; pass "
+                "device='cpu' to run the plain PyTorch versions")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on one CUDA device, False when all lie on
+    the CPU; raises on a mix or on another device type."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def launch(kernel: str, symbol: str, *args) -> None:
+    """Call C entry point ``symbol`` of the kernel library on PyTorch's
+    current stream; raise if the launch reported an error; count it."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, symbol)(*args, stream)
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{symbol}: CUDA error {err}: {msg}")
+    LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
