@@ -18,19 +18,11 @@ class BrainScaleSConfig:
     flush_margin: int = 64           # systemtime slack
     fpga_clock_mhz: float = 210.0
     microcircuit_scale: float = 1.0
-    # flush-window transport (repro_torch.transport): "alltoall" ships one global
-    # collective per window; "torus2d" / "torus3d" walk dimension-ordered
-    # neighbor hops over a (torus_nx, torus_ny[, torus_nz]) device torus
-    # with hop-by-hop credit-based link flow control (link_credits
-    # events/window per directed egress link, spent on every hop of a
-    # row's route, 0 = off).  torus3d's Z rings are the wafer-stacking
-    # axis — the paper's full arrangement is (2, 4, n_wafers).
+    # flush-window transport (repro_torch.transport): "alltoall" ships one
+    # packed exchange per window.  The reference's torus transports and
+    # their settings (torus shape, link credits, notify latency) come with
+    # the credited torus (ROADMAP queue 1, item 7).
     transport: str = "alltoall"
-    torus_nx: int = 0                # 0 = most-square/cubic factorization
-    torus_ny: int = 0
-    torus_nz: int = 0                # wafer axis (torus3d only)
-    link_credits: int = 0
-    notify_latency: int = 2
     # wire protocol profile (repro_torch.wire): "extoll" (64 B cells, low header
     # tax, sub-us switches) or "ethernet" (1500 B MTU, full Eth+IP+UDP
     # stack, GbE timing) — governs frame-exact bytes_on_wire and the
@@ -42,11 +34,7 @@ class BrainScaleSConfig:
     def transport_fields(self) -> dict:
         """The transport-selection kwargs of ``snn.simulator.SimConfig``
         (pass as ``SimConfig(..., **cfg.transport_fields())``)."""
-        return dict(transport=self.transport, torus_nx=self.torus_nx,
-                    torus_ny=self.torus_ny, torus_nz=self.torus_nz,
-                    link_credits=self.link_credits,
-                    notify_latency=self.notify_latency,
-                    wire_format=self.wire_format, step_us=self.step_us)
-
+        return dict(transport=self.transport, wire_format=self.wire_format,
+                    step_us=self.step_us)
 
 CONFIG = BrainScaleSConfig()

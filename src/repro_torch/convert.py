@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.routing import RoutingTables
+from repro_torch.kernels import dispatch
 from repro_torch.snn import lif, network
 from repro_torch.snn.simulator import PendingWindow, ShardState, SimCarry
 
@@ -40,7 +41,7 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return {prefix[:-1]: np.asarray(tree)}
 
 
-def _t(a, device, dtype=None) -> torch.Tensor:
+def _t(a, device: torch.device, dtype=None) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
@@ -59,8 +60,10 @@ def partition_from_reference(part) -> network.Partition:
 
 
 def tables_from_reference(dest_of_addr, guid_of_addr, mcast_of_guid, *,
-                          device="cpu") -> RoutingTables:
-    """Routing tables (one shard's or stacked) from reference arrays."""
+                          device=None) -> RoutingTables:
+    """Routing tables (one shard's or stacked) from reference arrays
+    (``device=None`` is CUDA, as everywhere in the port)."""
+    device = dispatch.resolve_device(device)
     return RoutingTables(_t(dest_of_addr, device), _t(guid_of_addr, device),
                          _t(np.asarray(mcast_of_guid, np.uint32), device))
 
@@ -73,10 +76,11 @@ def tables_to_reference(tables: RoutingTables) -> dict[str, np.ndarray]:
 
 
 def state_from_reference(flat: dict, *, prefix: str = "",
-                         device="cpu") -> ShardState:
+                         device=None) -> ShardState:
     """Port ``ShardState`` from a flattened reference ``ShardState``
     (keys ``neuron.v`` ... ``t``, after ``prefix``).  It carries no
     generator: run it with an explicit drive."""
+    device = dispatch.resolve_device(device)
     g = lambda k: flat[prefix + k]
     neuron = lif.LIFState(_t(g("neuron.v"), device),
                           _t(g("neuron.i_exc"), device),
@@ -87,10 +91,11 @@ def state_from_reference(flat: dict, *, prefix: str = "",
                       _t(g("t"), device, torch.int32))
 
 
-def carry_from_reference(flat: dict, link, *, device="cpu") -> SimCarry:
+def carry_from_reference(flat: dict, link, *, device=None) -> SimCarry:
     """Port ``SimCarry`` from a flattened reference ``SimCarry``: state and
     pending buckets/residue converted; ``link`` is the port's fabric state
     (the crossbar's is empty, so nothing is carried over)."""
+    device = dispatch.resolve_device(device)
     g = lambda k: flat["pending." + k]
     pending = PendingWindow(_t(g("data"), device), _t(g("meta"), device),
                             _t(g("counts"), device), _t(g("residue"), device),

@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import dispatch
+
 
 class CreditBank(NamedTuple):
     """Producer-visible credits for K links + their notification delay lines.
@@ -29,6 +31,7 @@ class CreditBank(NamedTuple):
 def init_credits(n_links: int, limit: int, notify_latency: int, *,
                  device=None) -> CreditBank:
     """Fresh bank: ``limit`` credits on each of ``n_links`` links."""
+    device = dispatch.resolve_device(device)
     return CreditBank(
         credits=torch.full((n_links,), limit, dtype=torch.int32,
                            device=device),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import events as ev
+from repro_torch.kernels import dispatch
 
 NO_ROUTE = -1
 
@@ -70,8 +71,9 @@ class Projection:
 
 
 def build_tables(n_addr: int, projections: Sequence[Projection], *,
-                 n_guid: int | None = None) -> RoutingTables:
-    """Build one shard's tables from projections (host-side, CPU tensors).
+                 n_guid: int | None = None, device=None) -> RoutingTables:
+    """Build one shard's tables from projections (on the host, then moved
+    to ``device``).
 
     Each distinct (dest_node, dest_links) pair gets one GUID; later
     projections overwrite earlier ones on address overlap.
@@ -92,8 +94,9 @@ def build_tables(n_addr: int, projections: Sequence[Projection], *,
     n_guid = n_guid or max(len(masks), 1)
     mcast = np.zeros((n_guid,), np.uint32)
     mcast[: len(masks)] = np.asarray(masks, np.uint32)
-    return RoutingTables(torch.from_numpy(dest), torch.from_numpy(guid),
-                         torch.from_numpy(mcast.view(np.int32)))
+    device = dispatch.resolve_device(device)
+    return RoutingTables(*(torch.from_numpy(a).to(device)
+                           for a in (dest, guid, mcast.view(np.int32))))
 
 
 def expand_multicast(event_words: torch.Tensor, masks: torch.Tensor,

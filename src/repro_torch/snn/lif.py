@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import dispatch
+
 
 class LIFParams(NamedTuple):
     """Potjans-Diesmann defaults (mV, ms, pA, pF)."""
@@ -39,6 +41,7 @@ def init_state(shape, p: LIFParams, *, generator: torch.Generator | None
                = None, device=None) -> LIFState:
     """Resting state, or potentials drawn uniformly in [e_l, v_th) from
     ``generator`` (randomized starts avoid startup synchrony)."""
+    device = dispatch.resolve_device(device)
     if generator is None:
         v = torch.full(shape, p.e_l, dtype=torch.float32, device=device)
     else:

@@ -8,8 +8,8 @@ shards whose neurons it synapses onto — each spike becomes one Extoll event
 scheme: inter-wafer fan-out is realized by sending one event per target
 FPGA, intra-FPGA fan-out by the destination's multicast mask).
 
-Also computes the routing tables (``repro_torch.core.routing``, torch
-tensors on the CPU) and the traffic matrix of the torus link-load model.
+Also computes the routing tables (``repro_torch.core.routing``) and the
+traffic matrix of the torus link-load model.
 """
 from __future__ import annotations
 
@@ -90,7 +90,8 @@ def traffic_matrix(p: Partition, rates_hz: np.ndarray, event_bytes: int = 4):
     return m
 
 
-def routing_tables_for_shard(p: Partition, shard: int, n_links: int = 8):
+def routing_tables_for_shard(p: Partition, shard: int, n_links: int = 8, *,
+                             device=None):
     """Paper-faithful tables: one projection per (local source, dest shard).
 
     A source with fan-out to k shards emits k events; the replica index is
@@ -111,4 +112,4 @@ def routing_tables_for_shard(p: Partition, shard: int, n_links: int = 8):
                 projs.append(rt.Projection(addr, addr + 1, int(d), [g % n_links]))
     return rt.build_tables(per * max_fan,
                            projs or [rt.Projection(0, 0, 0, [0])],
-                           n_guid=max(len(projs), 1))
+                           n_guid=max(len(projs), 1), device=device)

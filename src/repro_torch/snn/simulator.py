@@ -11,10 +11,12 @@ pipelined as in the reference: iteration k
      charges their wire latency and scatters their weighted input into the
      delay ring, checking deadlines;
   2. runs ``window`` LIF steps off the ring (CUDA LIF kernel);
-  3. compacts the spikes into event words, puts the events deferred by the
-     transport first, then the residue of window k-1, then the fresh
-     events, and runs the fused route+aggregate (CUDA placement kernel);
-     the new buckets and residue become the pending half of the carry.
+  3. compacts the spikes into event words, puts the residue of window k-1
+     first, then the fresh events, and runs the fused route+aggregate
+     (CUDA placement kernel); the new buckets and residue become the
+     pending half of the carry.  (The reference puts rows refused by a
+     credited torus link ahead of the residue; the crossbar refuses none,
+     and the credited torus is not ported yet: ROADMAP queue 1, item 7.)
 
 One ``drain`` after the last window flushes its buckets.
 
@@ -66,11 +68,6 @@ class SimConfig(NamedTuple):
     params: lif.LIFParams = lif.LIFParams()
     residue: int = 256        # deferred-event carry buffer (re-offered)
     transport: str = "alltoall"
-    torus_nx: int = 0
-    torus_ny: int = 0
-    torus_nz: int = 0
-    link_credits: int = 0
-    notify_latency: int = 2
     wire_format: str = "extoll"   # frame/latency profile
     step_us: float = 0.1      # wire microseconds per dt step
 
@@ -155,9 +152,6 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     S, C, L = cfg.n_shards, cfg.capacity, cfg.ring_len
     backend = tp.create(cfg.transport, n_shards=S,
                         wire_format=cfg.wire_format)
-    # static: can the transport ever refuse a bucket row?  (credited torus
-    # backends only; the crossbar admits everything)
-    can_defer = backend.name != "alltoall" and cfg.link_credits > 0
     fmt = backend.wire_fmt
     hops = backend.route_hops(device=device)
     own = torch.eye(S, dtype=torch.bool, device=device)
@@ -177,16 +171,16 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     def init_link() -> tp.LinkState:
         return backend.init_state(2 * C, device=device)
 
-    def _exchange(pend: PendingWindow, lstate, *, enforce_credits: bool):
+    def _exchange(pend: PendingWindow, lstate):
         """Ship window k-1's buckets as 64-bit wire words; returns the
-        received rows [dst, src], their meta and counts, and the queueing
-        dwell of the rows delivered to each shard."""
+        received rows [dst, src], their meta and counts, the link
+        statistics, the fabric state and the queueing dwell of the rows
+        delivered to each shard."""
         payload = wire.encode_planar(pend.data, pend.meta)
-        out = backend.exchange(lstate, payload, pend.counts,
-                               enforce_credits=enforce_credits)
+        out = backend.exchange(lstate, payload, pend.counts)
         recv, recv_meta = wire.decode_planar(out.recv_payload)
-        return (recv, recv_meta, out.recv_counts, out.sent_mask, out.stats,
-                out.state, out.queue_us.T)
+        return (recv, recv_meta, out.recv_counts, out.stats, out.state,
+                out.queue_us.T)
 
     def _window_latency(t: int, recv_meta, counts, queue_us):
         """Wire latency of the events just delivered: waiting since each
@@ -258,25 +252,18 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
              delays, drive):
         state, pend, lstate = carry
         # 1. exchange + decode window k-1 (state.t == that window's end)
-        recv, rmeta, counts, sent_mask, lstats, lstate, qcol = _exchange(
-            pend, lstate, enforce_credits=True)
+        recv, rmeta, counts, lstats, lstate, qcol = _exchange(pend, lstate)
         latency = _window_latency(t, rmeta, counts, qcol)
         miss = _apply_events(state.ring_exc, state.ring_inh, recv, counts,
                              t, weights_t, inh_src)
         # 2. simulate window k
         neuron, spikes = _simulate_steps(state.neuron, state.ring_exc,
                                          state.ring_inh, t, drive)
-        # 3. route + aggregate: transport-deferred rows first, then the
-        #    residue, then fresh spikes (oldest deadlines win bucket slots)
+        # 3. route + aggregate: the residue first, then fresh spikes (oldest
+        #    deadlines win bucket slots)
         words, inject, lost = _spikes_to_events(spikes, t, delays)
         words = torch.cat([pend.residue, words], dim=-1)
         inject = torch.cat([pend.residue_meta, inject], dim=-1)
-        if can_defer:
-            held = ~sent_mask[..., None] & (slots < pend.counts[..., None])
-            words = torch.cat([torch.where(held, pend.data, 0).reshape(
-                S, -1), words], dim=-1)
-            inject = torch.cat([torch.where(held, pend.meta, 0).reshape(
-                S, -1), inject], dim=-1)
         addr = torch.clamp(ev.address(words),
                            max=tables.dest_of_addr.shape[-1] - 1)
         fw = frb.fused_aggregate(words, lookup(tables.dest_of_addr, addr),
@@ -303,9 +290,9 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
 
     def drain(state: ShardState, pend: PendingWindow, lstate, t: int,
               weights_t, inh_src):
-        """Flush the last window's buckets (one uncredited exchange) into
-        the rings; the final residue stays deferred."""
-        recv, _, counts, *_ = _exchange(pend, lstate, enforce_credits=False)
+        """Flush the last window's buckets (one exchange) into the rings;
+        the final residue stays deferred."""
+        recv, _, counts, *_ = _exchange(pend, lstate)
         return _apply_events(state.ring_exc, state.ring_inh, recv, counts,
                              t, weights_t, inh_src)
 
@@ -342,7 +329,8 @@ def build_sharded_segments(cfg: SimConfig, part: network.Partition,
         device).transpose(1, 2).contiguous()                 # (S, N, per)
     inh_src = torch.from_numpy(part.is_inh).to(device)
     delays = torch.from_numpy(delay_local.astype(np.int32)).to(device)
-    tables = stack_tables([network.routing_tables_for_shard(part, s)
+    tables = stack_tables([network.routing_tables_for_shard(part, s,
+                                                            device=device)
                            for s in range(S)], device=device)
     bg = torch.from_numpy(np.pad(bg_rates, (0, n_tot - len(bg_rates)))
                           .reshape(S, per).astype(np.float32)).to(device)
@@ -399,8 +387,11 @@ def build_sharded_segments(cfg: SimConfig, part: network.Partition,
 
 
 def stack_tables(tabs, *, device=None) -> RoutingTables:
-    """Stack per-shard tables into (S, n) tensors, padding each to the
-    longest (destinations with NO_ROUTE, GUIDs and masks with 0)."""
+    """Stack per-shard tables into (S, n) tensors on ``device``, padding
+    each to the longest (destinations with NO_ROUTE, GUIDs and masks
+    with 0)."""
+    device = dispatch.resolve_device(device)
+
     def stack(field, fill):
         cols = [getattr(t, field) for t in tabs]
         n = max(c.shape[0] for c in cols)

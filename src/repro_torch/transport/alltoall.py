@@ -22,17 +22,33 @@ class AllToAllTransport(base.Transport):
 
     name = "alltoall"
 
+    def __init__(self, n_shards: int, **kw):
+        super().__init__(n_shards, **kw)
+        self._constants: dict[torch.device, tuple] = {}
+
+    def _window_constants(self, device: torch.device):
+        """The tensors that are the same in every window, made once per
+        device and shared (read-only): route hops, the all-true sent mask,
+        the zero queueing dwell and the zero link statistics."""
+        if device not in self._constants:
+            n = self.n_shards
+            self._constants[device] = (
+                self.route_hops(device=device),
+                torch.ones((n, n), dtype=torch.bool, device=device),
+                torch.zeros((n, n), dtype=torch.float32, device=device),
+                base.zero_link_stats((n,), device=device))
+        return self._constants[device]
+
     def exchange(self, state: base.LinkState, payload: torch.Tensor,
-                 counts: torch.Tensor, *,
-                 enforce_credits: bool = True) -> base.TransportOut:
-        n = self.n_shards
-        dev = payload.device
+                 counts: torch.Tensor) -> base.TransportOut:
+        hops, sent_mask, queue_us, zero_stats = self._window_constants(
+            payload.device)
         packed = pack_payload(payload, counts)            # [src, dst, W+1]
         recv = packed.transpose(0, 1).contiguous()        # [dst, src, W+1]
         recv_payload, recv_counts = unpack_payload(recv)
-        off = counts * self.route_hops(device=dev)        # own row stays
+        off = counts * hops                               # own row stays
         offered = counts.sum(-1, dtype=torch.int32)
-        stats = base.zero_link_stats((n,), device=dev)._replace(
+        stats = zero_stats._replace(
             offered_events=offered,
             sent_events=offered,
             delivered_events=recv_counts.sum(-1, dtype=torch.int32),
@@ -40,16 +56,11 @@ class AllToAllTransport(base.Transport):
             bytes_on_wire=wire_framing.frame_bytes(self.wire_fmt, off).sum(
                 -1, dtype=torch.int32),
         )
-        ones = torch.ones((n, n), dtype=torch.bool, device=dev)
-        zeros = torch.zeros((n, n), dtype=torch.float32, device=dev)
         return base.TransportOut(
             state=state,
             recv_payload=recv_payload,
             recv_counts=recv_counts,
-            sent_mask=ones,
+            sent_mask=sent_mask,
             stats=stats,
-            sent_now=ones,
-            queue_us=zeros,
-            unparked_now=torch.zeros((n, n), dtype=torch.int32, device=dev),
-            park_wait_us=zeros,
+            queue_us=queue_us,
         )

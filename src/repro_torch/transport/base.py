@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.core import flow_control as fc
 from repro_torch.core.flow_control import CreditBank
+from repro_torch.kernels import dispatch
 from repro_torch.wire import framing as wire_framing
 from repro_torch.wire.profiles import get_profile
 
@@ -89,6 +90,7 @@ class LinkStats(NamedTuple):
 
 def zero_link_stats(batch: tuple = (), max_hops: int = 0, ndim: int = 0, *,
                     device=None) -> LinkStats:
+    device = dispatch.resolve_device(device)
     z = torch.zeros(batch, dtype=torch.int32, device=device)
     zh = torch.zeros(batch + (max_hops,), dtype=torch.int32, device=device)
     return LinkStats(z, z, z, z, z, z, z, z, z, zh,
@@ -112,8 +114,9 @@ def unpack_payload(buf: torch.Tensor):
 class TransportOut(NamedTuple):
     """Result of shipping one window (shapes for S shards).
 
-    ``sent_mask[s, d]`` is True where shard s's row d left the sender
-    (delivered or parked); False rows are re-offered next window.
+    ``sent_mask[s, d]`` is True where shard s's row d left the sender.  The
+    reference's ``sent_now``, ``unparked_now`` and ``park_wait_us`` describe
+    parked rows; they come with the torus backends (ROADMAP queue 1, item 7).
     """
 
     state: LinkState
@@ -121,10 +124,7 @@ class TransportOut(NamedTuple):
     recv_counts: torch.Tensor    # (S, S) int32 events per received row
     sent_mask: torch.Tensor      # (S, S) bool
     stats: LinkStats             # (S,) per field
-    sent_now: torch.Tensor       # (S, S) bool delivered this window
     queue_us: torch.Tensor       # (S, S) f32 queueing dwell of row (s, d)
-    unparked_now: torch.Tensor   # (S, S) int32
-    park_wait_us: torch.Tensor   # (S, S) f32
 
 
 class Transport:
@@ -146,12 +146,10 @@ class Transport:
     def route_hops(self, *, device=None) -> torch.Tensor:
         """(S, S) int32 links traversed by a row s -> d: one for every
         off-shard row on the crossbar."""
-        n = self.n_shards
-        return (1 - torch.eye(n, dtype=torch.int32, device=device))
+        return 1 - torch.eye(self.n_shards, dtype=torch.int32,
+                             device=dispatch.resolve_device(device))
 
     def exchange(self, state: LinkState, payload: torch.Tensor,
-                 counts: torch.Tensor, *,
-                 enforce_credits: bool = True) -> TransportOut:
-        """Ship one window: payload (S, S, W) int32, counts (S, S) int32.
-        ``enforce_credits=False`` flushes regardless of credit state."""
+                 counts: torch.Tensor) -> TransportOut:
+        """Ship one window: payload (S, S, W) int32, counts (S, S) int32."""
         raise NotImplementedError

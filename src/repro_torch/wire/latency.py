@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import dispatch
 from repro_torch.wire.framing import WireFormat, frame_bytes
 
 LATENCY_BIN_EDGES_US = tuple(float(2.0 ** e) for e in range(-2, 13))
@@ -30,6 +31,7 @@ class LatencySummary(NamedTuple):
 
 
 def zero_latency_summary(batch: tuple = (), *, device=None) -> LatencySummary:
+    device = dispatch.resolve_device(device)
     z = torch.zeros(batch, dtype=torch.float32, device=device)
     return LatencySummary(z, z, z, z,
                           torch.zeros(batch + (N_LATENCY_BINS,),

@@ -100,7 +100,7 @@ def test_routing_tables_route_and_multicast(seed):
     ref = r_rt.build_tables(n_addr, [r_rt.Projection(*p) for p in projs],
                             n_guid=40)
     got = t_rt.build_tables(n_addr, [t_rt.Projection(*p) for p in projs],
-                            n_guid=40)
+                            n_guid=40, device="cpu")
     assert (got.dest_of_addr.numpy() == np.asarray(ref.dest_of_addr)).all()
     assert (got.guid_of_addr.numpy() == np.asarray(ref.guid_of_addr)).all()
     assert (_u32(got.mcast_of_guid) == np.asarray(ref.mcast_of_guid)).all()
@@ -128,7 +128,8 @@ def test_stacked_tables_lookup_per_shard():
     rng = np.random.default_rng(5)
     tabs = [t_rt.build_tables(32, [t_rt.Projection(a, a + 1, (a + s) % 4,
                                                    [a % 8])
-                                   for a in range(32)]) for s in range(3)]
+                                   for a in range(32)], device="cpu")
+            for s in range(3)]
     stacked = t_rt.RoutingTables(
         *(torch.stack([getattr(t, f) for t in tabs])
           for f in ("dest_of_addr", "guid_of_addr", "mcast_of_guid")))
@@ -163,7 +164,7 @@ def test_network_partition_and_tables_match_reference(scale, n_shards):
         assert a.dtype == b.dtype and (a == b).all(), field
     for s in range(n_shards):
         tr = r_net.routing_tables_for_shard(p_r, s)
-        tt = t_net.routing_tables_for_shard(p_t, s)
+        tt = t_net.routing_tables_for_shard(p_t, s, device="cpu")
         assert (tt.dest_of_addr.numpy() == np.asarray(tr.dest_of_addr)).all()
         assert (tt.guid_of_addr.numpy() == np.asarray(tr.guid_of_addr)).all()
         assert (_u32(tt.mcast_of_guid) == np.asarray(tr.mcast_of_guid)).all()
@@ -171,7 +172,8 @@ def test_network_partition_and_tables_match_reference(scale, n_shards):
 
 def test_credit_bank_init_matches_reference():
     for args in [(0, 0, 1), (6, 5, 2), (3, 7, 0)]:
-        r, t = r_fc.init_credits(*args), t_fc.init_credits(*args)
+        r = r_fc.init_credits(*args)
+        t = t_fc.init_credits(*args, device="cpu")
         for field in t_fc.CreditBank._fields:
             a, b = getattr(t, field).numpy(), np.asarray(getattr(r, field))
             assert a.shape == b.shape and (a == b).all(), (args, field)
@@ -198,9 +200,10 @@ def test_convert_partition_and_stacked_tables():
                                      for t in tabs]),
            "mcast_of_guid": np.stack([pad(t.mcast_of_guid, ng, 0)
                                       for t in tabs])}
-    got = convert.tables_from_reference(**ref)
-    own = t_sim.stack_tables([t_net.routing_tables_for_shard(p_t, s)
-                              for s in range(4)])
+    got = convert.tables_from_reference(**ref, device="cpu")
+    own = t_sim.stack_tables([t_net.routing_tables_for_shard(p_t, s,
+                                                             device="cpu")
+                              for s in range(4)], device="cpu")
     back = convert.tables_to_reference(got)
     for key, want in ref.items():
         assert (getattr(got, key) == getattr(own, key)).all(), key

@@ -135,7 +135,8 @@ def port_runs(ref, part):
     for name in CONFIGS:
         _, run = sim.build_sharded_sim(_cfg(p, name), p, spec.bg_rates(),
                                        device="cpu")
-        state0 = convert.state_from_reference(ref, prefix=f"{name}.init.")
+        state0 = convert.state_from_reference(ref, prefix=f"{name}.init.",
+                                              device="cpu")
         state, stats = run(state0, N_WINDOWS,
                            drive=torch.from_numpy(ref["drive"]))
         runs[name] = (convert.flatten(state), convert.flatten(stats))
@@ -240,12 +241,42 @@ def test_import_pulls_in_no_jax():
                    env=dict(os.environ, PYTHONPATH=SRC))
 
 
-def test_default_device_is_cuda_and_raises_without_it(part):
+def test_default_device_is_cuda_and_raises_without_it(ref, part):
+    """Every entry point that makes tensors defaults to CUDA and raises
+    without it; none quietly builds CPU tensors."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs on it")
+    from repro_torch.core import flow_control, routing
+    from repro_torch.snn import lif
+    from repro_torch.wire import zero_latency_summary
     spec, p = part
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        sim.build_sharded_sim(_cfg(p, "ample"), p, spec.bg_rates())
+    tr = transport.create("alltoall", n_shards=N_SHARDS)
+    tabs = [network.routing_tables_for_shard(p, s, device="cpu")
+            for s in range(N_SHARDS)]
+    flat_tables = convert.tables_to_reference(
+        sim.stack_tables(tabs, device="cpu"))
+    entry_points = [
+        lambda: sim.build_sharded_sim(_cfg(p, "ample"), p, spec.bg_rates()),
+        lambda: sim.build_sharded_segments(_cfg(p, "ample"), p,
+                                           spec.bg_rates()),
+        lambda: sim.make_pipeline_fns(_cfg(p, "ample")),
+        lambda: sim.stack_tables(tabs),
+        lambda: convert.state_from_reference(ref, prefix="ample.init."),
+        lambda: convert.tables_from_reference(**flat_tables),
+        lambda: convert.carry_from_reference({}, None),
+        lambda: lif.init_state((2, 3), lif.LIFParams()),
+        lambda: tr.init_state(),
+        lambda: tr.route_hops(),
+        lambda: transport.zero_link_stats((N_SHARDS,)),
+        lambda: flow_control.init_credits(4, 8, 2),
+        lambda: zero_latency_summary((N_SHARDS,)),
+        lambda: routing.build_tables(8, [routing.Projection(0, 4, 1, [0])]),
+        lambda: network.routing_tables_for_shard(p, 0),
+    ]
+    for i, make in enumerate(entry_points):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+            pytest.fail(f"entry point {i} ran without a CUDA device")
 
 
 def test_unported_paths_raise(part):
