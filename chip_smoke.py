@@ -10,23 +10,38 @@ Phases, each raising on failure (exit code != 0, no result line):
 1. device  -- the card's name and power limit, as nvidia-smi reports them;
 2. build   -- the kernel library from ``src/repro_torch/csrc`` (sm_90a);
 3. kernels -- each hand-written kernel against its plain PyTorch version on
-   the card, at the main path's full-width shapes and on edge cases, bit
-   for bit; median times (CUDA events) of the kernel and the plain version;
+   the card, at the main paths' full-width shapes and on edge cases (bit
+   for bit for placement, codec and LIF; rtol/atol 2e-4 for the f32 SSD
+   chunk); device times per call (CUDA graph) of kernel and plain version;
 4. slice   -- a small microcircuit (scale 0.004, 4 shards, 8 windows) on
    the card against the same run of the plain versions on the CPU, with
    the same initial potentials and background drive;
-5. main path -- the Potjans-Diesmann microcircuit at scale 0.2 (15,431
+5. main path 1 -- the Potjans-Diesmann microcircuit at scale 0.2 (15,431
    neurons, the largest round scale whose addresses fit the 14-bit event
    field) on 4 wafer shards, transport alltoall, wire format extoll, for
    25 windows (20 ms biological) with launch counts, deadline, residue and
    link-conservation checks, and the summary of
    ``examples/multiwafer_microcircuit.py``; then a torch.profiler pass
    over 5 more windows for the device busy share;
-6. the ``kernels`` lines (a summary, then one JSON object) and, last, the
-   device JSON line.
+6. Mamba-2 slice -- the reduced mamba2 (2 layers) on the card against the
+   CPU: hidden states, caches and decode at the model tolerance 5e-2, and
+   greedy serving with the same tokens where the CPU's margin exceeds it;
+7. main path 2 -- mamba2-2.7b at its published width (64 layers, d_model
+   2560, 80 heads x 64, d_state 128, chunk 256, vocab 50,280), random bf16
+   weights from seed 0, serving 8 requests of 300-600 prompt tokens
+   through 4 slots, 16 new tokens each: prefill ms per wave, decode ms per
+   step, peak memory, the SSD-chunk launch count (64 x the chunks of every
+   wave's prefill, none in decode) and finite outputs; prefill + decode
+   against the full forward at 2 and 64 layers, with three cache faults
+   planted to show that the check sees them; then torch.profiler passes
+   over one prefill wave and 8 decode steps;
+8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
+   launches come from the main path that runs it, its counts set to 0
+   just before that path) and, last, the device JSON line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -297,6 +312,65 @@ def check_lif(gen, cfg):
                 parity=f"bit-exact (20 steps, {spikes} spikes)")
 
 
+def _ssd_inputs(gen, bh, c, P, N, dtype, bg=None):
+    """One SSD chunk's operands: x, B, C in ``dtype`` (as the conv gives
+    them), dt, A, s_prev in f32; B and C per group when ``bg`` < ``bh``."""
+    dev = gen.device
+    bg = bh if bg is None else bg
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    return (r(bh, c, P).to(dtype),
+            torch.nn.functional.softplus(r(bh, c)),
+            -torch.exp(r(bh) * 0.3),
+            (r(bg, c, N) * 0.3).to(dtype), (r(bg, c, N) * 0.3).to(dtype),
+            r(bh, P, N) * 0.1)
+
+
+def check_ssd_chunk(gen, bh, chunk, head_dim, d_state, bg):
+    """Kernel E at the serving path's shape (BH = slots x heads pairs,
+    c = chunk, P = head_dim, N = d_state, bf16 x / B / C as the conv gives
+    them, B and C per group: ``bg`` = slots x groups rows) and on edge
+    cases: B and C per pair, f32 inputs, short and long chunks (the long
+    one takes more than 48 KB of shared memory), ragged tiles, one pair.
+    Both outputs at rtol/atol 2e-4 (f32 sums in another order)."""
+    from repro_torch.kernels import ssd_chunk as ssd
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = (bh, chunk, head_dim, d_state, bf16, bg)
+    cases = [main, (bh, chunk, head_dim, d_state, bf16, None),
+             (bh, chunk, head_dim, d_state, f32, bg),
+             (1, 16, 8, 16, f32, None), (6, 100, 80, 72, bf16, 2),
+             (3, 1, 4, 4, f32, None), (2, 2048, 16, 24, bf16, 1),
+             (5, 257, 64, 128, f32, None)]
+    err = 0.0
+    for case in cases:
+        ins = _ssd_inputs(gen, *case)
+        got = ssd.ssd_chunk(*ins)
+        want = ssd.ssd_chunk_plain(*ins)
+        for name, a, b in zip(("y", "s_new"), got, want):
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4,
+                                       msg=lambda m: f"ssd_chunk {case} "
+                                       f"{name}: {m}")
+        err = max(err, max_abs_err(zip(got, want)))
+    ins = _ssd_inputs(gen, *main)
+    ms, eager_ms = time_ms(lambda: ssd.ssd_chunk(*ins))
+    plain_ms, plain_eager_ms = time_ms(lambda: ssd.ssd_chunk_plain(*ins))
+    x, dt, A, B, C, s_prev = ins
+    n_bytes = sum(t.numel() * t.element_size() for t in ins) + \
+        4 * (x.numel() + s_prev.numel())               # y and s_new, f32
+    # the causal lower triangle (j <= i) of the two intra-chunk products,
+    # the carried-state product and the state update
+    flops = bh * (chunk * (chunk + 1) * (d_state + head_dim)
+                  + 4 * chunk * head_dim * d_state)
+    bms, by = bound_ms(n_bytes, flops)
+    return dict(name="ssd_chunk", route="cuda",
+                source="src/repro_torch/csrc/ssd_chunk.cu",
+                replaces="src/repro/kernels/ssd_chunk.py:80",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, eager_ms=eager_ms,
+                plain_eager_ms=plain_eager_ms,
+                parity=f"rtol/atol 2e-4 ({len(cases)} shapes, bf16 and f32,"
+                       f" B/C per group and per pair)")
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the whole slice.
 # ---------------------------------------------------------------------------
@@ -454,21 +528,21 @@ def run_main_path():
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
     print(f"launches on the main path: {launches}")
-    profile_windows(run, state, 5)
+    profile_device(lambda: run(state, 5), "5 windows + drain", 6, "window")
     return launches
 
 
-def profile_windows(run, state, n_windows: int) -> None:
-    """Device busy share and the costliest device functions over a few
-    windows (torch.profiler); prints "not measured" when the profiler sees
-    no device activity."""
+def profile_device(fn, what: str, n_units: int, unit: str) -> None:
+    """Device busy share and the costliest device functions over one call
+    of ``fn`` (torch.profiler); prints "not measured" when the profiler
+    sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run(state, n_windows)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -480,12 +554,312 @@ def profile_windows(run, state, n_windows: int) -> None:
         print("profile: device time not measured (no device activity seen)")
         return
     launches = sum(r[1] for r in rows)
-    print(f"profile of {n_windows} windows + drain: wall {wall_us:.0f} us, "
-          f"device busy {busy:.0f} us ({100 * busy / wall_us:.1f}%), "
-          f"{launches} device functions ({launches / (n_windows + 1):.0f} "
-          f"per window)")
+    print(f"profile of {what}: wall {wall_us:.0f} us, device busy "
+          f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), {launches} device "
+          f"functions ({launches / n_units:.0f} per {unit})")
     for dev, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {dev:9.1f} us {count:5d}x  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: Mamba-2 serving.
+# ---------------------------------------------------------------------------
+
+MAMBA_ARCH = "mamba2-2.7b"
+MAMBA_REQUESTS = 8
+MAMBA_SLOTS = 4
+MAMBA_PROMPTS = (300, 601)        # prompt lengths drawn from [300, 600]
+MAMBA_NEW = 16
+# Prefill + decode against the full forward (decode_vs_full), with the
+# CACHE_FAULTS planted to show what each reading sees; the run fails if a
+# limit misses a planted fault.  Logits, in units of the row RMS: at the
+# reference test's depth of 2 layers at its tolerance 5e-2
+# (tests/test_models.py).  Over all 64 layers a clean decode reads 0.115
+# and a zeroed or stale SSD state 0.125-0.132 (H100), so there the logits
+# are held only on the argmax of rows whose top-2 margin exceeds
+# MARGIN_DEEP, twice the clean reading rounded up.  States, max |dstate|
+# in units of the layer's state RMS, separate every fault: clean 0.12 and
+# 1.48, faults from 15.5 and 41.2 up, at 2 and 64 layers; the limits
+# TOL_STATE and TOL_STATE_DEEP lie between.
+TOL_MODEL = 5e-2
+MARGIN_DEEP = 0.25
+TOL_STATE = 1.0
+TOL_STATE_DEEP = 8.0
+CACHE_FAULTS = ("SSD state zeroed", "SSD state one token stale",
+                "conv cache one token stale")
+
+
+def decode_vs_full(model, params, toks, nxt):
+    """Logits of a prefill over ``toks`` and one decode step of ``nxt``
+    against the full forward over both (the reference's own check,
+    tests/test_models.py:141), as max |dlogit| at the last token in units
+    of the full forward's row RMS; also with each of CACHE_FAULTS planted
+    in the caches between prefill and decode.  Returns ({case: reading},
+    the clean decode's logits, the full forward's logits)."""
+    dev = toks.device
+    ext = torch.cat([toks, nxt], 1)
+    l_full = model.logits(params, model.hidden(
+        params, {"tokens": ext})[0][:, -1:, :])
+    rms = l_full.pow(2).mean(-1, keepdim=True).sqrt()
+    fresh = lambda: model.init_caches(len(toks), ext.shape[1], device=dev)
+    _, good = model.prefill(params, {"tokens": toks}, fresh())
+    _, stale = model.prefill(params, {"tokens": toks[:, :-1]}, fresh())
+    _, whole = model.prefill(params, {"tokens": ext}, fresh())
+    s_rms = whole.state.pow(2).mean((1, 2, 3, 4), keepdim=True).sqrt()
+    cases = dict(zip(("clean",) + CACHE_FAULTS, (
+        good, good._replace(state=torch.zeros_like(good.state)),
+        good._replace(state=stale.state), good._replace(conv=stale.conv))))
+    errs, l_clean = {}, None
+    for name, caches in cases.items():
+        l_dec, new = model.decode(params, caches, nxt)
+        errs[name] = (float(((l_dec - l_full).abs() / rms).max()),
+                      float(((new.state - whole.state).abs() / s_rms).max()))
+        l_clean = l_dec if l_clean is None else l_clean
+    return errs, l_clean, l_full
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _margins(model, params, reqs, out, scfg):
+    """Top-2 logit margin of every token of ``out``, replayed through
+    prefill and decode with the generated tokens fed back."""
+    margins = {}
+    for w0 in range(0, len(reqs), scfg.slots):
+        wave = reqs[w0:w0 + scfg.slots]
+        S = max(len(r.prompt) for r in wave)
+        toks = np.zeros((len(wave), S), np.int64)
+        for j, r in enumerate(wave):
+            toks[j, S - len(r.prompt):] = r.prompt
+        device = params["embed"].device
+        caches = model.init_caches(len(wave), scfg.max_len, device=device)
+        h, caches = model.prefill(
+            params, {"tokens": torch.from_numpy(toks).to(device)}, caches)
+        steps = [model.logits(params, h[:, -1:, :])[:, -1]]
+        for t in range(1, max(len(out[r.rid]) for r in wave)):
+            fed = torch.tensor([[int(out[r.rid][t - 1])
+                                 if t - 1 < len(out[r.rid]) else scfg.eos_id]
+                                for r in wave], device=device)
+            logits, caches = model.decode(params, caches, fed)
+            steps.append(logits[:, -1])
+        for j, r in enumerate(wave):
+            top = torch.stack([s[j] for s in steps[:len(out[r.rid])]]) \
+                .topk(2, dim=-1).values.cpu()
+            margins[r.rid] = (top[:, 0] - top[:, 1]).numpy()
+    return margins
+
+
+def check_mamba_small():
+    """The reduced Mamba-2 (2 layers, d_model 64, chunk 16) on the card
+    against the same model on the CPU: hidden states, prefill caches and
+    one decode step at the model tolerance, and greedy serving with the
+    same tokens wherever the CPU run's top-2 logit margin exceeds it."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    cfg = reduced(get_config(MAMBA_ARCH))
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    params["embed"] = params["embed"] * 0.25   # let the blocks pick tokens
+    card = tree_to(params, "cuda")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+
+    def close(a, b, what):
+        torch.testing.assert_close(a.cpu().float(), b.float(), rtol=TOL_MODEL,
+                                   atol=TOL_MODEL,
+                                   msg=lambda m: f"mamba {what}: {m}")
+
+    dispatch.reset_launches()
+    close(model.hidden(card, {"tokens": tokens.cuda()})[0],
+          model.hidden(params, {"tokens": tokens})[0], "hidden")
+    c_gpu = model.init_caches(2, 64, device="cuda")
+    c_cpu = model.init_caches(2, 64, device="cpu")
+    h_gpu, c_gpu = model.prefill(card, {"tokens": tokens.cuda()}, c_gpu)
+    h_cpu, c_cpu = model.prefill(params, {"tokens": tokens}, c_cpu)
+    close(h_gpu, h_cpu, "prefill hidden")
+    close(c_gpu.state, c_cpu.state, "prefill state")
+    close(c_gpu.conv, c_cpu.conv, "prefill conv")
+    nxt = tokens[:, :1]
+    l_gpu, c_gpu = model.decode(card, c_gpu, nxt.cuda())
+    l_cpu, c_cpu = model.decode(params, c_cpu, nxt)
+    close(l_gpu, l_cpu, "decode logits")
+    close(c_gpu.state, c_cpu.state, "decode state")
+    scfg = ServeConfig(slots=2, max_len=64, max_new_tokens=8)
+    reqs = [Request(i, rng.integers(3, cfg.vocab, n).astype(np.int32))
+            for i, n in enumerate((5, 20, 33))]
+    out_gpu = Engine(model, scfg).generate_batch(card, reqs)
+    launches = dispatch.LAUNCHES.get("ssd_chunk", 0)
+    out_cpu = Engine(model, scfg).generate_batch(params, reqs)
+    margins = _margins(model, params, reqs, out_cpu, scfg)
+    checked = 0
+    for r in reqs:
+        got, want, margin = out_gpu[r.rid], out_cpu[r.rid], margins[r.rid]
+        for t in range(min(len(got), len(want))):
+            if margin[t] > TOL_MODEL:
+                if got[t] != want[t]:
+                    raise AssertionError(f"mamba serve card vs CPU: request "
+                                         f"{r.rid} token {t} differs at "
+                                         f"margin {margin[t]}")
+                checked += 1
+            elif got[t] != want[t]:
+                break
+        else:
+            if len(got) != len(want):
+                raise AssertionError(f"mamba serve: request {r.rid} length")
+    if launches == 0 or checked == 0:
+        raise AssertionError("mamba small: kernel not launched or no token "
+                             "compared")
+    print(f"mamba2 reduced (2 layers, chunk 16), card vs CPU: hidden, "
+          f"prefill, decode within {TOL_MODEL}; served 3 requests with "
+          f"{checked} decisive tokens equal; {launches} ssd_chunk launches")
+
+
+def run_mamba_main_path():
+    """Serve mamba2-2.7b at its published width on the card: random bf16
+    weights from seed 0, 8 requests of 300-600 prompt tokens through 4
+    slots, 16 new tokens each (greedy)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build
+    from repro_torch.models.modules import param_bytes, param_count
+    from repro_torch.models.ssm import dims
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    cfg = get_config(MAMBA_ARCH)
+    model = build(cfg)
+    _, n_heads, _ = dims(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0),
+                        param_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_heads} heads x {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, "
+          f"chunk {cfg.ssm.chunk}, vocab {cfg.vocab}; "
+          f"{param_count(model.specs()) / 1e9:.3f} B parameters, "
+          f"{param_bytes(model.specs(), torch.bfloat16) / 1e9:.2f} GB in "
+          f"bf16, drawn from seed 0 on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    finite = []           # device booleans, read after the run
+
+    def prefill(p, batch, caches):
+        h, caches = model.prefill(p, batch, caches)
+        finite.append(torch.isfinite(h).all())
+        return h, caches
+
+    def decode(p, caches, tokens):
+        logits, caches = model.decode(p, caches, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    checked = dataclasses.replace(model, prefill=prefill, decode=decode)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(*MAMBA_PROMPTS, MAMBA_REQUESTS)
+    reqs = [Request(i, rng.integers(3, cfg.vocab, int(n)).astype(np.int32))
+            for i, n in enumerate(lengths)]
+    # warm-up (library handles, allocator): one short request
+    Engine(model, ServeConfig(slots=1, max_len=64, max_new_tokens=2)) \
+        .generate_batch(params, [Request(-1, reqs[0].prompt[:40])])
+    eng = Engine(checked, ServeConfig(slots=MAMBA_SLOTS, max_len=1024,
+                                      max_new_tokens=MAMBA_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = eng.generate_batch(params, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(dispatch.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    chunks = [-(-w.prompt_len // cfg.ssm.chunk) for w in eng.waves]
+    for i, (w, nc) in enumerate(zip(eng.waves, chunks)):
+        print(f"wave {i}: {w.batch} requests, prompt {w.prompt_len} tokens "
+              f"padded ({nc} chunks): prefill {w.prefill_s * 1e3:.1f} ms "
+              f"({w.batch * w.prompt_len / w.prefill_s:.0f} prompt tokens/s)"
+              f"; {w.decode_steps} decode steps, "
+              f"{w.decode_s * 1e3 / max(w.decode_steps, 1):.2f} ms per step "
+              f"({w.batch} tokens per step)")
+    n_gen = sum(len(v) for v in out.values())
+    print(f"served {len(reqs)} requests ({int(lengths.sum())} prompt "
+          f"tokens, {n_gen} generated) in {wall:.2f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+
+    want = {"ssd_chunk": cfg.n_layers * sum(chunks)}
+    if launches != want:
+        raise AssertionError(f"mamba launches {launches} != {want}")
+    if not finite or not bool(torch.stack(finite).all()):
+        raise AssertionError("non-finite hidden states or logits")
+    for r in reqs:
+        seq = out[r.rid]
+        if not (1 <= len(seq) <= MAMBA_NEW and (seq >= 0).all()
+                and (seq < cfg.vocab).all()):
+            raise AssertionError(f"request {r.rid}: bad output {seq}")
+    print(f"launches on the serving path: {launches} = {cfg.n_layers} "
+          f"layers x {sum(chunks)} chunks")
+
+    wave = reqs[:MAMBA_SLOTS]
+    S = eng.waves[0].prompt_len
+    toks = np.zeros((len(wave), S), np.int64)
+    for j, r in enumerate(wave):
+        toks[j, S - len(r.prompt):] = r.prompt
+    toks = torch.from_numpy(toks).cuda()
+    nxt = torch.tensor([[int(out[r.rid][0])] for r in wave],
+                       device=toks.device)
+    # over the first 2 layers at full width (the reference test's depth)
+    # and over all the layers
+    shallow = build(dataclasses.replace(cfg, n_layers=2))
+    errs2, _, _ = decode_vs_full(shallow, dict(params, blocks={
+        k: v[:2] for k, v in params["blocks"].items()}), toks, nxt)
+    errs, l_dec, l_full = decode_vs_full(model, params, toks, nxt)
+    top = l_full.topk(2, dim=-1).values
+    decisive = (top[..., 0] - top[..., 1]) > MARGIN_DEEP * \
+        l_full.pow(2).mean(-1).sqrt()
+    flips = int((decisive & (l_dec.argmax(-1) != l_full.argmax(-1))).sum())
+    print(f"prefill + decode vs full forward ({len(wave)} x {S + 1} tokens): "
+          f"max |dlogit| in units of the row RMS / max |dstate| in units of "
+          f"the layer's state RMS; at {cfg.n_layers} layers {flips} argmax "
+          f"flips among {int(decisive.sum())} rows of margin > "
+          f"{MARGIN_DEEP}:")
+    for depth, e, tols in ((2, errs2, (TOL_MODEL, TOL_STATE)),
+                           (cfg.n_layers, errs,
+                            (float("inf"), TOL_STATE_DEEP))):
+        print(f"  {depth} layers (limits {tols[0]} / {tols[1]}): " +
+              ", ".join(f"{name} {v[0]:.5f} / {v[1]:.5f}"
+                        for name, v in e.items()))
+        blind = [name for name in CACHE_FAULTS
+                 if not any(v > t for v, t in zip(e[name], tols))]
+        if blind:
+            raise AssertionError(f"at {depth} layers the limits {tols} do "
+                                 f"not see the planted faults {blind}")
+        if not all(v <= t for v, t in zip(e["clean"], tols)):
+            raise AssertionError("decode through the cache disagrees with "
+                                 "the full forward")
+    if flips:
+        raise AssertionError("decode through the cache flips a decisive "
+                             "argmax of the full forward")
+    state = {}
+
+    def run_prefill():
+        caches = model.init_caches(len(wave), 1024, device="cuda")
+        h, state["caches"] = model.prefill(params, {"tokens": toks}, caches)
+        state["tok"] = model.logits(params, h[:, -1:, :]).argmax(-1)
+
+    def run_decode():
+        for _ in range(8):
+            logits, state["caches"] = model.decode(params, state["caches"],
+                                                   state["tok"])
+            state["tok"] = logits.argmax(-1)
+
+    profile_device(run_prefill, f"one prefill wave ({len(wave)} x {S} "
+                   f"tokens)", cfg.n_layers, "layer")
+    profile_device(run_decode, f"8 decode steps ({len(wave)} slots)", 8,
+                   "step")
+    return launches
 
 
 def main() -> int:
@@ -522,9 +896,15 @@ def main() -> int:
                         e_max=1024, capacity=1024, residue=256,
                         params=lif.LIFParams())
 
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import dims
+    lm = get_config(MAMBA_ARCH)
     banner("kernels against their plain versions")
     records = [check_placement(gen, cfg, per * cfg.max_fan),
-               check_codec(gen, cfg), check_lif(gen, cfg)]
+               check_codec(gen, cfg), check_lif(gen, cfg),
+               check_ssd_chunk(gen, MAMBA_SLOTS * dims(lm)[1], lm.ssm.chunk,
+                               lm.ssm.head_dim, lm.ssm.d_state,
+                               MAMBA_SLOTS * lm.ssm.n_groups)]
     for r in records:
         print(f"{r['name']}: {r['parity']}; device time per call (CUDA "
               f"graph): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -535,8 +915,14 @@ def main() -> int:
     banner("whole slice, card vs CPU")
     check_slice_small()
 
-    banner("main path")
+    banner("main path 1: microcircuit")
     launches = run_main_path()
+
+    banner("Mamba-2, reduced, card vs CPU")
+    check_mamba_small()
+
+    banner(f"main path 2: serving {MAMBA_ARCH}")
+    launches.update(run_mamba_main_path())
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -1,1 +1,40 @@
-"""System configurations."""
+"""System and model configurations (port of ``src/repro/configs``).
+
+``get_config(name)`` resolves a model architecture by the reference's
+names and aliases.  Only ``mamba2_27b`` is ported; every other
+architecture of the reference raises ``NotImplementedError`` until the
+LM stack's later slices (ROADMAP queue 1, item 12).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig, SSMConfig, reduced,
+)
+
+ARCHS = (
+    "qwen3_32b",
+    "qwen15_4b",
+    "gemma2_9b",
+    "minicpm_2b",
+    "deepseek_moe_16b",
+    "arctic_480b",
+    "recurrentgemma_9b",
+    "mamba2_27b",
+    "qwen2_vl_7b",
+    "whisper_large_v3",
+)
+PORTED = ("mamba2_27b",)
+
+
+def get_config(name: str) -> ModelConfig:
+    # "mamba2-2.7b" -> "mamba2_27b", "qwen1.5-4b" -> "qwen15_4b"
+    arch = name.replace("-", "_").replace(".", "")
+    if arch not in ARCHS:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet (ROADMAP queue 1, item 12); ported: "
+            f"{PORTED}")
+    return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG

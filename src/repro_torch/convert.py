@@ -13,7 +13,11 @@ Layouts:
 * delay rings: reference ``(S, ring_len, per)``, port ``(ring_len, S,
   per)``;
 * the reference's per-shard PRNG key has no port counterpart (the port
-  draws from a ``torch.Generator`` or takes its drive as input).
+  draws from a ``torch.Generator`` or takes its drive as input);
+* LM parameters: the same nested dicts, block parameters stacked along a
+  leading layer axis in both; ``bfloat16`` numpy arrays (``ml_dtypes``)
+  become ``torch.bfloat16`` bit for bit;
+* Mamba-2 caches: the same ``(n_layers, B, ...)`` ``conv`` and ``state``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.core.routing import RoutingTables
 from repro_torch.kernels import dispatch
+from repro_torch.models.ssm import SSMCache
 from repro_torch.snn import lif, network
 from repro_torch.snn.simulator import PendingWindow, ShardState, SimCarry
 
@@ -42,10 +47,14 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
 
 
 def _t(a, device: torch.device, dtype=None) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")      # a copy: never aliases the caller's
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    out = torch.from_numpy(a).to(device)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: no torch interop
+        out = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        out = torch.from_numpy(a)
+    out = out.to(device)
     return out if dtype is None else out.to(dtype)
 
 
@@ -119,3 +128,21 @@ def carry_to_reference(carry: SimCarry) -> dict[str, np.ndarray]:
         out[f"pending.{name}"] = (a.view(np.uint32)
                                   if name in ("data", "residue") else a)
     return out
+
+
+def params_from_reference(tree, device=None) -> dict:
+    """The port's parameters from a reference LM parameter tree given as
+    numpy arrays (e.g. ``jax.tree_util.tree_map(np.asarray, params)``);
+    dtypes are kept."""
+    device = dispatch.resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    return _t(tree, device)
+
+
+def caches_from_reference(cache, device=None) -> SSMCache:
+    """The port's Mamba-2 caches from a reference ``SSMCache`` (or a
+    ``(conv, state)`` pair) of numpy arrays stacked over layers."""
+    device = dispatch.resolve_device(device)
+    conv, state = cache
+    return SSMCache(_t(conv, device), _t(state, device))

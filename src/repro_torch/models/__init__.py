@@ -1,0 +1,2 @@
+"""LM stack (port of ``src/repro/models``): so far the Mamba-2 family."""
+from repro_torch.models.model import Model, build  # noqa: F401

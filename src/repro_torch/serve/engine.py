@@ -1,0 +1,123 @@
+"""Batched serving engine over fixed decode slots (port of
+``src/repro/serve/engine.py``).
+
+Requests are grouped into waves of ``slots``, left-padded to the wave's
+longest prompt (pad token 0, which the SSM reads like any token, as in the
+reference); each wave prefills once and decodes greedily (or samples)
+until every member has emitted EOS or ``max_new_tokens`` are out.
+
+Differences from the reference:
+
+* ``temperature > 0`` samples from a ``torch.Generator`` seeded with
+  ``seed``; it cannot reproduce ``jax.random``.  Greedy decoding is
+  deterministic and is what the parity tests use.
+* The ``tracer`` (Perfetto spans) waits for the observability slice
+  (ROADMAP queue 1, item 10); instead each wave's host-clock timings are
+  kept in :attr:`Engine.waves`.  Both end points of each timing are
+  already host synchronisations (the sampled token is copied to the host
+  for the EOS check), so no synchronisation is added for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    slots: int = 4                # concurrent sequences (decode batch)
+    max_len: int = 256            # cache capacity
+    max_new_tokens: int = 32
+    temperature: float = 0.0      # 0 = greedy
+    eos_id: int = 2
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray            # (S,) int32
+    extras: dict | None = None    # enc_frames / vision stubs (not ported)
+
+
+@dataclasses.dataclass
+class WaveStats:
+    batch: int                    # requests in the wave
+    prompt_len: int               # padded prompt length
+    prefill_s: float              # prefill + first token, host clock
+    decode_steps: int             # decode steps run
+    decode_s: float               # all decode steps, host clock
+
+
+class Engine:
+    def __init__(self, model: Model, cfg: ServeConfig, seed: int = 0,
+                 tracer=None):
+        if tracer is not None:
+            raise NotImplementedError(
+                "serve spans come with observability (ROADMAP queue 1, "
+                "item 10)")
+        self.model = model
+        self.cfg = cfg
+        self.seed = seed
+        self.waves: list[WaveStats] = []
+        self._generator: torch.Generator | None = None
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        last = logits[:, -1, :]
+        if self.cfg.temperature <= 0:
+            return last.argmax(dim=-1)
+        if self._generator is None:
+            self._generator = torch.Generator(device=last.device)
+            self._generator.manual_seed(self.seed)
+        probs = torch.softmax(last.float() / self.cfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self._generator)[:, 0]
+
+    def generate_batch(self, params, requests: list) -> dict:
+        """Serve a list of requests through fixed decode slots on the
+        device of the parameters.  Returns {rid: np.ndarray of generated
+        tokens (int32), up to and including the first EOS}."""
+        device = params["embed"].device
+        out: dict = {}
+        slots = self.cfg.slots
+        for w0 in range(0, len(requests), slots):
+            wave = requests[w0:w0 + slots]
+            if any(r.extras for r in wave):
+                raise NotImplementedError(
+                    "request extras feed the audio and vision families, "
+                    "not ported yet (ROADMAP queue 1, item 12)")
+            B = len(wave)
+            S = max(len(r.prompt) for r in wave)
+            toks = np.zeros((B, S), np.int64)
+            for j, r in enumerate(wave):
+                toks[j, S - len(r.prompt):] = r.prompt    # left-pad
+            tokens = torch.from_numpy(toks).to(device)
+            t0 = time.perf_counter()
+            caches = self.model.init_caches(B, self.cfg.max_len,
+                                            device=device)
+            h, caches = self.model.prefill(params, {"tokens": tokens},
+                                           caches)
+            tok = self._sample(self.model.logits(params, h[:, -1:, :]))
+            gen = [tok.cpu().numpy()]
+            t1 = time.perf_counter()
+            done = np.zeros((B,), bool)
+            for _ in range(self.cfg.max_new_tokens - 1):
+                logits, caches = self.model.decode(params, caches,
+                                                   tok[:, None])
+                tok = self._sample(logits)
+                gen.append(tok.cpu().numpy())
+                done |= gen[-1] == self.cfg.eos_id
+                if done.all():
+                    break
+            t2 = time.perf_counter()
+            self.waves.append(WaveStats(B, S, t1 - t0, len(gen) - 1,
+                                        t2 - t1))
+            g = np.stack(gen, axis=1).astype(np.int32)
+            for j, r in enumerate(wave):
+                seq = g[j]
+                stop = np.where(seq == self.cfg.eos_id)[0]
+                out[r.rid] = seq[: stop[0] + 1] if len(stop) else seq
+        return out

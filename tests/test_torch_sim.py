@@ -234,7 +234,10 @@ def test_convert_carry_round_trip(ref, part):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.snn.simulator, repro_torch.configs.brainscales; "
+            "repro_torch.snn.simulator, repro_torch.configs.brainscales, "
+            "repro_torch.configs.mamba2_27b, repro_torch.models.model, "
+            "repro_torch.kernels.ssd_chunk, repro_torch.serve.engine, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True,
@@ -246,10 +249,15 @@ def test_default_device_is_cuda_and_raises_without_it(ref, part):
     without it; none quietly builds CPU tensors."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs on it")
+    from repro_torch.configs import get_config, reduced
     from repro_torch.core import flow_control, routing
+    from repro_torch.launch import serve
+    from repro_torch.models import build, hybrid, modules
     from repro_torch.snn import lif
     from repro_torch.wire import zero_latency_summary
     spec, p = part
+    lm_cfg = reduced(get_config("mamba2_27b"))
+    lm = build(lm_cfg)
     tr = transport.create("alltoall", n_shards=N_SHARDS)
     tabs = [network.routing_tables_for_shard(p, s, device="cpu")
             for s in range(N_SHARDS)]
@@ -272,6 +280,13 @@ def test_default_device_is_cuda_and_raises_without_it(ref, part):
         lambda: zero_latency_summary((N_SHARDS,)),
         lambda: routing.build_tables(8, [routing.Projection(0, 4, 1, [0])]),
         lambda: network.routing_tables_for_shard(p, 0),
+        lambda: modules.init_params(lm.specs(), torch.Generator()),
+        lambda: lm.init(torch.Generator()),
+        lambda: lm.init_caches(2, 16),
+        lambda: hybrid.mamba2_init_caches(lm_cfg, 2),
+        lambda: convert.params_from_reference({"w": np.zeros(2)}),
+        lambda: convert.caches_from_reference((np.zeros(2), np.zeros(2))),
+        lambda: serve.main(["--arch", "mamba2_27b", "--reduced"]),
     ]
     for i, make in enumerate(entry_points):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -280,7 +295,24 @@ def test_default_device_is_cuda_and_raises_without_it(ref, part):
 
 
 def test_unported_paths_raise(part):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
     spec, p = part
+    for arch in ("qwen3_32b", "gemma2-9b", "whisper_large_v3"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            get_config(arch)
+    lm_cfg = reduced(get_config("mamba2-2.7b"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build(dataclasses.replace(lm_cfg, family="dense"))
+    lm = build(lm_cfg)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        Engine(lm, ServeConfig(), tracer=object())
+    params = lm.init(torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Engine(lm, ServeConfig()).generate_batch(params, [Request(
+            0, np.arange(3, 7, dtype=np.int32), extras={"enc_frames": 0})])
     with pytest.raises(NotImplementedError, match="item 7"):
         transport.create("torus2d", n_shards=4)
     with pytest.raises(NotImplementedError, match="item 8"):
