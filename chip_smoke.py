@@ -11,8 +11,9 @@ Phases, each raising on failure (exit code != 0, no result line):
 2. build   -- the kernel library from ``src/repro_torch/csrc`` (sm_90a);
 3. kernels -- each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' full-width shapes and on edge cases (bit
-   for bit for placement, codec and LIF; rtol/atol 2e-4 for the f32 SSD
-   chunk); device times per call (CUDA graph) of kernel and plain version;
+   for bit for placement, codec, LIF and bucket_scatter; rtol/atol 2e-4
+   for the f32 SSD chunk); device times per call (CUDA graph) of kernel
+   and plain version;
 4. slice   -- a small microcircuit (scale 0.004, 4 shards, 8 windows) on
    the card against the same run of the plain versions on the CPU, with
    the same initial potentials and background drive;
@@ -23,6 +24,22 @@ Phases, each raising on failure (exit code != 0, no result line):
    link-conservation checks, and the summary of
    ``examples/multiwafer_microcircuit.py``; then a torch.profiler pass
    over 5 more windows for the device busy share;
+5a. the exchange -- ``make_exchange`` at S 8, N 4096, C 256 on the tables
+   of ``benchmarks/bench_transport.py`` for alltoall, torus2d 2x4 and
+   torus3d 2x2x2, with link credits 512 and without, the onehot and sort
+   impls, and the 6-window congestion study with the fabric state
+   threaded through: every field card == CPU, the uncredited tori deliver
+   what alltoall delivers, the credit identities hold, rows park and
+   resume, and on every exchanged window kernel D equals
+   ``aggregate(impl="sort")`` and the fused buckets;
+5b. a small torus run (scale 0.004, torus3d 2x2x2, binding credits) on the
+   card against the CPU;
+5c. main path 3 -- the microcircuit at scale 0.2 over 8 wafer shards on
+   torus3d 2x2x2, 25 windows: the crossbar run of the same network, the
+   torus with ample credits (equal to it window for window, 0 deadline
+   misses) and with credits that bind (conservation and the residue chain
+   exact, deadline misses printed as the model's output); launch counts,
+   ms per window, a torch.profiler pass;
 6. Mamba-2 slice -- the reduced mamba2 (2 layers) on the card against the
    CPU: hidden states, caches and decode at the model tolerance 5e-2, and
    greedy serving with the same tokens where the CPU's margin exceeds it;
@@ -36,8 +53,9 @@ Phases, each raising on failure (exit code != 0, no result line):
    planted to show that the check sees them; then torch.profiler passes
    over one prefill wave and 8 decode steps;
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
-   launches come from the main path that runs it, its counts set to 0
-   just before that path) and, last, the device JSON line.
+   launches come from the path of this slice that runs it, its counts set
+   to 0 just before that path: A-C from main path 3, D from the exchange,
+   E from main path 2) and, last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -371,16 +389,78 @@ def check_ssd_chunk(gen, bh, chunk, head_dim, d_state, bg):
                        f" B/C per group and per pair)")
 
 
+def _scatter_bytes(batch, n, d, c):
+    """Kernel D's input read once and output written once."""
+    return batch * (12 * n + 8 * d * c + 4 * d)
+
+
+def check_bucket_scatter(gen):
+    """Kernel D at the exchange path's shape (8 shard windows of N 4096,
+    D 8 destinations, C 256, one launch), at (N 4096, D 64, C 128) alone
+    and with a shard axis of 8, and on ragged shapes, bit for bit against
+    its plain version; destinations -1 .. D (out of range matches no
+    row)."""
+    from repro_torch.kernels import bucket_scatter as bs
+    dev = gen.device
+    path = ((8,), 4096, 8, 256)
+    wide = ((), 4096, 64, 128)
+    cases = [path, wide, ((8,), 4096, 64, 128), ((), 100, 13, 7),
+             ((8,), 128, 3, 124), ((8,), 1024, 64, 16), ((3,), 1000, 7, 33),
+             ((2,), 1, 5, 0), ((2,), 0, 4, 8)]
+
+    def inputs(batch, n, d, c):
+        words = _words(gen, batch + (n,))
+        dests = torch.randint(-1, d + 1, batch + (n,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        guids = torch.randint(-2**31, 2**31 - 1, batch + (n,), generator=gen,
+                              device=dev, dtype=torch.int32)
+        return words, dests, guids, d, c
+
+    err, overflowed = 0.0, 0
+    for case in cases:
+        ins = inputs(*case)
+        got = bs.bucket_scatter(*ins)
+        want = bs.bucket_scatter_plain(*ins)
+        require_equal(f"bucket_scatter {case}", list(zip(got, want)))
+        err = max(err, max_abs_err(zip(got, want)))
+        overflowed += int((want[2] > case[3]).sum())
+    if overflowed == 0:
+        raise AssertionError("bucket_scatter: no row over capacity tested")
+    times = {}
+    for case in (path, wide):
+        ins = inputs(*case)
+        times[case] = (time_ms(lambda: bs.bucket_scatter(*ins)),
+                       time_ms(lambda: bs.bucket_scatter_plain(*ins)))
+    (ms, eager_ms), (plain_ms, plain_eager_ms) = times[path]
+    batch, n, d, c = path
+    b = batch[0]
+    bms, by = bound_ms(_scatter_bytes(b, n, d, c), b * n * d)
+    (w_ms, _), (w_plain, _) = times[wide]
+    w_bound, _ = bound_ms(_scatter_bytes(1, *wide[1:]), 4096 * 64)
+    print(f"bucket_scatter at (N 4096, D 64, C 128): kernel {w_ms:.4f} ms, "
+          f"plain {w_plain:.4f} ms, bound {w_bound:.6f} ms (bytes, "
+          f"{_scatter_bytes(1, *wide[1:])} B)")
+    return dict(name="bucket_scatter", route="cuda",
+                source="src/repro_torch/csrc/bucket_scatter.cu",
+                replaces="src/repro/kernels/bucket_scatter.py:79",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, eager_ms=eager_ms,
+                plain_eager_ms=plain_eager_ms,
+                parity=f"bit-exact ({len(cases)} shapes, shard axis 8)")
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: the whole slice.
 # ---------------------------------------------------------------------------
 
 def sim_config(part, **kw):
+    """The simulator's configuration for ``part``; ``kw`` sets the sizes
+    and overrides the transport fields of ``configs.brainscales``."""
     from repro_torch.configs import brainscales
     from repro_torch.snn import simulator as sim
     return sim.SimConfig(n_shards=part.n_shards, per_shard=part.per_shard,
                          max_fan=part.fanout.shape[1], window=8, ring_len=32,
-                         **kw, **brainscales.CONFIG.transport_fields())
+                         **{**brainscales.CONFIG.transport_fields(), **kw})
 
 
 def check_slice_small():
@@ -559,6 +639,384 @@ def profile_device(fn, what: str, n_units: int, unit: str) -> None:
           f"functions ({launches / n_units:.0f} per {unit})")
     for dev, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {dev:9.1f} us {count:5d}x  {key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# The exchange and the credited torus.
+# ---------------------------------------------------------------------------
+
+X_SHARDS, X_EVENTS, X_CAPACITY, X_CREDITS, X_ADDR = 8, 4096, 256, 512, 1024
+X_STUDY_WINDOWS = 6
+X_CASES = (("alltoall", "alltoall", None),
+           ("torus2d 2x4", "torus2d", {"nx": 2, "ny": 4}),
+           ("torus2d 2x4 credits", "torus2d",
+            {"nx": 2, "ny": 4, "link_credits": X_CREDITS}),
+           ("torus3d 2x2x2", "torus3d", {"nx": 2, "ny": 2, "nz": 2}),
+           ("torus3d 2x2x2 credits", "torus3d",
+            {"nx": 2, "ny": 2, "nz": 2, "link_credits": X_CREDITS}))
+
+
+def exchange_inputs(device):
+    """The routing tables of benchmarks/bench_transport.py (8 shards, 1,024
+    addresses each, address a -> shard (7a + s) % 8, one local link) and a
+    window of 4,096 events per shard from a numpy seed."""
+    from repro_torch.core import events as ev, routing as rt
+    from repro_torch.snn.simulator import stack_tables
+    tabs = [rt.build_tables(X_ADDR, [
+        rt.Projection(a, a + 1, dest_node=(a * 7 + s) % X_SHARDS,
+                      dest_links=[a % 3]) for a in range(X_ADDR)],
+        n_guid=64, device="cpu") for s in range(X_SHARDS)]
+    rng = np.random.default_rng(0)
+    words = ev.pack(torch.from_numpy(rng.integers(0, X_ADDR,
+                                                  (X_SHARDS, X_EVENTS))),
+                    torch.from_numpy(rng.integers(0, 1000,
+                                                  (X_SHARDS, X_EVENTS))))
+    return words.to(device), stack_tables(tabs, device=device)
+
+
+def require_same_outputs(what, got, want, rtol=1e-6):
+    """Integer fields of two flattened trees equal, float fields within
+    ``rtol`` (the same f32 arithmetic, sums maybe in another order)."""
+    from repro_torch.convert import flatten
+    a, b = flatten(got), flatten(want)
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: fields differ: {set(a) ^ set(b)}")
+    for key, x in a.items():
+        y = b[key]
+        if x.shape != y.shape:
+            raise AssertionError(f"{what}: {key} shape {x.shape} vs {y.shape}")
+        if x.dtype.kind == "f":
+            np.testing.assert_allclose(x, y, rtol=rtol, atol=1e-6,
+                                       err_msg=f"{what}: {key}")
+        elif not (x == y).all():
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def check_window_buckets(words, tables):
+    """Kernel D (``ops.bucket_scatter``) on the routed words of one
+    exchanged window against ``aggregate(impl="sort")`` and the fused
+    route+aggregate buckets (kernel A)."""
+    from repro_torch.core import aggregator
+    from repro_torch.kernels import fused_route_bucket as frb, ops
+    dest, guid, routed = tables.route(words)
+    masked = torch.where(routed, words, 0)
+    by_d = ops.bucket_scatter(masked, dest, guid, X_SHARDS, X_CAPACITY)
+    by_sort = aggregator.aggregate(masked, dest, guid, X_SHARDS, X_CAPACITY,
+                                   impl="sort")
+    fused = frb.fused_route_aggregate(words, tables.dest_of_addr,
+                                      tables.guid_of_addr, X_SHARDS,
+                                      X_CAPACITY).buckets
+    require_equal("bucket_scatter vs aggregate(sort)",
+                  list(zip(by_d, by_sort)))
+    require_equal("bucket_scatter vs fused buckets", list(zip(by_d, fused)))
+    return by_d
+
+
+def check_credit_identities(what, link, state, limit):
+    if not (link.offered_events == link.sent_events + link.deferred_events
+            + link.parked_events).all():
+        raise AssertionError(f"{what}: offered != sent + deferred + parked")
+    if not (link.stalled_by_hop.sum(-1) == link.deferred_events).all():
+        raise AssertionError(f"{what}: deferred != stalled_by_hop sum")
+    held = state.bank.credits + state.bank.pending.sum(-1) \
+        + state.parked_by_link
+    if not (held == limit).all():
+        raise AssertionError(f"{what}: credits + pending + held != limit")
+
+
+def _study(words, tables, n_windows):
+    """The congestion study of benchmarks/_fabric_study.py: the same
+    offered window every window, the fabric state threaded through."""
+    from repro_torch import transport as tp
+    from repro_torch.core.exchange import exchange_window
+    tb = tp.create("torus3d", n_shards=X_SHARDS, max_row_events=X_CAPACITY,
+                   **X_CASES[-1][2])
+    state = tb.init_state(2 * X_CAPACITY, device=words.device)
+    outs = []
+    for _ in range(n_windows):
+        out = exchange_window(words, tables, n_shards=X_SHARDS,
+                              capacity=X_CAPACITY, transport=tb,
+                              link_state=state)
+        state = out.link_state
+        outs.append(out)
+    return outs
+
+
+def run_exchange_path():
+    """``make_exchange`` at S 8, N 4096, C 256 on the card for the
+    crossbar and both tori, with and without credits, the staged impls on
+    the credited torus3d, and the 6-window congestion study; kernel D on
+    every exchanged window.  Then each against the same run on the CPU."""
+    from repro_torch.core.exchange import make_exchange
+    from repro_torch.kernels import dispatch
+    words, tables = exchange_inputs("cuda")
+    runs = {label: make_exchange(n_shards=X_SHARDS, capacity=X_CAPACITY,
+                                 n_addr_per_shard=X_ADDR, transport=backend,
+                                 transport_opts=opts)
+            for label, backend, opts in X_CASES}
+    impls = {impl: make_exchange(n_shards=X_SHARDS, capacity=X_CAPACITY,
+                                 n_addr_per_shard=X_ADDR, impl=impl,
+                                 transport="torus3d",
+                                 transport_opts=X_CASES[-1][2])
+             for impl in ("onehot", "sort")}
+    dispatch.reset_launches()
+    torch.cuda.synchronize()
+    outs, windows = {}, 0
+    for label, run in runs.items():
+        outs[label] = run(words, tables)
+        check_window_buckets(words, tables)
+        windows += 1
+    for impl, run in impls.items():
+        outs[impl] = run(words, tables)
+        check_window_buckets(words, tables)
+        windows += 1
+    study = _study(words, tables, X_STUDY_WINDOWS)
+    for _ in study:
+        check_window_buckets(words, tables)
+        windows += 1
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    if launches.get("bucket_scatter") != windows or not all(
+            launches.get(k, 0) > 0 for k in ("placement", "wire_codec")):
+        raise AssertionError(f"exchange path launches {launches}: want "
+                             f"bucket_scatter {windows} and placement, "
+                             f"wire_codec > 0")
+
+    words_c, tables_c = exchange_inputs("cpu")
+    for label, run in runs.items():
+        require_same_outputs(f"exchange {label} card vs CPU", outs[label],
+                             run(words_c, tables_c))
+    for impl in impls:
+        require_same_outputs(f"exchange impl={impl} vs fused", outs[impl],
+                             outs[X_CASES[-1][0]], rtol=0)
+    ref = outs["alltoall"]
+    for label, _, opts in X_CASES[1:]:
+        out = outs[label]
+        if "link_credits" in opts:
+            check_credit_identities(label, out.link, out.link_state,
+                                    X_CREDITS)
+            if int(out.link.credit_stalls.sum()) == 0:
+                raise AssertionError(f"{label}: credits never bound")
+            continue
+        for field in ("recv_events", "recv_guids", "recv_counts",
+                      "link_events"):
+            if not torch.equal(getattr(out, field), getattr(ref, field)):
+                raise AssertionError(f"{label}: {field} differs from "
+                                     f"alltoall")
+    study_cpu = _study(words_c, tables_c, X_STUDY_WINDOWS)
+    for k, (g, c) in enumerate(zip(study, study_cpu)):
+        require_same_outputs(f"study window {k} card vs CPU", g, c)
+        check_credit_identities(f"study window {k}", g.link, g.link_state,
+                                X_CREDITS)
+    total = lambda f: sum(int(getattr(o.link, f).sum()) for o in study)
+    if total("parked_events") == 0 or total("unparked_events") == 0:
+        raise AssertionError("study: no row parked and resumed mid-route")
+    for label, run in runs.items():
+        o = outs[label]
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run(words, tables)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        print(f"exchange {label}: {ms:.2f} ms per window (host clock); "
+              f"delivered {int(o.link.delivered_events.sum())}, stalls "
+              f"{int(o.link.credit_stalls.sum())}, parked "
+              f"{int(o.link.parked_events.sum())}, hops "
+              f"{int(o.link.hops[0])}, forwarded bytes "
+              f"{int(o.link.forwarded_bytes.sum())}, bytes on wire "
+              f"{int(o.link.bytes_on_wire.sum())}")
+    p99 = max(float(o.latency.p99_us.max()) for o in study)
+    print(f"congestion study (torus3d 2x2x2, credits {X_CREDITS}, "
+          f"{X_STUDY_WINDOWS} windows): stalls {total('credit_stalls')}, "
+          f"parked {total('parked_events')}, unparked "
+          f"{total('unparked_events')}, hop-0 deferrals "
+          f"{total('deferred_events')}, forwarded bytes "
+          f"{total('forwarded_bytes')}, dwell "
+          f"{sum(float(o.link.queue_dwell_us.sum()) for o in study):.3f} us,"
+          f" p99 {p99:.3f} us; card == CPU in every window")
+    print(f"kernel D on {windows} exchanged windows == aggregate(sort) == "
+          f"fused buckets; launches on the exchange path: {launches}")
+    return launches
+
+
+TORUS_SHARDS = 8
+TORUS_RUNS = {
+    "alltoall": dict(transport="alltoall"),
+    "torus3d, ample credits": dict(transport="torus3d", torus_nx=2,
+                                   torus_ny=2, torus_nz=2,
+                                   link_credits=1 << 20),
+    # the paper's 124-event buckets, each link's credits one bucket,
+    # returned 4 windows after they are spent
+    "torus3d, binding credits": dict(transport="torus3d", torus_nx=2,
+                                     torus_ny=2, torus_nz=2, capacity=124,
+                                     link_credits=124, notify_latency=4),
+}
+# WindowStats fields that do not depend on the fabric's shape
+SAME_ON_EVERY_FABRIC = ("spikes", "events_sent", "overflow", "wire_bytes",
+                        "deadline_miss", "offered", "deferred",
+                        "link.offered_events", "link.sent_events",
+                        "link.deferred_events", "link.delivered_events",
+                        "link.credit_stalls", "link.parked_events",
+                        "link.unparked_events", "link.in_fabric_events")
+
+
+def check_backpressure_chain(what, stats, n_shards):
+    """The identities of tests/test_transport.py's congested run, on
+    numpy-flattened WindowStats (S, n_windows)."""
+    g = lambda k: stats["link." + k]
+    checks = {
+        "offered == sent + deferred + parked": (
+            g("offered_events") == g("sent_events") + g("deferred_events")
+            + g("parked_events")).all(),
+        "sum(sent) + sum(unparked) == sum(delivered)": (
+            (g("sent_events") + g("unparked_events")).sum(0)
+            == g("delivered_events").sum(0)).all(),
+        "deferred == stalled_by_hop sum": (
+            g("stalled_by_hop").sum(-1) == g("deferred_events")).all(),
+        "in-fabric balance": (g("in_fabric_events") == np.concatenate(
+            [np.zeros((n_shards, 1), np.int64),
+             g("in_fabric_events")[:, :-1]], axis=1)
+            + g("parked_events") - g("unparked_events")).all(),
+        "offered_k == events_sent_k-1": (
+            g("offered_events")[:, 1:] == stats["events_sent"][:, :-1]).all(),
+        "offered == sent + deferred + dropped": (
+            stats["offered"] == stats["events_sent"] + stats["deferred"]
+            + stats["overflow"]).all(),
+        "fresh events >= 0": (stats["offered"] - np.concatenate(
+            [np.zeros((n_shards, 1), np.int64), stats["deferred"][:, :-1]],
+            axis=1) - g("deferred_events") >= 0).all(),
+        "latency histogram == delivered": (
+            stats["latency.hist"].sum(-1) == g("delivered_events")).all(),
+    }
+    broken = [k for k, ok in checks.items() if not ok]
+    if broken:
+        raise AssertionError(f"{what}: identities broken: {broken}")
+
+
+def check_torus_slice_small():
+    """Card vs CPU for the window loop on the credited torus3d 2x2x2 at
+    scale 0.004 over 8 shards, credits that bind: integer stats exact,
+    floats within the LIF tolerances."""
+    from repro_torch.convert import flatten
+    from repro_torch.snn import microcircuit as mc, network
+    from repro_torch.snn import simulator as sim
+    spec = mc.MicrocircuitSpec(scale=0.004)
+    part = network.build_partition(*spec.weight_matrix(),
+                                   n_shards=TORUS_SHARDS)
+    cfg = sim_config(part, e_max=256, capacity=16, residue=64,
+                     transport="torus3d", torus_nx=2, torus_ny=2, torus_nz=2,
+                     link_credits=16, notify_latency=2)
+    n_win = 8
+    rng = np.random.default_rng(0)
+    drive = torch.from_numpy(rng.poisson(
+        1.3, (n_win, cfg.window, TORUS_SHARDS, cfg.per_shard)).astype(
+            np.float32) * np.float32(87.8))
+    out = {}
+    for device in ("cpu", "cuda"):
+        init, run = sim.build_sharded_sim(cfg, part, spec.bg_rates(),
+                                          device=device)
+        st = init(0)
+        if device == "cpu":
+            v0 = st.neuron.v
+        st = st._replace(neuron=st.neuron._replace(v=v0.to(device)),
+                         generator=None)
+        out[device] = run(st, n_win, drive=drive)
+    require_same_outputs("torus slice card vs CPU", out["cuda"][1],
+                         out["cpu"][1])
+    st_cpu, st_gpu = out["cpu"][0], out["cuda"][0]
+    np.testing.assert_allclose(st_gpu.neuron.v.cpu(), st_cpu.neuron.v,
+                               rtol=2e-5, atol=1e-4)
+    s = flatten(out["cpu"][1])
+    check_backpressure_chain("torus slice", s, TORUS_SHARDS)
+    stalls, parked = int(s["link.credit_stalls"].sum()), int(
+        s["link.parked_events"].sum())
+    if stalls == 0:
+        raise AssertionError("torus slice: credits never bound")
+    print(f"torus slice (scale 0.004, torus3d 2x2x2, credits 16, {n_win} "
+          f"windows): card == CPU on every integer stat; {stalls} credit "
+          f"stalls, {parked} events parked, {int(s['spikes'].sum())} spikes")
+
+
+def run_torus_main_path():
+    """The microcircuit at scale 0.2 over 8 wafer shards on the credited
+    torus3d 2x2x2, 25 windows: with ample credits window for window equal
+    to the crossbar's run of the same network, then with credits that
+    bind."""
+    from repro_torch.convert import flatten
+    from repro_torch.core import events as ev
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import microcircuit as mc, network
+    from repro_torch.snn import simulator as sim
+    t0 = time.perf_counter()
+    spec = mc.MicrocircuitSpec(scale=SCALE)
+    part = network.build_partition(*spec.weight_matrix(),
+                                   n_shards=TORUS_SHARDS)
+    if part.per_shard * part.fanout.shape[1] > ev.ADDR_MASK + 1:
+        raise AssertionError("event addresses exceed the 14-bit field")
+    print(f"partition: {TORUS_SHARDS} wafer shards x {part.per_shard} "
+          f"neurons, max fan-out {part.fanout.shape[1]} shards/source; "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    stats, launches = {}, {}
+    for name, fields in TORUS_RUNS.items():
+        cfg = sim_config(part, **{**dict(e_max=1024, capacity=1024,
+                                         residue=256), **fields})
+        init, run = sim.build_sharded_sim(cfg, part, spec.bg_rates(),
+                                          device="cuda")
+        state = init(seed=0)
+        run(state, 1)                 # warm-up (the same draws in every run)
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t1 = time.perf_counter()
+        state, st = run(state, N_WINDOWS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches[name] = dict(dispatch.LAUNCHES)
+        stats[name] = flatten(st)
+        s = stats[name]
+        if not np.isfinite(state.neuron.v.cpu().numpy()).all():
+            raise AssertionError(f"{name}: non-finite membrane potentials")
+        can_defer = fields.get("link_credits", 0) > 0
+        want = {"placement": N_WINDOWS,
+                "wire_codec": 2 * (N_WINDOWS + 1) + int(can_defer),
+                "lif_step": cfg.window * N_WINDOWS}
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launches {launches[name]} != "
+                                 f"{want}")
+        check_backpressure_chain(name, s, TORUS_SHARDS)
+        ms = wall * 1e3 / N_WINDOWS
+        print(f"{name}: {ms:.3f} ms per window ({N_WINDOWS} windows, host "
+              f"clock); {int(s['spikes'].sum())} spikes, "
+              f"{int(s['events_sent'].sum())} events sent, deadline misses "
+              f"{int(s['deadline_miss'].sum())}, credit stalls "
+              f"{int(s['link.credit_stalls'].sum())}, deferred "
+              f"{int(s['link.deferred_events'].sum())}, parked "
+              f"{int(s['link.parked_events'].sum())}, unparked "
+              f"{int(s['link.unparked_events'].sum())}, hops per window "
+              f"{int(s['link.hops'][0, -1])}, bytes on wire "
+              f"{int(s['link.bytes_on_wire'].sum())}, latency p99 "
+              f"{float(s['latency.p99_us'].max()):.2f} us; launches "
+              f"{launches[name]}")
+        if name.endswith("binding credits"):
+            profile_device(lambda: run(state, 3), "3 windows + drain", 4,
+                           "window")
+    base, ample = stats["alltoall"], stats["torus3d, ample credits"]
+    binding = stats["torus3d, binding credits"]
+    if int(base["spikes"].sum()) == 0:
+        raise AssertionError("network is silent")
+    for key in SAME_ON_EVERY_FABRIC:
+        if not (ample[key] == base[key]).all():
+            raise AssertionError(f"ample credits: {key} differs from the "
+                                 f"alltoall run")
+    if int(ample["deadline_miss"].sum()) != 0:
+        raise AssertionError("ample credits: deadline misses")
+    if int(binding["link.credit_stalls"].sum()) == 0:
+        raise AssertionError("binding credits: no credit stall")
+    print(f"ample credits == alltoall on {len(SAME_ON_EVERY_FABRIC)} "
+          f"integer WindowStats fields in every window, 0 deadline misses; "
+          f"binding credits: identities and residue chain exact, "
+          f"{int(binding['deadline_miss'].sum())} deadline misses (model "
+          f"output)")
+    return launches["torus3d, binding credits"]
 
 
 # ---------------------------------------------------------------------------
@@ -902,6 +1360,7 @@ def main() -> int:
     banner("kernels against their plain versions")
     records = [check_placement(gen, cfg, per * cfg.max_fan),
                check_codec(gen, cfg), check_lif(gen, cfg),
+               check_bucket_scatter(gen),
                check_ssd_chunk(gen, MAMBA_SLOTS * dims(lm)[1], lm.ssm.chunk,
                                lm.ssm.head_dim, lm.ssm.d_state,
                                MAMBA_SLOTS * lm.ssm.n_groups)]
@@ -916,13 +1375,29 @@ def main() -> int:
     check_slice_small()
 
     banner("main path 1: microcircuit")
-    launches = run_main_path()
+    paths = {"microcircuit, alltoall": run_main_path()}
+
+    banner("the exchange on the card")
+    paths["exchange"] = run_exchange_path()
+
+    banner("torus slice, card vs CPU")
+    check_torus_slice_small()
+
+    banner("main path 3: microcircuit on the credited torus3d")
+    paths["microcircuit, torus3d"] = run_torus_main_path()
 
     banner("Mamba-2, reduced, card vs CPU")
     check_mamba_small()
 
     banner(f"main path 2: serving {MAMBA_ARCH}")
-    launches.update(run_mamba_main_path())
+    paths["serving"] = run_mamba_main_path()
+
+    # each kernel's launches from the path of this slice that runs it
+    launches = {**paths["microcircuit, torus3d"],
+                "bucket_scatter": paths["exchange"]["bucket_scatter"],
+                "ssd_chunk": paths["serving"]["ssd_chunk"]}
+    for path, counts in paths.items():
+        print(f"launches on {path}: {counts}")
 
     for r in records:
         r["launches"] = launches[r["name"]]

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of the BrainScaleS spike-communication reproduction.
 
 ``src/repro/`` (JAX/Pallas) is the reference; this package mirrors it
-module for module, so each file names its reference by path.  The slice
-ported so far is the main path: the windowed microcircuit simulator on
-the crossbar (``alltoall``) fabric, from the LIF steps through
-aggregation, the wire codec and the exchange to delivery.
+module for module, so each file names its reference by path.  Ported so
+far: the windowed microcircuit simulator, from the LIF steps through
+aggregation, the wire codec and the exchange to delivery, on the crossbar
+(``alltoall``) and on the credited Extoll torus (``torus2d`` /
+``torus3d``); the one-window exchange API (``core.exchange``); and
+Mamba-2 serving (``serve``).
 
 Conventions shared by every module:
 

@@ -1,10 +1,12 @@
-"""Bucket types and the wire-cost model of a flush window (port of the
-parts of ``src/repro/core/aggregator.py`` on the simulator's path).
+"""Capacity-bounded bucket aggregation of a flush window and its wire-cost
+model (port of ``src/repro/core/aggregator.py``, paper §3.1).
 
-The aggregation itself is ``repro_torch.kernels.fused_route_bucket``; the
-reference's one-hot and sort implementations are cross-check oracles and
-are not ported yet.  Functions reduce over the last axis, so a leading
-shard axis gives one result per shard.
+``aggregate(..., impl=)`` bins a window of events into per-destination
+buckets in window order: ``"fused"`` / ``"pallas"`` through the sort-based
+``kernels.fused_route_bucket`` (placement kernel A on CUDA tensors),
+``"onehot"`` and ``"sort"`` as staged cross-check oracles.  Functions
+reduce over the last axis, so a leading shard axis gives one result per
+shard.
 """
 from __future__ import annotations
 
@@ -28,6 +30,104 @@ class Buckets(NamedTuple):
     guids: torch.Tensor
     counts: torch.Tensor
     overflow: torch.Tensor
+
+
+def _place(values, rows, slots, n_dest: int, capacity: int):
+    """Scatter (..., N) ``values`` to ``[rows, slots]`` of (..., D, C)
+    zeros; row ``n_dest`` is a spare that takes the dropped events and is
+    cut off (the reference's ``.at[].set(mode="drop")``)."""
+    batch = values.shape[:-1]
+    out = torch.zeros(batch + ((n_dest + 1) * capacity,), dtype=torch.int32,
+                      device=values.device)
+    out.scatter_(-1, (rows * capacity + slots).long(),
+                 values.to(torch.int32))
+    return out.reshape(batch + (n_dest + 1, capacity))[..., :n_dest, :] \
+        .contiguous()
+
+
+def _positions_onehot(dest, valid, n_dest: int):
+    """Slot of each event within its destination's bucket (window order)
+    and the raw count per destination."""
+    oh = torch.nn.functional.one_hot(
+        torch.where(valid, dest, n_dest).long(),
+        n_dest + 1)[..., :n_dest].to(torch.int32)          # (..., N, D)
+    pos = torch.cumsum(oh, dim=-2, dtype=torch.int32) - oh  # exclusive
+    return (pos * oh).sum(-1, dtype=torch.int32), oh.sum(-2,
+                                                         dtype=torch.int32)
+
+
+def _buckets(words, guids, rows, slots, keep, counts, n_dest: int,
+             capacity: int) -> Buckets:
+    rows = torch.where(keep, rows, n_dest)
+    slots = torch.where(keep, slots, 0)
+    accepted = torch.clamp(counts, max=capacity)
+    return Buckets(_place(words, rows, slots, n_dest, capacity),
+                   _place(guids, rows, slots, n_dest, capacity), accepted,
+                   (counts - accepted).sum(-1, dtype=torch.int32))
+
+
+def aggregate_onehot(words, dest, guids, n_dest: int,
+                     capacity: int) -> Buckets:
+    valid = ev.is_valid(words) & (dest >= 0) & (dest < n_dest)
+    pos, counts = _positions_onehot(dest, valid, n_dest)
+    return _buckets(words, guids, dest, pos, valid & (pos < capacity),
+                    counts, n_dest, capacity)
+
+
+def aggregate_sort(words, dest, guids, n_dest: int,
+                   capacity: int) -> Buckets:
+    valid = ev.is_valid(words) & (dest >= 0) & (dest < n_dest)
+    key = torch.where(valid, dest, n_dest).to(torch.int32)  # invalid last
+    skey, order = torch.sort(key, dim=-1, stable=True)
+    swords = torch.gather(words, -1, order)
+    sguids = torch.gather(guids, -1, order)
+    # slot within group: index - index of the first with the same key
+    first = torch.searchsorted(skey, skey, out_int32=True)
+    pos = torch.arange(key.shape[-1], dtype=torch.int32,
+                       device=key.device) - first
+    counts = torch.zeros(key.shape[:-1] + (n_dest + 1,), dtype=torch.int32,
+                         device=key.device).scatter_add_(
+        -1, key.long(), torch.ones_like(key))[..., :n_dest]
+    return _buckets(swords, sguids, skey, pos,
+                    (skey < n_dest) & (pos < capacity), counts, n_dest,
+                    capacity)
+
+
+def aggregate(words, dest, guids, n_dest: int, capacity: int,
+              impl: str = "auto") -> Buckets:
+    """Bin a window of events into per-destination buckets.
+
+    impl: ``"onehot" | "sort" | "fused" | "pallas" | "auto"``.  ``"pallas"``
+    names the hand-written placement kernel (``kernels.ops.fused_scatter``;
+    the plain version on CPU tensors); ``"auto"`` is the kernel on a CUDA
+    tensor and ``"fused"`` on a CPU one.
+    """
+    if guids is None:
+        guids = torch.zeros_like(words, dtype=torch.int32)
+    dest = dest.to(torch.int32)
+    if impl == "auto":
+        from repro_torch.kernels import dispatch
+        impl = "pallas" if dispatch.on_cuda(words) else "fused"
+    if impl == "onehot":
+        return aggregate_onehot(words, dest, guids, n_dest, capacity)
+    if impl == "sort":
+        return aggregate_sort(words, dest, guids, n_dest, capacity)
+    if impl == "fused":
+        from repro_torch.kernels import fused_route_bucket as frb
+        return frb.fused_aggregate(words, dest, guids, n_dest,
+                                   capacity).buckets
+    if impl == "pallas":
+        from repro_torch.kernels import ops
+        return ops.fused_scatter(words, dest, guids, n_dest, capacity)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def overflow_mask(words, dest, n_dest: int, capacity: int) -> torch.Tensor:
+    """True for events not accepted this window (their bucket was full);
+    callers offer them again next window."""
+    valid = ev.is_valid(words) & (dest >= 0) & (dest < n_dest)
+    pos, _ = _positions_onehot(dest.to(torch.int32), valid, n_dest)
+    return valid & (pos >= capacity)
 
 
 class WindowCost(NamedTuple):

@@ -34,6 +34,7 @@ SIGNATURES = {
     "repro_wire_decode": (_P, _L, _P, _P, _L, _I, _I, _I, _I, _P),
     "repro_lif_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
                        _F, _F, _F, _F, _I, _F, _F, _F, _F, _P),
+    "repro_bucket_scatter": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
     "repro_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                         _I, _P),
 }

@@ -1,5 +1,5 @@
 """Windowed multi-shard SNN simulation over the bucket-exchange fabric
-(port of ``src/repro/snn/simulator.py``, crossbar transport).
+(port of ``src/repro/snn/simulator.py``).
 
 The simulation advances in flush windows of ``window`` dt steps, with
 ``window <= min axonal delay`` so every spike of a window reaches its
@@ -7,18 +7,22 @@ destination before its timestamp deadline.  The window loop is software
 pipelined as in the reference: iteration k
 
   1. encodes window k-1's pending buckets into 64-bit wire words (CUDA
-     codec kernel), ships them through the transport and decodes them,
-     charges their wire latency and scatters their weighted input into the
-     delay ring, checking deadlines;
+     codec kernel), ships them through the transport (``cfg.transport``:
+     the ``alltoall`` crossbar, or ``torus2d`` / ``torus3d`` with
+     hop-by-hop credits) and decodes them, charges their wire latency and
+     scatters their weighted input into the delay ring, checking
+     deadlines.  A row refused at its source egress link is deferred and
+     re-enters this window's aggregation ahead of everything else; a row
+     refused at a transit link parks in the fabric and resumes from its
+     hop in a later window;
   2. runs ``window`` LIF steps off the ring (CUDA LIF kernel);
-  3. compacts the spikes into event words, puts the residue of window k-1
-     first, then the fresh events, and runs the fused route+aggregate
-     (CUDA placement kernel); the new buckets and residue become the
-     pending half of the carry.  (The reference puts rows refused by a
-     credited torus link ahead of the residue; the crossbar refuses none,
-     and the credited torus is not ported yet: ROADMAP queue 1, item 7.)
+  3. compacts the spikes into event words, puts the transport-deferred
+     rows first, then the residue of window k-1, then the fresh events, and
+     runs the fused route+aggregate (CUDA placement kernel); the new
+     buckets and residue become the pending half of the carry.
 
-One ``drain`` after the last window flushes its buckets.
+One ``drain`` after the last window walks the fabric's transit buffers
+empty and then flushes the last window's buckets, credits bypassed.
 
 Differences from the reference, all of form:
 
@@ -67,7 +71,13 @@ class SimConfig(NamedTuple):
     capacity: int = 256       # bucket capacity (events per dest per window)
     params: lif.LIFParams = lif.LIFParams()
     residue: int = 256        # deferred-event carry buffer (re-offered)
-    transport: str = "alltoall"
+    transport: str = "alltoall"   # "alltoall" | "torus2d" | "torus3d"
+    torus_nx: int = 0         # torus shape (0 = most-square/cubic)
+    torus_ny: int = 0
+    torus_nz: int = 0         # wafer (Z) axis, torus3d only
+    link_credits: int = 0     # events per window per egress link (0 = off;
+                              #   spent on every hop of a row's route)
+    notify_latency: int = 2   # windows before spent link credits return
     wire_format: str = "extoll"   # frame/latency profile
     step_us: float = 0.1      # wire microseconds per dt step
 
@@ -139,8 +149,9 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                          ``state.t``); ``drive`` (window, S, per) f32 is
                          the background current of the window's steps
       drain(state, pending, link, t, weights_t, inh_src)
-                      -> (S,) deadline misses of the final flush (updates
-                         the state's rings in place)
+                      -> (S,) deadline misses of the final flush: the
+                         fabric's parked rows, then the pending buckets
+                         (updates the state's rings in place)
     """
     if fault_schedule is not None:
         raise NotImplementedError("fault injection is not ported yet "
@@ -150,8 +161,19 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                                   "(ROADMAP queue 1, item 10)")
     device = dispatch.resolve_device(device)
     S, C, L = cfg.n_shards, cfg.capacity, cfg.ring_len
-    backend = tp.create(cfg.transport, n_shards=S,
-                        wire_format=cfg.wire_format)
+    opts = {"wire_format": cfg.wire_format}
+    if cfg.transport in ("torus2d", "torus3d"):
+        opts.update(nx=cfg.torus_nx, ny=cfg.torus_ny,
+                    link_credits=cfg.link_credits,
+                    notify_latency=cfg.notify_latency,
+                    max_row_events=C)                 # livelock guard
+        if cfg.transport == "torus3d":
+            opts["nz"] = cfg.torus_nz
+    backend = tp.create(cfg.transport, n_shards=S, **opts)
+    # can the transport ever refuse a row?  (the deferred re-offer runs
+    # only where it can)
+    can_defer = (cfg.transport in ("torus2d", "torus3d")
+                 and cfg.link_credits > 0)
     fmt = backend.wire_fmt
     hops = backend.route_hops(device=device)
     own = torch.eye(S, dtype=torch.bool, device=device)
@@ -171,16 +193,18 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     def init_link() -> tp.LinkState:
         return backend.init_state(2 * C, device=device)
 
-    def _exchange(pend: PendingWindow, lstate):
+    def _exchange(pend: PendingWindow, lstate, *, enforce_credits: bool):
         """Ship window k-1's buckets as 64-bit wire words; returns the
-        received rows [dst, src], their meta and counts, the link
-        statistics, the fabric state and the queueing dwell of the rows
-        delivered to each shard."""
+        received rows [dst, src], their meta and counts, the rows that
+        left their senders [src, dst], the link statistics, the fabric
+        state and the queueing dwell of the rows delivered to each
+        shard."""
         payload = wire.encode_planar(pend.data, pend.meta)
-        out = backend.exchange(lstate, payload, pend.counts)
+        out = backend.exchange(lstate, payload, pend.counts,
+                               enforce_credits=enforce_credits)
         recv, recv_meta = wire.decode_planar(out.recv_payload)
-        return (recv, recv_meta, out.recv_counts, out.stats, out.state,
-                out.queue_us.T)
+        return (recv, recv_meta, out.recv_counts, out.sent_mask, out.stats,
+                out.state, out.queue_us.T)
 
     def _window_latency(t: int, recv_meta, counts, queue_us):
         """Wire latency of the events just delivered: waiting since each
@@ -252,18 +276,26 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
              delays, drive):
         state, pend, lstate = carry
         # 1. exchange + decode window k-1 (state.t == that window's end)
-        recv, rmeta, counts, lstats, lstate, qcol = _exchange(pend, lstate)
+        recv, rmeta, counts, sent_mask, lstats, lstate, qcol = _exchange(
+            pend, lstate, enforce_credits=True)
         latency = _window_latency(t, rmeta, counts, qcol)
         miss = _apply_events(state.ring_exc, state.ring_inh, recv, counts,
                              t, weights_t, inh_src)
         # 2. simulate window k
         neuron, spikes = _simulate_steps(state.neuron, state.ring_exc,
                                          state.ring_inh, t, drive)
-        # 3. route + aggregate: the residue first, then fresh spikes (oldest
-        #    deadlines win bucket slots)
+        # 3. route + aggregate: transport-deferred rows first, then the
+        #    residue, then fresh spikes (oldest deadlines win bucket slots)
         words, inject, lost = _spikes_to_events(spikes, t, delays)
-        words = torch.cat([pend.residue, words], dim=-1)
-        inject = torch.cat([pend.residue_meta, inject], dim=-1)
+        if can_defer:
+            held = (~sent_mask[..., None]) & (slots < pend.counts[..., None])
+            words = torch.cat([torch.where(held, pend.data, 0).reshape(S, -1),
+                               pend.residue, words], dim=-1)
+            inject = torch.cat([torch.where(held, pend.meta, 0).reshape(
+                S, -1), pend.residue_meta, inject], dim=-1)
+        else:
+            words = torch.cat([pend.residue, words], dim=-1)
+            inject = torch.cat([pend.residue_meta, inject], dim=-1)
         addr = torch.clamp(ev.address(words),
                            max=tables.dest_of_addr.shape[-1] - 1)
         fw = frb.fused_aggregate(words, lookup(tables.dest_of_addr, addr),
@@ -290,11 +322,22 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
 
     def drain(state: ShardState, pend: PendingWindow, lstate, t: int,
               weights_t, inh_src):
-        """Flush the last window's buckets (one exchange) into the rings;
-        the final residue stays deferred."""
-        recv, _, counts, *_ = _exchange(pend, lstate)
-        return _apply_events(state.ring_exc, state.ring_inh, recv, counts,
-                             t, weights_t, inh_src)
+        """Deliver every row still parked in the fabric (``drain_fabric``),
+        then flush the last window's buckets with credits bypassed, into
+        the rings; the final residue stays deferred.  The drain's link
+        statistics are not reported (they would break the per-window
+        identities); its deadline misses are."""
+        miss = torch.zeros((S,), dtype=torch.int32, device=device)
+        if can_defer:
+            fab = backend.drain_fabric(lstate)
+            recv_f, _ = wire.decode_planar(fab.recv_payload)
+            miss = miss + _apply_events(state.ring_exc, state.ring_inh,
+                                        recv_f, fab.recv_counts, t,
+                                        weights_t, inh_src)
+            lstate = fab.state
+        recv, _, counts, *_ = _exchange(pend, lstate, enforce_credits=False)
+        return miss + _apply_events(state.ring_exc, state.ring_inh, recv,
+                                    counts, t, weights_t, inh_src)
 
     return init_pending, init_link, body, drain
 

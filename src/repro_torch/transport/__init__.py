@@ -1,7 +1,9 @@
 """Flush-window transports (port of ``src/repro/transport``).
 
-``create("alltoall", n_shards=..., wire_format=...)`` returns the crossbar
-backend.  The torus backends are not ported yet (ROADMAP queue 1, item 7).
+``create("alltoall" | "torus2d" | "torus3d", n_shards=..., **opts)``
+returns a :class:`~repro_torch.transport.base.Transport`: the crossbar
+(``alltoall``) or the dimension-ordered torus backends with hop-by-hop
+credits and transit buffers (``torus``; ``torus3d`` adds the wafer Z axis).
 """
 from __future__ import annotations
 
@@ -13,8 +15,16 @@ BACKENDS = ("alltoall", "torus2d", "torus3d")
 
 
 def create(name: str, *, n_shards: int, **opts) -> Transport:
-    """Instantiate a transport backend by config key (``wire_format`` is
-    the only option of ``alltoall``)."""
+    """Instantiate a transport backend by config key.
+
+    Every backend takes ``wire_format`` (a ``WireFormat`` or profile name,
+    ``"extoll"`` or ``"ethernet"``).  The torus backends also take
+    ``nx`` / ``ny`` [/ ``nz``] (0 = most-square / most-cubic), the
+    per-window ``link_credits`` of every directed egress link (0 =
+    unthrottled), ``notify_latency`` windows before spent credits return,
+    and ``max_row_events``, the largest row the caller offers (raises if
+    ``link_credits`` could never admit one).
+    """
     if name == "alltoall":
         from repro_torch.transport.alltoall import AllToAllTransport
         extra = set(opts) - {"wire_format"}
@@ -22,10 +32,12 @@ def create(name: str, *, n_shards: int, **opts) -> Transport:
             raise TypeError(f"alltoall takes no options beyond wire_format, "
                             f"got {sorted(extra)}")
         return AllToAllTransport(n_shards, **opts)
-    if name in ("torus2d", "torus3d"):
-        raise NotImplementedError(
-            f"transport {name!r} is not ported yet (ROADMAP queue 1, item 7: "
-            f"credits and the torus)")
+    if name == "torus2d":
+        from repro_torch.transport.torus import Torus2DTransport
+        return Torus2DTransport(n_shards, **opts)
+    if name == "torus3d":
+        from repro_torch.transport.torus import Torus3DTransport
+        return Torus3DTransport(n_shards, **opts)
     raise ValueError(f"unknown transport {name!r} (want one of {BACKENDS})")
 
 

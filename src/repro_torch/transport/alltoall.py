@@ -29,20 +29,22 @@ class AllToAllTransport(base.Transport):
     def _window_constants(self, device: torch.device):
         """The tensors that are the same in every window, made once per
         device and shared (read-only): route hops, the all-true sent mask,
-        the zero queueing dwell and the zero link statistics."""
+        the zero dwell and unparked tables and the zero link statistics."""
         if device not in self._constants:
             n = self.n_shards
             self._constants[device] = (
                 self.route_hops(device=device),
                 torch.ones((n, n), dtype=torch.bool, device=device),
                 torch.zeros((n, n), dtype=torch.float32, device=device),
+                torch.zeros((n, n), dtype=torch.int32, device=device),
                 base.zero_link_stats((n,), device=device))
         return self._constants[device]
 
     def exchange(self, state: base.LinkState, payload: torch.Tensor,
-                 counts: torch.Tensor) -> base.TransportOut:
-        hops, sent_mask, queue_us, zero_stats = self._window_constants(
-            payload.device)
+                 counts: torch.Tensor, *,
+                 enforce_credits: bool = True) -> base.TransportOut:
+        hops, sent_mask, zero_us, zero_i, zero_stats = \
+            self._window_constants(payload.device)
         packed = pack_payload(payload, counts)            # [src, dst, W+1]
         recv = packed.transpose(0, 1).contiguous()        # [dst, src, W+1]
         recv_payload, recv_counts = unpack_payload(recv)
@@ -62,5 +64,8 @@ class AllToAllTransport(base.Transport):
             recv_counts=recv_counts,
             sent_mask=sent_mask,
             stats=stats,
-            queue_us=queue_us,
+            sent_now=sent_mask,
+            queue_us=zero_us,
+            unparked_now=zero_i,
+            park_wait_us=zero_us,
         )

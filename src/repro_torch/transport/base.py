@@ -13,6 +13,14 @@ call ships every shard's rows:
 
 State that the reference replicates on every shard (the credit bank, the
 transit-buffer tables) is held once; only ``parked_payload`` is per shard.
+
+Credits (paper §2.1, ``core.flow_control``): each directed egress link of
+each torus node holds ``link_credits`` credits; admitting a row spends its
+event count on every link of its route as it crosses it, and a spent
+credit returns ``notify_latency`` windows later, unless the row parks in
+the downstream buffer, whose arrival link's credit is then held
+(``FabricState.parked_by_link``) until the row departs.  Per link,
+``credits + pending.sum(-1) + parked_by_link == limit`` in every window.
 """
 from __future__ import annotations
 
@@ -112,11 +120,13 @@ def unpack_payload(buf: torch.Tensor):
 
 
 class TransportOut(NamedTuple):
-    """Result of shipping one window (shapes for S shards).
+    """Result of shipping one window (shapes for S shards; ``[s, d]`` is
+    the row shard s offered to shard d).
 
-    ``sent_mask[s, d]`` is True where shard s's row d left the sender.  The
-    reference's ``sent_now``, ``unparked_now`` and ``park_wait_us`` describe
-    parked rows; they come with the torus backends (ROADMAP queue 1, item 7).
+    ``sent_mask`` is the custody bit: True rows have left the sender
+    (delivered this window or parked in the fabric's transit buffers);
+    False rows were deferred and are offered again next window.
+    ``sent_now`` narrows it to rows delivered this window.
     """
 
     state: LinkState
@@ -124,7 +134,13 @@ class TransportOut(NamedTuple):
     recv_counts: torch.Tensor    # (S, S) int32 events per received row
     sent_mask: torch.Tensor      # (S, S) bool
     stats: LinkStats             # (S,) per field
+    sent_now: torch.Tensor       # (S, S) bool rows delivered this window
     queue_us: torch.Tensor       # (S, S) f32 queueing dwell of row (s, d)
+                                 #   behind parked traffic on its route
+    unparked_now: torch.Tensor   # (S, S) int32 events of parked rows
+                                 #   delivered from the fabric this window
+    park_wait_us: torch.Tensor   # (S, S) f32 park-dwell charge of rows
+                                 #   delivered after parking
 
 
 class Transport:
@@ -138,10 +154,29 @@ class Transport:
         self.wire_fmt = get_profile(wire_format)
 
     def init_state(self, payload_width: int = 0, *, device=None) -> LinkState:
-        """Fresh fabric state; the crossbar never parks a row, so its
-        tables are empty whatever the payload width."""
+        """Fresh fabric state.  ``payload_width`` is the int32 width of the
+        rows the caller will offer, which a transit buffer must hold; the
+        crossbar never parks a row, so its tables are empty."""
         return init_fabric_state(fc.init_credits(0, 0, 1, device=device),
                                  self.n_shards)
+
+    def drain_fabric(self, state: LinkState,
+                     payload_width: int | None = None) -> TransportOut:
+        """Deliver every row still parked in the transit buffers, credits
+        ignored.  The crossbar never parks, so nothing is delivered."""
+        n, device = self.n_shards, state.bank.credits.device
+        w = (state.parked_payload.shape[-1] if payload_width is None
+             else payload_width)
+        zi = torch.zeros((n, n), dtype=torch.int32, device=device)
+        zf = torch.zeros((n, n), dtype=torch.float32, device=device)
+        full = torch.ones((n, n), dtype=torch.bool, device=device)
+        return TransportOut(
+            state=state,
+            recv_payload=torch.zeros((n, n, w), dtype=torch.int32,
+                                     device=device),
+            recv_counts=zi, sent_mask=full,
+            stats=zero_link_stats((n,), device=device),
+            sent_now=full, queue_us=zf, unparked_now=zi, park_wait_us=zf)
 
     def route_hops(self, *, device=None) -> torch.Tensor:
         """(S, S) int32 links traversed by a row s -> d: one for every
@@ -150,6 +185,9 @@ class Transport:
                              device=dispatch.resolve_device(device))
 
     def exchange(self, state: LinkState, payload: torch.Tensor,
-                 counts: torch.Tensor) -> TransportOut:
-        """Ship one window: payload (S, S, W) int32, counts (S, S) int32."""
+                 counts: torch.Tensor, *,
+                 enforce_credits: bool = True) -> TransportOut:
+        """Ship one window: payload (S, S, W) int32, counts (S, S) int32.
+        ``enforce_credits=False`` ships regardless of the credit state (the
+        end-of-run flush)."""
         raise NotImplementedError

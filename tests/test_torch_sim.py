@@ -313,8 +313,13 @@ def test_unported_paths_raise(part):
     with pytest.raises(NotImplementedError, match="item 12"):
         Engine(lm, ServeConfig()).generate_batch(params, [Request(
             0, np.arange(3, 7, dtype=np.int32), extras={"enc_frames": 0})])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        transport.create("torus2d", n_shards=4)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        transport.create("torus2d", n_shards=4,
+                         link_credits=64)._admit_global_faulted(None, None,
+                                                                None)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        from repro_torch.transport.torus import TenantTorusTransport
+        TenantTorusTransport(4, (2, 2))
     with pytest.raises(NotImplementedError, match="item 8"):
         sim.build_sharded_sim(_cfg(p, "ample"), p, spec.bg_rates(),
                               fault_schedule=object(), device="cpu")
