@@ -8,12 +8,16 @@ CUDA toolkit (``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``):
 Phases, each raising on failure (exit code != 0, no result line):
 
 1. device  -- the card's name and power limit, as nvidia-smi reports them;
-2. build   -- the kernel library from ``src/repro_torch/csrc`` (sm_90a);
+2. build   -- the kernel library from ``src/repro_torch/csrc`` (sm_90a),
+   and the count of tensor-core instructions (``HGMMA`` in ``cuobjdump
+   -sass``) in the SSD chunk's tensor-core kernel, which must not be 0;
 3. kernels -- each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' full-width shapes and on edge cases (bit
    for bit for placement, codec, LIF and bucket_scatter; rtol/atol 2e-4
-   for the f32 SSD chunk); device times per call (CUDA graph) of kernel
-   and plain version;
+   for the SSD chunk, whose bf16 cases take the tensor-core kernel and f32
+   cases the FMA kernel); device times per call (CUDA graph) of kernel
+   and plain version, for the SSD chunk the tensor-core kernel, the FMA
+   kernel on the same bf16 inputs and the plain version in turns;
 4. slice   -- a small microcircuit (scale 0.004, 4 shards, 8 windows) on
    the card against the same run of the plain versions on the CPU, with
    the same initial potentials and background drive;
@@ -40,22 +44,28 @@ Phases, each raising on failure (exit code != 0, no result line):
    misses) and with credits that bind (conservation and the residue chain
    exact, deadline misses printed as the model's output); launch counts,
    ms per window, a torch.profiler pass;
-6. Mamba-2 slice -- the reduced mamba2 (2 layers) on the card against the
-   CPU: hidden states, caches and decode at the model tolerance 5e-2, and
-   greedy serving with the same tokens where the CPU's margin exceeds it;
+6. Mamba-2 slice -- the reduced mamba2 (2 layers; its blocks compute in
+   bf16, so the SSD chunk takes the tensor-core kernel) on the card
+   against the CPU: hidden states, caches and decode at the model
+   tolerance 5e-2, and greedy serving with the same tokens where the
+   CPU's margin exceeds it; then the f32 route: the chunked SSD scan on
+   f32 inputs at the serving widths (2 chunks, 2 launches of the FMA
+   kernel), card against CPU at 2e-4;
 7. main path 2 -- mamba2-2.7b at its published width (64 layers, d_model
    2560, 80 heads x 64, d_state 128, chunk 256, vocab 50,280), random bf16
    weights from seed 0, serving 8 requests of 300-600 prompt tokens
    through 4 slots, 16 new tokens each: prefill ms per wave, decode ms per
-   step, peak memory, the SSD-chunk launch count (64 x the chunks of every
-   wave's prefill, none in decode) and finite outputs; prefill + decode
+   step, peak memory, the SSD-chunk launch counts (the tensor-core kernel
+   64 x the chunks of every wave's prefill, the FMA kernel never, none in
+   decode) and finite outputs; prefill + decode
    against the full forward at 2 and 64 layers, with three cache faults
    planted to show that the check sees them; then torch.profiler passes
    over one prefill wave and 8 decode steps;
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
    to 0 just before that path: A-C from main path 3, D from the exchange,
-   E from main path 2) and, last, the device JSON line.
+   E's tensor-core kernel from main path 2, E's FMA kernel from the f32
+   scan of phase 6) and, last, the device JSON line.
 """
 from __future__ import annotations
 
@@ -75,6 +85,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM device memory
 FP32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
 
 SCALE = 0.2
 N_SHARDS = 4
@@ -120,9 +131,10 @@ def time_ms(fn, calls: int = 10, reps: int = 20) -> tuple[float, float]:
     return device_ms, eager_ms
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -343,13 +355,35 @@ def _ssd_inputs(gen, bh, c, P, N, dtype, bg=None):
             r(bh, P, N) * 0.1)
 
 
-def check_ssd_chunk(gen, bh, chunk, head_dim, d_state, bg):
+def count_hgmma(lib_path, kernel: str) -> int:
+    """HGMMA (Hopper tensor-core) instructions in the functions of the built
+    library whose name holds ``kernel``, as ``cuobjdump -sass`` lists
+    them."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "HGMMA" in line:
+            count += 1
+    return count
+
+
+def check_ssd_chunk(gen, bh, chunk, head_dim, d_state, bg, hgmma):
     """Kernel E at the serving path's shape (BH = slots x heads pairs,
     c = chunk, P = head_dim, N = d_state, bf16 x / B / C as the conv gives
     them, B and C per group: ``bg`` = slots x groups rows) and on edge
     cases: B and C per pair, f32 inputs, short and long chunks (the long
     one takes more than 48 KB of shared memory), ragged tiles, one pair.
-    Both outputs at rtol/atol 2e-4 (f32 sums in another order)."""
+    The bf16 cases take the tensor-core kernel, the f32 cases the FMA
+    kernel (``ssd_chunk.route``; the launch counts show which ran).  Both
+    outputs at rtol/atol 2e-4 (f32 sums in another order; the tensor-core
+    kernel's split f32 operands keep ~16 bits).  Returns the rows of the
+    two kernels."""
+    from repro_torch.kernels import dispatch
     from repro_torch.kernels import ssd_chunk as ssd
     bf16, f32 = torch.bfloat16, torch.float32
     main = (bh, chunk, head_dim, d_state, bf16, bg)
@@ -357,20 +391,37 @@ def check_ssd_chunk(gen, bh, chunk, head_dim, d_state, bg):
              (bh, chunk, head_dim, d_state, f32, bg),
              (1, 16, 8, 16, f32, None), (6, 100, 80, 72, bf16, 2),
              (3, 1, 4, 4, f32, None), (2, 2048, 16, 24, bf16, 1),
-             (5, 257, 64, 128, f32, None)]
-    err = 0.0
+             (5, 257, 64, 128, f32, None),
+             # the tensor-core tiling: ragged row, P and N tiles; one pair
+             (4, 320, 48, 40, bf16, 2), (1, 64, head_dim, d_state, bf16,
+                                         None)]
+    err = {"ssd_chunk_tc": 0.0, "ssd_chunk_f32": 0.0}
+    n_cases = dict.fromkeys(err, 0)
     for case in cases:
         ins = _ssd_inputs(gen, *case)
+        kernel = ssd.route(ins[0].dtype, ins[3].dtype, ins[4].dtype)
+        dispatch.reset_launches()
         got = ssd.ssd_chunk(*ins)
+        if dispatch.LAUNCHES != {ssd.KERNELS[kernel][0]: 1}:
+            raise AssertionError(f"ssd_chunk {case}: launches "
+                                 f"{dispatch.LAUNCHES}, want one {kernel}")
         want = ssd.ssd_chunk_plain(*ins)
         for name, a, b in zip(("y", "s_new"), got, want):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4,
-                                       msg=lambda m: f"ssd_chunk {case} "
+                                       msg=lambda m: f"{kernel} {case} "
                                        f"{name}: {m}")
-        err = max(err, max_abs_err(zip(got, want)))
+        err[kernel] = max(err[kernel], max_abs_err(zip(got, want)))
+        n_cases[kernel] += 1
+    # the three versions on the path's inputs, in turns, one call
     ins = _ssd_inputs(gen, *main)
-    ms, eager_ms = time_ms(lambda: ssd.ssd_chunk(*ins))
-    plain_ms, plain_eager_ms = time_ms(lambda: ssd.ssd_chunk_plain(*ins))
+    fns = {"tc": ssd.ssd_chunk_tc, "fma": ssd.ssd_chunk_fma,
+           "plain": ssd.ssd_chunk_plain}
+    times = {k: [] for k in fns}
+    for order in (("tc", "fma", "plain"), ("plain", "fma", "tc")):
+        for k in order:
+            times[k].append(time_ms(lambda f=fns[k]: f(*ins)))
+    (ms, eager_ms), (fma_ms, fma_eager_ms), (plain_ms, plain_eager_ms) = (
+        tuple(statistics.mean(v) for v in zip(*times[k])) for k in fns)
     x, dt, A, B, C, s_prev = ins
     n_bytes = sum(t.numel() * t.element_size() for t in ins) + \
         4 * (x.numel() + s_prev.numel())               # y and s_new, f32
@@ -378,15 +429,26 @@ def check_ssd_chunk(gen, bh, chunk, head_dim, d_state, bg):
     # the carried-state product and the state update
     flops = bh * (chunk * (chunk + 1) * (d_state + head_dim)
                   + 4 * chunk * head_dim * d_state)
-    bms, by = bound_ms(n_bytes, flops)
-    return dict(name="ssd_chunk", route="cuda",
-                source="src/repro_torch/csrc/ssd_chunk.cu",
-                replaces="src/repro/kernels/ssd_chunk.py:80",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                bound_by=by, library_ms=None, eager_ms=eager_ms,
-                plain_eager_ms=plain_eager_ms,
-                parity=f"rtol/atol 2e-4 ({len(cases)} shapes, bf16 and f32,"
-                       f" B/C per group and per pair)")
+    common = dict(route="cuda", replaces="src/repro/kernels/ssd_chunk.py:80",
+                  plain_ms=plain_ms, library_ms=None,
+                  plain_eager_ms=plain_eager_ms)
+    bms, by = bound_ms(n_bytes, flops, BF16_OPS_PER_S)
+    tc = dict(common, name="ssd_chunk",
+              source="src/repro_torch/csrc/ssd_chunk_tc.cu",
+              max_abs_err=err["ssd_chunk_tc"], ms=ms, bound_ms=bms,
+              bound_by=by, eager_ms=eager_ms, hgmma=hgmma,
+              parity=f"rtol/atol 2e-4 ({n_cases['ssd_chunk_tc']} bf16 "
+                     f"shapes, B/C per group and per pair); {hgmma} HGMMA "
+                     f"in its SASS; FMA kernel on the same inputs "
+                     f"{fma_ms:.4f} ms")
+    bms, by = bound_ms(n_bytes, flops, FP32_OPS_PER_S)
+    fma = dict(common, name="ssd_chunk_f32",
+               source="src/repro_torch/csrc/ssd_chunk.cu",
+               max_abs_err=err["ssd_chunk_f32"], ms=fma_ms, bound_ms=bms,
+               bound_by=by, eager_ms=fma_eager_ms,
+               parity=f"rtol/atol 2e-4 ({n_cases['ssd_chunk_f32']} f32 "
+                      f"shapes); timed on the path's bf16 inputs")
+    return [tc, fma]
 
 
 def _scatter_bytes(batch, n, d, c):
@@ -1151,7 +1213,7 @@ def check_mamba_small():
     reqs = [Request(i, rng.integers(3, cfg.vocab, n).astype(np.int32))
             for i, n in enumerate((5, 20, 33))]
     out_gpu = Engine(model, scfg).generate_batch(card, reqs)
-    launches = dispatch.LAUNCHES.get("ssd_chunk", 0)
+    launches = dict(dispatch.LAUNCHES)
     out_cpu = Engine(model, scfg).generate_batch(params, reqs)
     margins = _margins(model, params, reqs, out_cpu, scfg)
     checked = 0
@@ -1169,12 +1231,54 @@ def check_mamba_small():
         else:
             if len(got) != len(want):
                 raise AssertionError(f"mamba serve: request {r.rid} length")
-    if launches == 0 or checked == 0:
-        raise AssertionError("mamba small: kernel not launched or no token "
-                             "compared")
+    # the blocks compute in bf16 whatever the parameters' dtype, so the
+    # tensor-core kernel runs here
+    if set(launches) != {"ssd_chunk"} or checked == 0:
+        raise AssertionError(f"mamba small: launches {launches} (want the "
+                             f"tensor-core kernel only) or no token "
+                             f"compared")
     print(f"mamba2 reduced (2 layers, chunk 16), card vs CPU: hidden, "
           f"prefill, decode within {TOL_MODEL}; served 3 requests with "
-          f"{checked} decisive tokens equal; {launches} ssd_chunk launches")
+          f"{checked} decisive tokens equal; launches {launches}")
+
+
+def run_ssd_f32_path():
+    """The f32 route of kernel E: the chunked SSD scan that every Mamba-2
+    block calls (``models/ssm.py:ssd_chunked``) on f32 inputs at the
+    serving path's widths (4 slots x 512 tokens, 80 heads x 64, one group
+    of d_state 128, chunk 256; inputs from seed 5), card against the same
+    scan on the CPU at rtol/atol 2e-4.  Each chunk is one launch of the FMA
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.ssm import dims, ssd_chunked
+    cfg = get_config(MAMBA_ARCH)
+    s = cfg.ssm
+    _, heads, _ = dims(cfg)
+    gen = torch.Generator().manual_seed(5)
+    r = lambda *shape: torch.randn(shape, generator=gen)
+    length = 2 * s.chunk
+    ins = (r(MAMBA_SLOTS, length, heads, s.head_dim),
+           torch.nn.functional.softplus(r(MAMBA_SLOTS, length, heads)),
+           -torch.exp(r(heads) * 0.3),
+           r(MAMBA_SLOTS, length, s.n_groups, s.d_state) * 0.3,
+           r(MAMBA_SLOTS, length, s.n_groups, s.d_state) * 0.3)
+    card = [t.cuda() for t in ins]
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    got = ssd_chunked(*card, s.chunk)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.LAUNCHES)
+    want = ssd_chunked(*ins, s.chunk)
+    for name, a, b in zip(("y", "state"), got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-4,
+                                   msg=lambda m: f"f32 scan {name}: {m}")
+    if launches != {"ssd_chunk_f32": length // s.chunk}:
+        raise AssertionError(f"f32 scan launches {launches}")
+    print(f"chunked SSD scan in f32 ({MAMBA_SLOTS} x {length} tokens, "
+          f"{heads} heads x {s.head_dim}, d_state {s.d_state}), card == "
+          f"CPU at 2e-4; launches {launches}")
+    return launches
 
 
 def run_mamba_main_path():
@@ -1247,6 +1351,7 @@ def run_mamba_main_path():
           f"tokens, {n_gen} generated) in {wall:.2f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB")
 
+    # the tensor-core kernel only: an "ssd_chunk_f32" key fails it too
     want = {"ssd_chunk": cfg.n_layers * sum(chunks)}
     if launches != want:
         raise AssertionError(f"mamba launches {launches} != {want}")
@@ -1343,8 +1448,13 @@ def main() -> int:
     print(f"kernel library {path.name} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("==") \
+                or "Compiling entry" in line:
             print("  " + line.strip())
+    hgmma = count_hgmma(path, "ssd_chunk_tc")
+    print(f"HGMMA instructions in ssd_chunk_tc's SASS: {hgmma}")
+    if hgmma == 0:
+        raise AssertionError("ssd_chunk_tc has no tensor-core instruction")
 
     from repro_torch.snn import lif
     from repro_torch.snn import simulator as sim
@@ -1361,9 +1471,10 @@ def main() -> int:
     records = [check_placement(gen, cfg, per * cfg.max_fan),
                check_codec(gen, cfg), check_lif(gen, cfg),
                check_bucket_scatter(gen),
-               check_ssd_chunk(gen, MAMBA_SLOTS * dims(lm)[1], lm.ssm.chunk,
-                               lm.ssm.head_dim, lm.ssm.d_state,
-                               MAMBA_SLOTS * lm.ssm.n_groups)]
+               *check_ssd_chunk(gen, MAMBA_SLOTS * dims(lm)[1],
+                                lm.ssm.chunk, lm.ssm.head_dim,
+                                lm.ssm.d_state,
+                                MAMBA_SLOTS * lm.ssm.n_groups, hgmma)]
     for r in records:
         print(f"{r['name']}: {r['parity']}; device time per call (CUDA "
               f"graph): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -1389,13 +1500,17 @@ def main() -> int:
     banner("Mamba-2, reduced, card vs CPU")
     check_mamba_small()
 
+    banner("the f32 route of the SSD chunk")
+    paths["f32 SSD scan"] = run_ssd_f32_path()
+
     banner(f"main path 2: serving {MAMBA_ARCH}")
     paths["serving"] = run_mamba_main_path()
 
     # each kernel's launches from the path of this slice that runs it
     launches = {**paths["microcircuit, torus3d"],
                 "bucket_scatter": paths["exchange"]["bucket_scatter"],
-                "ssd_chunk": paths["serving"]["ssd_chunk"]}
+                "ssd_chunk": paths["serving"]["ssd_chunk"],
+                "ssd_chunk_f32": paths["f32 SSD scan"]["ssd_chunk_f32"]}
     for path, counts in paths.items():
         print(f"launches on {path}: {counts}")
 

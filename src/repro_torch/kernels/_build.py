@@ -37,6 +37,8 @@ SIGNATURES = {
     "repro_bucket_scatter": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
     "repro_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                         _I, _P),
+    "repro_ssd_chunk_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                           _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,12 @@
 """One Mamba-2 SSD chunk (port of ``src/repro/kernels/ssd_chunk.py``).
 
-:func:`ssd_chunk` launches the hand-written kernel ``csrc/ssd_chunk.cu`` on
-CUDA tensors and runs :func:`ssd_chunk_plain` (the port of
-``kernels/ref.py:ssd_chunk_ref``) on CPU tensors.  Both compute in f32
-whatever the inputs' dtype and return f32 outputs.
+:func:`ssd_chunk` picks its route by the dtype of x, B and C and nothing
+else (:func:`route`): on CUDA, bf16 (the serving path) launches the
+tensor-core kernel ``csrc/ssd_chunk_tc.cu`` and f32 the FMA kernel
+``csrc/ssd_chunk.cu``; CPU tensors run :func:`ssd_chunk_plain` (the port
+of ``kernels/ref.py:ssd_chunk_ref``).  All compute in f32 and return f32
+outputs.  A shape the chosen kernel cannot take raises; nothing falls back
+to another kernel or to the plain version.
 
 Groups: ``B`` and ``C`` may hold one row block per group instead of one
 per pair (``BH % BG == 0``); pair ``g`` then reads row block
@@ -17,6 +20,10 @@ import torch
 from repro_torch.kernels import dispatch
 
 MAX_CHUNK = 16384      # shared memory holds dt and cum of one chunk
+TC_MAX_WIDTH = 128     # P and N of the tensor-core kernel: 2 tiles of 64
+# route -> (launch counter, C entry point)
+KERNELS = {"ssd_chunk_tc": ("ssd_chunk", "repro_ssd_chunk_tc"),
+           "ssd_chunk_f32": ("ssd_chunk_f32", "repro_ssd_chunk")}
 
 
 def ssd_chunk_plain(x, dt, A, B, C, s_prev):
@@ -69,23 +76,80 @@ def _check(x, dt, A, B, C, s_prev) -> int:
     return bh // bg
 
 
-def ssd_chunk(x, dt, A, B, C, s_prev):
-    """One chunk for all (batch, head) pairs -> (y, s_new), both f32.
+def route(x_dtype, b_dtype, c_dtype) -> str:
+    """The kernel that takes these operands on the card, by dtype alone:
+    bf16 x, B, C -> ``ssd_chunk_tc``, f32 -> ``ssd_chunk_f32``; raises on
+    a mix or on any other dtype."""
+    dtypes = {x_dtype, b_dtype, c_dtype}
+    if dtypes == {torch.bfloat16}:
+        return "ssd_chunk_tc"
+    if dtypes == {torch.float32}:
+        return "ssd_chunk_f32"
+    raise ValueError(f"ssd_chunk: x, B and C must all be bf16 or all f32, "
+                     f"got {x_dtype}, {b_dtype}, {c_dtype}")
 
-    On CUDA: x, B, C contiguous f32 or bf16 (one dtype); dt, A, s_prev
-    contiguous f32; one kernel launch.  On the CPU: the plain version.
-    """
-    if not dispatch.on_cuda(x, dt, A, B, C, s_prev):
-        return ssd_chunk_plain(x, dt, A, B, C, s_prev)
-    rep = _check(x, dt, A, B, C, s_prev)
+
+def _check_tc(x, B, C, s_prev) -> None:
+    """Raise on what the tensor-core kernel cannot take: P and N outside
+    8..TC_MAX_WIDTH or not multiples of 8 (TMA's 16-byte row stride), or
+    operands that are not 16-byte aligned."""
+    p, n = x.shape[2], B.shape[2]
+    for name, v in (("P", p), ("N", n)):
+        if not 8 <= v <= TC_MAX_WIDTH or v % 8:
+            raise ValueError(f"ssd_chunk_tc: {name} = {v} must be a "
+                             f"multiple of 8 in 8..{TC_MAX_WIDTH}")
+    for name, t in (("x", x), ("B", B), ("C", C), ("s_prev", s_prev)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_chunk_tc: {name} is not 16-byte aligned")
+
+
+def _launch(kernel, rep, x, dt, A, B, C, s_prev, *extra):
     bh, c, p = x.shape
     n = B.shape[2]
     y = torch.empty((bh, c, p), dtype=torch.float32, device=x.device)
     s_new = torch.empty((bh, p, n), dtype=torch.float32, device=x.device)
     if bh == 0:
         return y, s_new
-    dispatch.launch("ssd_chunk", "repro_ssd_chunk", x.data_ptr(),
-                    dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-                    s_prev.data_ptr(), y.data_ptr(), s_new.data_ptr(), bh,
-                    rep, c, p, n, int(x.dtype == torch.bfloat16))
+    counter, symbol = KERNELS[kernel]
+    args = (x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), s_prev.data_ptr(), y.data_ptr(), s_new.data_ptr(),
+            bh, rep, c, p, n, *extra)
+    dispatch.launch(counter, symbol, *args)
     return y, s_new
+
+
+def ssd_chunk_tc(x, dt, A, B, C, s_prev):
+    """The tensor-core kernel (bf16 x, B, C) on CUDA tensors; the plain
+    version on CPU tensors."""
+    if not dispatch.on_cuda(x, dt, A, B, C, s_prev):
+        return ssd_chunk_plain(x, dt, A, B, C, s_prev)
+    rep = _check(x, dt, A, B, C, s_prev)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"ssd_chunk_tc: x, B and C must be bf16, got "
+                         f"{x.dtype}")
+    _check_tc(x, B, C, s_prev)
+    return _launch("ssd_chunk_tc", rep, x, dt, A, B, C, s_prev)
+
+
+def ssd_chunk_fma(x, dt, A, B, C, s_prev):
+    """The f32 FMA kernel (f32 or bf16 x, B, C) on CUDA tensors; the plain
+    version on CPU tensors."""
+    if not dispatch.on_cuda(x, dt, A, B, C, s_prev):
+        return ssd_chunk_plain(x, dt, A, B, C, s_prev)
+    rep = _check(x, dt, A, B, C, s_prev)
+    return _launch("ssd_chunk_f32", rep, x, dt, A, B, C, s_prev,
+                   int(x.dtype == torch.bfloat16))
+
+
+def ssd_chunk(x, dt, A, B, C, s_prev):
+    """One chunk for all (batch, head) pairs -> (y, s_new), both f32.
+
+    On CUDA: x, B, C contiguous, all bf16 (the tensor-core kernel) or all
+    f32 (the FMA kernel); dt, A, s_prev contiguous f32; one kernel launch.
+    On the CPU: the plain version.
+    """
+    if not dispatch.on_cuda(x, dt, A, B, C, s_prev):
+        return ssd_chunk_plain(x, dt, A, B, C, s_prev)
+    kernel = route(x.dtype, B.dtype, C.dtype)
+    return (ssd_chunk_tc if kernel == "ssd_chunk_tc" else ssd_chunk_fma)(
+        x, dt, A, B, C, s_prev)
