@@ -13,21 +13,26 @@ Phases, each raising on failure (exit code != 0, no result line):
    -sass``) in the SSD chunk's tensor-core kernel, which must not be 0;
 3. kernels -- each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' full-width shapes and on edge cases (bit
-   for bit for placement, codec, LIF and bucket_scatter; rtol/atol 2e-4
-   for the SSD chunk, whose bf16 cases take the tensor-core kernel and f32
-   cases the FMA kernel); device times per call (CUDA graph) of kernel
-   and plain version, for the SSD chunk the tensor-core kernel, the FMA
-   kernel on the same bf16 inputs and the plain version in turns;
+   for bit for placement with and without its wire-encode epilogue,
+   codec, the LIF step and the LIF window, and bucket_scatter; rtol/atol
+   2e-4 for the SSD chunk, whose bf16 cases take the tensor-core kernel
+   and f32 cases the FMA kernel); device times per call (CUDA graph) of
+   kernel and plain version; in turns: placement with and without the
+   epilogue, one LIF window kernel against the 8-step sequence it
+   replaced, and for the SSD chunk the tensor-core kernel, the FMA kernel
+   on the same bf16 inputs and the plain version;
 4. slice   -- a small microcircuit (scale 0.004, 4 shards, 8 windows) on
    the card against the same run of the plain versions on the CPU, with
    the same initial potentials and background drive;
 5. main path 1 -- the Potjans-Diesmann microcircuit at scale 0.2 (15,431
    neurons, the largest round scale whose addresses fit the 14-bit event
    field) on 4 wafer shards, transport alltoall, wire format extoll, for
-   25 windows (20 ms biological) with launch counts, deadline, residue and
-   link-conservation checks, and the summary of
+   25 windows (20 ms biological) with launch counts (placement and the
+   LIF window once a window, the codec's decode once an exchange),
+   deadline, residue and link-conservation checks, and the summary of
    ``examples/multiwafer_microcircuit.py``; then a torch.profiler pass
-   over 5 more windows for the device busy share;
+   over 5 more windows for the device busy share and device functions
+   per window;
 5a. the exchange -- ``make_exchange`` at S 8, N 4096, C 256 on the tables
    of ``benchmarks/bench_transport.py`` for alltoall, torus2d 2x4 and
    torus3d 2x2x2, with link credits 512 and without, the onehot and sort
@@ -173,9 +178,13 @@ def _words(gen, shape, n_addr=1 << 14, p_valid=0.9):
 def check_placement(gen, cfg, n_lut):
     """Kernel A at the main path's shapes (S windows of residue + e_max *
     max_fan events, D = S destinations, C = capacity), then ragged edge
-    cases; both variants; plus the whole fused window on the card against
-    the CPU."""
+    cases; both variants, each without and with the encode epilogue in
+    three word formats (the payload also against ``encode_plain`` of the
+    rows the kernel placed); plus the whole fused window on the card
+    against the CPU.  Times placement with and without the epilogue in
+    turns: the difference is what the fused encode costs."""
     from repro_torch.kernels import fused_route_bucket as frb
+    from repro_torch.wire import codec
     dev = gen.device
 
     def operands(b, n, d, c, routed, biased):
@@ -207,14 +216,22 @@ def check_placement(gen, cfg, n_lut):
     cases = [(S, n_main, S, C, True), (3, 1000, 7, 33, False),
              (2, 63, 7, 1, False), (1, 257, 13, 19, False),
              (5, 300, 4, 16, False)]
+    fmts = (None, codec.DEFAULT_WORD, codec.WireWordFormat(16, 14, 20),
+            codec.WireWordFormat(15, 14, 0))
     for routed in (False, True):
         for b, n, d, c, biased in cases:
             ops = operands(b, n, d, c, routed, biased)
-            got = frb.placement(*ops, c, routed=routed)
-            want = frb.placement_plain(*ops, c, routed=routed)
-            require_equal(f"placement routed={routed} {(b, n, d, c)}",
-                          list(zip(got, want)))
-            err = max(err, max_abs_err(zip(got, want)))
+            for fmt in fmts:
+                what = f"placement routed={routed} {(b, n, d, c)} {fmt}"
+                got = frb.placement(*ops, c, routed=routed, wire_fmt=fmt)
+                want = frb.placement_plain(*ops, c, routed=routed,
+                                           wire_fmt=fmt)
+                require_equal(what, list(zip(got, want)))
+                err = max(err, max_abs_err(zip(got, want)))
+                if fmt is not None:
+                    require_equal(f"{what}: payload vs encode_plain", [(
+                        got[2], torch.cat(codec.encode_plain(
+                            got[0], got[1], fmt), dim=-1))])
             if biased and int(ops[1].max()) <= c:
                 raise AssertionError("placement: no overflowing row tested")
     # the whole fused window (sort + kernel) on the card vs the CPU
@@ -226,10 +243,12 @@ def check_placement(gen, cfg, n_lut):
                          device=dev, dtype=torch.int32)
     fw_gpu = frb.fused_aggregate(words, dest, meta, S, C,
                                  residue_len=cfg.residue,
-                                 with_residue_meta=True)
+                                 with_residue_meta=True,
+                                 wire_fmt=codec.DEFAULT_WORD)
     fw_cpu = frb.fused_aggregate(words.cpu(), dest.cpu(), meta.cpu(), S, C,
                                  residue_len=cfg.residue,
-                                 with_residue_meta=True)
+                                 with_residue_meta=True,
+                                 wire_fmt=codec.DEFAULT_WORD)
     require_equal("fused_aggregate card vs CPU", [
         (a.cpu(), b) for a, b in zip(
             list(fw_gpu.buckets) + list(fw_gpu[1:]),
@@ -237,24 +256,44 @@ def check_placement(gen, cfg, n_lut):
 
     ops = operands(S, n_main, S, C, False, True)
     first, counts, swords_pad, aux = ops
-    ms, eager_ms = time_ms(lambda: frb.placement(*ops, C, routed=False))
+    fmt = codec.DEFAULT_WORD
+    fns = {"encode": lambda: frb.placement(*ops, C, routed=False,
+                                           wire_fmt=fmt),
+           "bare": lambda: frb.placement(*ops, C, routed=False)}
+    times = {k: [] for k in fns}
+    for order in (("bare", "encode"), ("encode", "bare")):
+        for k in order:
+            times[k].append(time_ms(fns[k]))
+    (ms, eager_ms), (bare_ms, _) = (
+        tuple(statistics.mean(v) for v in zip(*times[k])) for k in fns)
     plain_ms, plain_eager_ms = time_ms(
-        lambda: frb.placement_plain(*ops, C, routed=False))
+        lambda: frb.placement_plain(*ops, C, routed=False, wire_fmt=fmt))
     live = int(torch.clamp(counts, max=C).sum())
-    n_bytes = first.numel() * 8 + live * 8 + first.numel() * C * 8
-    bms, by = bound_ms(n_bytes, first.numel() * C * 4)
+    # indices, live words and metas read; rows of words, metas and
+    # payload lanes written
+    n_bytes = first.numel() * 8 + live * 8 + first.numel() * C * 16
+    bms, by = bound_ms(n_bytes, first.numel() * C * 24)
+    print(f"placement at the path's shape: with the encode epilogue "
+          f"{ms:.4f} ms, without {bare_ms:.4f} ms: the fused encode costs "
+          f"{ms - bare_ms:.4f} ms")
     return dict(name="placement", route="cuda",
                 source="src/repro_torch/csrc/placement.cu",
                 replaces="src/repro/kernels/fused_route_bucket.py:122",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, eager_ms=eager_ms,
-                plain_eager_ms=plain_eager_ms,
-                parity="bit-exact (both variants, 5 shapes)")
+                plain_eager_ms=plain_eager_ms, bare_ms=bare_ms,
+                parity="bit-exact (both variants, 5 shapes, without and "
+                       "with the encode epilogue in 3 word formats); timed "
+                       "with the epilogue")
 
 
 def check_codec(gen, cfg):
     """Kernel B on one exchange's (S, S, C) words: encode, then decode of
-    the payload columns of the packed (S, S, 2C + 1) buffer."""
+    the payload columns of the packed (S, S, 2C + 1) buffer, in three word
+    formats.  On the simulator and fused exchange paths the encode runs
+    inside placement (``check_placement``), so B's launches there are
+    decodes: its time is the decode's, with the standalone encode +
+    decode beside it."""
     from repro_torch.core import events as ev
     from repro_torch.transport import base as tb
     from repro_torch.wire import codec
@@ -285,36 +324,56 @@ def check_codec(gen, cfg):
         if fmt == codec.DEFAULT_WORD:
             require_equal("wire round trip", [(got[0], words),
                                               (got[1], meta)])
-    ms, eager_ms = time_ms(lambda: codec.decode_planar(
+    counts = torch.full((S, S), C, dtype=torch.int32, device=dev)
+    rows, _ = tb.unpack_payload(tb.pack_payload(
+        codec.encode_planar(words, meta), counts))
+    ms, eager_ms = time_ms(lambda: codec.decode_planar(rows))
+    plain_ms, plain_eager_ms = time_ms(
+        lambda: codec.decode_plain(rows[..., :C], rows[..., C:]))
+    both_ms, _ = time_ms(lambda: codec.decode_planar(
         codec.encode_planar(words, meta)))
-    plain_ms, plain_eager_ms = time_ms(lambda: codec.decode_plain(
-        *codec.encode_plain(words, meta)))
     n = words.numel()
-    bms, by = bound_ms(2 * n * 16, 2 * n * 20)
+    bms, by = bound_ms(n * 16, n * 10)
+    print(f"wire_codec at one exchange's {n} words: decode {ms:.4f} ms "
+          f"(bound {bms:.6f} ms), standalone encode + decode "
+          f"{both_ms:.4f} ms")
     return dict(name="wire_codec", route="cuda",
                 source="src/repro_torch/csrc/wire_codec.cu",
                 replaces="src/repro/wire/codec.py:172",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, eager_ms=eager_ms,
-                plain_eager_ms=plain_eager_ms,
-                parity="bit-exact (encode+decode, 3 formats)")
+                plain_eager_ms=plain_eager_ms, both_ms=both_ms,
+                parity="bit-exact (encode+decode, 3 formats); timed: the "
+                       "decode of the packed rows")
 
 
 def check_lif(gen, cfg):
-    """Kernel C on the (S, per) neurons of the main path, 20 chained steps
-    with refractory neurons and neurons at and near threshold."""
+    """Kernel C on the (S, per) neurons of the main path: ``lif_step``
+    over 20 chained steps, then ``lif_window`` over 6 chained windows of
+    the path's 8 steps off a 32-slot ring (t0 from 20, so windows wrap),
+    and on edge cases (slots kept, a ragged size, 20 steps, a slot met
+    twice); refractory neurons and neurons at and near threshold; state,
+    spikes and rings bit for bit.  Then, in turns, one window through the
+    kernel against the sequence it replaces: 8 x (ring + drive, a
+    single-step launch, 2 slot clears) and the stack of the raster."""
     from repro_torch.kernels import lif_step as ls
     from repro_torch.snn import lif
     dev = gen.device
     p = cfg.params
     shape = (cfg.n_shards, cfg.per_shard)
-    u = lambda: torch.rand(shape, generator=gen, device=dev)
-    state = lif.LIFState(
-        v=p.e_l + (p.v_th - p.e_l + 2.0) * u(),
-        i_exc=u() * 500.0, i_inh=-u() * 200.0,
-        refrac=torch.randint(-1, 25, shape, generator=gen, device=dev,
-                             dtype=torch.int32))
-    state.v.view(-1)[:64] = p.v_th             # exactly at threshold
+    W, L = cfg.window, cfg.ring_len
+    u = lambda *s: torch.rand(s or shape, generator=gen, device=dev)
+
+    def fresh(shape):
+        st = lif.LIFState(
+            v=p.e_l + (p.v_th - p.e_l + 2.0) * u(*shape),
+            i_exc=u(*shape) * 500.0, i_inh=-u(*shape) * 200.0,
+            refrac=torch.randint(-1, 25, shape, generator=gen, device=dev,
+                                 dtype=torch.int32))
+        st.v.view(-1)[:64] = p.v_th             # exactly at threshold
+        return st
+
+    state = fresh(shape)
     err, spikes = 0.0, 0
     for step in range(20):
         exc, inh = u() * 2000.0, -u() * 300.0
@@ -327,19 +386,83 @@ def check_lif(gen, cfg):
         state = got_st
     if spikes == 0 or int((state.refrac > 0).sum()) == 0:
         raise AssertionError("lif: threshold or refractory path unexercised")
+
+    def window_case(what, st, ring_len, t0, n_steps, clear):
+        nonlocal err
+        shp = tuple(st.v.shape)
+        re = u(ring_len, *shp) * 2000.0
+        ri = -u(ring_len, *shp) * 300.0
+        drive = torch.poisson(u(n_steps, *shp) * 1.3, generator=gen) * 87.8
+        rings = (re.clone(), ri.clone())
+        got_st, got_spk = ls.lif_window(st, p, *rings, t0, drive, clear)
+        want_st, want_spk = ls.lif_window_plain(st, p, re, ri, t0, drive,
+                                                clear)
+        pairs = (list(zip(got_st, want_st)) + [(got_spk, want_spk)]
+                 + list(zip(rings, (re, ri))))
+        require_equal(f"lif window {what}", pairs)
+        err = max(err, max_abs_err(pairs))
+        return got_st, int(got_spk.sum())
+
+    state, w_spikes = fresh(shape), 0
+    for k in range(6):
+        state, n = window_case(f"{k} (t0 {20 + k * W})", state, L,
+                               (20 + k * W) % L, W, True)
+        w_spikes += n
+    for what, shp, ring_len, t0, n_steps, clear in (
+            ("slots kept", shape, L, 28, W, False),
+            ("ragged", (3, 1001), 16, 13, 5, True),
+            ("20 steps", shape, 24, 10, 20, True),
+            ("a slot met twice", (2, 500), 6, 3, 8, True)):
+        window_case(what, fresh(shp), ring_len, t0, n_steps, clear)
+    if w_spikes == 0 or int((state.refrac > 0).sum()) == 0:
+        raise AssertionError("lif window: threshold or refractory path "
+                             "unexercised")
+
+    re, ri = u(L, *shape) * 2000.0, -u(L, *shape) * 300.0
+    drive = torch.poisson(u(W, *shape) * 1.3, generator=gen) * 87.8
+
+    def old_sequence():
+        st, spk = state, []
+        for k in range(W):
+            slot = (20 + k) % L
+            st, s_k = ls.lif_step(st, p, re[slot] + drive[k], ri[slot])
+            re[slot].zero_()
+            ri[slot].zero_()
+            spk.append(s_k)
+        return st, torch.stack(spk)
+
+    fns = {"window": lambda: ls.lif_window(state, p, re, ri, 20, drive),
+           "steps": old_sequence,
+           "plain": lambda: ls.lif_window_plain(state, p, re, ri, 20, drive)}
+    times = {k: [] for k in fns}
+    for order in (("window", "steps", "plain"), ("plain", "steps", "window")):
+        for k in order:
+            times[k].append(time_ms(fns[k]))
+    (ms, eager_ms), (steps_ms, steps_eager_ms), (plain_ms, plain_eager_ms) = (
+        tuple(statistics.mean(v) for v in zip(*times[k])) for k in fns)
     exc, inh = u(), u()
-    ms, eager_ms = time_ms(lambda: ls.lif_step(state, p, exc, inh))
-    plain_ms, plain_eager_ms = time_ms(
-        lambda: ls.lif_step_plain(state, p, exc, inh))
+    step_ms, _ = time_ms(lambda: ls.lif_step(state, p, exc, inh))
     n = state.v.numel()
-    bms, by = bound_ms(n * (6 * 4 + 4 * 4 + 1), n * 15)
+    # per window: the state read once and written once, per step two ring
+    # slots and the drive read, two zeros and a spike written
+    n_bytes = n * (16 + 16 + W * (12 + 8 + 1))
+    bms, by = bound_ms(n_bytes, n * 15 * W)
+    print(f"lif_step: one {W}-step window of {n} neurons: window kernel "
+          f"{ms:.4f} ms, the sequence it replaces (8 x (add, single-step "
+          f"launch, 2 zero_) + stack) {steps_ms:.4f} ms, plain window "
+          f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}, {n_bytes} B); "
+          f"eager: {eager_ms:.4f} / {steps_eager_ms:.4f} / "
+          f"{plain_eager_ms:.4f} ms; one single step {step_ms:.4f} ms")
     return dict(name="lif_step", route="cuda",
                 source="src/repro_torch/csrc/lif_step.cu",
                 replaces="src/repro/kernels/lif_step.py:78",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, eager_ms=eager_ms,
-                plain_eager_ms=plain_eager_ms,
-                parity=f"bit-exact (20 steps, {spikes} spikes)")
+                plain_eager_ms=plain_eager_ms, steps_ms=steps_ms,
+                step_ms=step_ms,
+                parity=f"bit-exact (20 steps, {spikes} spikes; 6 chained "
+                       f"{W}-step windows with wrap, {w_spikes} spikes; 4 "
+                       f"edge windows); timed per window")
 
 
 def _ssd_inputs(gen, bh, c, P, N, dtype, bg=None):
@@ -665,19 +788,38 @@ def run_main_path():
     if not (link["sent_events"].sum(0) == link["delivered_events"].sum(0)
             ).all():
         raise AssertionError("link conservation: sum(sent) != sum(delivered)")
-    want = {"placement": N_WINDOWS, "wire_codec": 2 * (N_WINDOWS + 1),
-            "lif_step": cfg.window * N_WINDOWS}
+    # one LIF window launch per window; the encode runs inside placement,
+    # so the codec decodes each exchange (+1: the drain's)
+    want = {"placement": N_WINDOWS, "wire_codec": N_WINDOWS + 1,
+            "lif_step": N_WINDOWS}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
     print(f"launches on the main path: {launches}")
-    profile_device(lambda: run(state, 5), "5 windows + drain", 6, "window")
+    window_functions(run, state, 5)
     return launches
 
 
-def profile_device(fn, what: str, n_units: int, unit: str) -> None:
-    """Device busy share and the costliest device functions over one call
-    of ``fn`` (torch.profiler); prints "not measured" when the profiler
-    sees no device activity."""
+def window_functions(run, state, n_windows: int) -> None:
+    """Profiles of ``n_windows`` windows + drain and of 1 window + drain;
+    their difference over ``n_windows - 1`` is the device functions of one
+    window with the drain taken out (the first profile's count per
+    "window" divides by ``n_windows + 1``, the drain counted as one)."""
+    many = profile_device(lambda: run(state, n_windows),
+                          f"{n_windows} windows + drain", n_windows + 1,
+                          "window")
+    one = profile_device(lambda: run(state, 1), "1 window + drain", 2,
+                         "window", top=0)
+    if many is not None and one is not None:
+        print(f"device functions per window, the drain taken out: "
+              f"{(many - one) / (n_windows - 1):.1f}")
+
+
+def profile_device(fn, what: str, n_units: int, unit: str,
+                   top: int = 12) -> int | None:
+    """Device busy share and the ``top`` costliest device functions over
+    one call of ``fn`` (torch.profiler) -> the count of device functions;
+    prints "not measured" and returns None when the profiler sees no
+    device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -694,13 +836,14 @@ def profile_device(fn, what: str, n_units: int, unit: str) -> None:
     busy = sum(r[0] for r in rows)
     if busy == 0:
         print("profile: device time not measured (no device activity seen)")
-        return
+        return None
     launches = sum(r[1] for r in rows)
     print(f"profile of {what}: wall {wall_us:.0f} us, device busy "
           f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), {launches} device "
           f"functions ({launches / n_units:.0f} per {unit})")
-    for dev, count, key in sorted(rows, reverse=True)[:12]:
+    for dev, count, key in sorted(rows, reverse=True)[:top]:
         print(f"  {dev:9.1f} us {count:5d}x  {key[:90]}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1039,8 +1182,8 @@ def run_torus_main_path():
             raise AssertionError(f"{name}: non-finite membrane potentials")
         can_defer = fields.get("link_credits", 0) > 0
         want = {"placement": N_WINDOWS,
-                "wire_codec": 2 * (N_WINDOWS + 1) + int(can_defer),
-                "lif_step": cfg.window * N_WINDOWS}
+                "wire_codec": N_WINDOWS + 1 + int(can_defer),
+                "lif_step": N_WINDOWS}
         if launches[name] != want:
             raise AssertionError(f"{name}: launches {launches[name]} != "
                                  f"{want}")
@@ -1059,8 +1202,7 @@ def run_torus_main_path():
               f"{float(s['latency.p99_us'].max()):.2f} us; launches "
               f"{launches[name]}")
         if name.endswith("binding credits"):
-            profile_device(lambda: run(state, 3), "3 windows + drain", 4,
-                           "window")
+            window_functions(run, state, 3)
     base, ample = stats["alltoall"], stats["torus3d, ample credits"]
     binding = stats["torus3d, binding credits"]
     if int(base["spikes"].sum()) == 0:

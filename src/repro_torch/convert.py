@@ -14,6 +14,10 @@ Layouts:
   per)``;
 * the reference's per-shard PRNG key has no port counterpart (the port
   draws from a ``torch.Generator`` or takes its drive as input);
+* the port's ``PendingWindow.payload`` (the pending buckets as wire words,
+  which its placement kernel writes) has no reference counterpart: it is
+  encoded from ``data`` and ``meta`` on the way in and dropped on the way
+  out;
 * LM parameters: the same nested dicts, block parameters stacked along a
   leading layer axis in both; ``bfloat16`` numpy arrays (``ml_dtypes``)
   become ``torch.bfloat16`` bit for bit;
@@ -24,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import wire
 from repro_torch.core.routing import RoutingTables
 from repro_torch.kernels import dispatch
 from repro_torch.models.ssm import SSMCache
@@ -102,13 +107,16 @@ def state_from_reference(flat: dict, *, prefix: str = "",
 
 def carry_from_reference(flat: dict, link, *, device=None) -> SimCarry:
     """Port ``SimCarry`` from a flattened reference ``SimCarry``: state and
-    pending buckets/residue converted; ``link`` is the port's fabric state
-    (the crossbar's is empty, so nothing is carried over)."""
+    pending buckets/residue converted, the buckets' wire payload encoded;
+    ``link`` is the port's fabric state (the crossbar's is empty, so
+    nothing is carried over)."""
     device = dispatch.resolve_device(device)
     g = lambda k: flat["pending." + k]
-    pending = PendingWindow(_t(g("data"), device), _t(g("meta"), device),
-                            _t(g("counts"), device), _t(g("residue"), device),
-                            _t(g("residue_meta"), device))
+    data, meta = _t(g("data"), device), _t(g("meta"), device)
+    pending = PendingWindow(data, meta, _t(g("counts"), device),
+                            _t(g("residue"), device),
+                            _t(g("residue_meta"), device),
+                            wire.encode_planar(data, meta))
     return SimCarry(state_from_reference(flat, prefix="state.",
                                          device=device), pending, link)
 
@@ -124,6 +132,8 @@ def carry_to_reference(carry: SimCarry) -> dict[str, np.ndarray]:
     out["state.ring_inh"] = np.swapaxes(st.ring_inh.cpu().numpy(), 0, 1)
     out["state.t"] = st.t.cpu().numpy()
     for name in PendingWindow._fields:
+        if name == "payload":                  # the port's alone
+            continue
         a = getattr(pend, name).cpu().numpy()
         out[f"pending.{name}"] = (a.view(np.uint32)
                                   if name in ("data", "residue") else a)

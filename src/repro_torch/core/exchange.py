@@ -10,7 +10,8 @@ A window is:
    ``"sort"`` staged through ``RoutingTables.route`` and
    ``core.aggregator.aggregate``;
 2. **transport** -- every (event, guid) pair becomes one 64-bit wire word
-   (codec kernel B, lane-planar rows), a ``transport`` backend ships the
+   (lane-planar rows; the fused impls encode inside placement kernel A,
+   the staged ones with codec kernel B), a ``transport`` backend ships the
    rows (``alltoall`` crossbar, or the credited ``torus2d`` / ``torus3d``)
    and kernel B decodes them;
 3. **multicast** -- the destination-side GUID lookup replays each received
@@ -67,21 +68,22 @@ def exchange_window(words: torch.Tensor, tables: RoutingTables, *,
     own."""
     # 1. route + aggregate
     if impl in ("auto", "fused", "pallas"):
-        b = frb.fused_route_aggregate(words, tables.dest_of_addr,
-                                      tables.guid_of_addr, n_shards,
-                                      capacity).buckets
+        fw = frb.fused_route_aggregate(words, tables.dest_of_addr,
+                                       tables.guid_of_addr, n_shards,
+                                       capacity, wire_fmt=wire.DEFAULT_WORD)
+        b, payload = fw.buckets, fw.payload
     else:
         dest, guid, routed = tables.route(words)
         words = torch.where(routed, words, ev.INVALID_EVENT)
         b = aggregator.aggregate(words, dest, guid, n_shards, capacity,
                                  impl=impl)
+        payload = wire.encode_planar(b.data, b.guids)
 
     # 2. wire words through the transport
     if transport is None:
         transport = tp.create("alltoall", n_shards=n_shards,
                               wire_format=wire_format)
     device = words.device
-    payload = wire.encode_planar(b.data, b.guids)
     if link_state is None:
         link_state = transport.init_state(payload.shape[-1], device=device)
     out = transport.exchange(link_state, payload, b.counts)

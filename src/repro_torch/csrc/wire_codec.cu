@@ -4,17 +4,15 @@
 // and _decode_kernel (:159), launched by _pallas_map2 (:165,
 // pl.pallas_call at :172).
 //
-// What it computes: encode packs a 30-bit event word (ts 15, address 14,
-// valid 1) and a 32-bit meta value into one 64-bit wire word held as two
-// u32 lanes (lo, hi), fields LSB-first: ts, label, meta, valid.  With the
-// default widths meta starts at bit 29 and straddles the lane boundary.
-// Decode is the inverse.  The field code mirrors _deposit / _extract
-// (codec.py:92-117) with the widths as run-time arguments; every shift
-// count stays below 32.  Rows are lane-planar: a (rows, C) input maps to a
-// (rows, 2C) buffer whose first C lanes are lo and last C lanes are hi, so
-// the wrapper needs no concatenation around the kernel.  Decode also takes
-// the distance between input rows, so it reads the payload columns of the
-// exchange's packed (S, S, 2C + 1) buffer in place.
+// What it computes: encode packs a 30-bit event word and a 32-bit meta
+// value into one 64-bit wire word held as two u32 lanes (lo, hi); decode
+// is the inverse.  The bit layout lives in wire_word.cuh, which placement
+// (placement.cu) shares for its encode epilogue.  Rows are lane-planar: a
+// (rows, C) input maps to a (rows, 2C) buffer whose first C lanes are lo
+// and last C lanes are hi, so the wrapper needs no concatenation around
+// the kernel.  Decode also takes the distance between input rows, so it
+// reads the payload columns of the exchange's packed (S, S, 2C + 1)
+// buffer in place.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  Each word reads 8 B and writes
 // 8 B per direction.  At the simulator's full width one exchange codes
@@ -23,64 +21,28 @@
 //
 // Design: one thread per word with a grid-stride loop; consecutive
 // threads touch consecutive words of each lane, so loads and stores are
-// coalesced.  Nothing else is worth doing at this size: the launch
-// dominates, and fusing the codec with the exchange is a later change.
+// coalesced.  The launch dominates, so the simulator and the fused
+// exchange encode inside placement's launch (the rows it has just
+// placed) and launch only the decode; this standalone encode serves every
+// other caller.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "wire_word.cuh"
+
 namespace {
 
-constexpr uint32_t kTsMask = (1u << 15) - 1;
-constexpr uint32_t kAddrMask = (1u << 14) - 1;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t mask_of(int width) {
-  return width >= 32 ? 0xFFFFFFFFu : ((1u << width) - 1u);
-}
-
-__device__ __forceinline__ void deposit(uint32_t& lo, uint32_t& hi,
-                                        uint32_t v, int offset, int width) {
-  if (width == 0) return;
-  if (offset < 32) {
-    lo |= v << offset;
-    if (offset + width > 32) hi |= v >> (32 - offset);  // offset >= 1 here
-  } else {
-    hi |= v << (offset - 32);
-  }
-}
-
-__device__ __forceinline__ uint32_t extract(uint32_t lo, uint32_t hi,
-                                            int offset, int width) {
-  if (width == 0) return 0;
-  uint32_t v;
-  if (offset < 32) {
-    v = lo >> offset;
-    if (offset + width > 32) v |= hi << (32 - offset);
-  } else {
-    v = hi >> (offset - 32);
-  }
-  return v & mask_of(width);
-}
 
 __global__ void encode_kernel(const uint32_t* __restrict__ word,
                               const uint32_t* __restrict__ meta,
                               uint32_t* __restrict__ out, int64_t n,
-                              int cols, int ts_bits, int label_bits,
-                              int meta_bits) {
-  const int valid_bit = ts_bits + label_bits + meta_bits;
+                              int cols, repro_wire::Format fmt) {
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const uint32_t w = word[i];
-    const uint32_t ts = w & (kTsMask & mask_of(ts_bits));
-    const uint32_t label = (w >> 15) & (kAddrMask & mask_of(label_bits));
-    const uint32_t valid = (w >> 29) & 1u;
-    const uint32_t m = meta[i] & mask_of(meta_bits);
-    uint32_t lo = 0, hi = 0;
-    deposit(lo, hi, ts, 0, ts_bits);
-    deposit(lo, hi, label, ts_bits, label_bits);
-    deposit(lo, hi, m, ts_bits + label_bits, meta_bits);
-    deposit(lo, hi, valid, valid_bit, 1);
+    uint32_t lo, hi;
+    repro_wire::encode(word[i], meta[i], fmt, lo, hi);
     const int64_t r = i / cols;
     const int64_t j = i - r * cols;
     out[2 * r * cols + j] = lo;
@@ -92,21 +54,14 @@ __global__ void decode_kernel(const uint32_t* __restrict__ buf,
                               int64_t row_stride,
                               uint32_t* __restrict__ word,
                               uint32_t* __restrict__ meta, int64_t n,
-                              int cols, int ts_bits, int label_bits,
-                              int meta_bits) {
-  const int valid_bit = ts_bits + label_bits + meta_bits;
+                              int cols, repro_wire::Format fmt) {
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int64_t r = i / cols;
     const int64_t j = i - r * cols;
-    const uint32_t lo = buf[r * row_stride + j];
-    const uint32_t hi = buf[r * row_stride + cols + j];
-    const uint32_t ts = extract(lo, hi, 0, ts_bits) & kTsMask;
-    const uint32_t label = extract(lo, hi, ts_bits, label_bits) & kAddrMask;
-    const uint32_t valid = extract(lo, hi, valid_bit, 1);
-    meta[i] = extract(lo, hi, ts_bits + label_bits, meta_bits);
-    word[i] = ts | (label << 15) | (valid << 29);
+    repro_wire::decode(buf[r * row_stride + j], buf[r * row_stride + cols + j],
+                       fmt, word[i], meta[i]);
   }
 }
 
@@ -126,7 +81,8 @@ extern "C" int repro_wire_encode(const void* word, const void* meta,
   encode_kernel<<<blocks_for(n), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(word), static_cast<const uint32_t*>(meta),
-      static_cast<uint32_t*>(out), n, cols, ts_bits, label_bits, meta_bits);
+      static_cast<uint32_t*>(out), n, cols,
+      repro_wire::Format{ts_bits, label_bits, meta_bits});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -140,7 +96,7 @@ extern "C" int repro_wire_decode(const void* buf, int64_t row_stride,
   decode_kernel<<<blocks_for(n), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(buf), row_stride,
-      static_cast<uint32_t*>(word),
-      static_cast<uint32_t*>(meta), n, cols, ts_bits, label_bits, meta_bits);
+      static_cast<uint32_t*>(word), static_cast<uint32_t*>(meta), n, cols,
+      repro_wire::Format{ts_bits, label_bits, meta_bits});
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,11 +29,13 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # argument types of each C entry point; every one ends with the stream
 SIGNATURES = {
-    "repro_placement": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P),
+    "repro_placement": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I,
+                        _I, _I, _I, _P),
     "repro_wire_encode": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     "repro_wire_decode": (_P, _L, _P, _P, _L, _I, _I, _I, _I, _P),
-    "repro_lif_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _L,
-                       _F, _F, _F, _F, _I, _F, _F, _F, _F, _P),
+    "repro_lif_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _L, _L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F,
+                         _F, _F, _F, _P),
     "repro_bucket_scatter": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
     "repro_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                         _I, _P),

@@ -11,7 +11,10 @@
                   window, zeroed past its count: the hand-written kernel
                   ``csrc/placement.cu`` on CUDA tensors, ``placement_plain``
                   on CPU tensors.  The routed variant looks the GUID up
-                  inside the kernel for accepted events only;
+                  inside the kernel for accepted events only.  Given a
+                  ``wire_fmt``, the same launch also writes each row as
+                  64-bit wire words (``wire.encode_planar`` of the row's
+                  words and meta), the payload the transport ships;
 4. **residue** -- events beyond a bucket's capacity are compacted into a
                   fixed-size buffer that is offered again next window.
 
@@ -29,6 +32,7 @@ from repro_torch.core import events as ev
 from repro_torch.core.aggregator import Buckets
 from repro_torch.core.routing import lookup
 from repro_torch.kernels import dispatch
+from repro_torch.wire import codec
 
 
 class FusedWindow(NamedTuple):
@@ -42,6 +46,8 @@ class FusedWindow(NamedTuple):
     offered:      (...) int32 valid routed events offered this window
     residue_meta: (..., residue_len) int32 the deferred events' meta, or
                   None unless ``with_residue_meta``
+    payload:      (..., D, 2C) int32 ``encode_planar(buckets.data,
+                  buckets.guids, wire_fmt)``, or None unless ``wire_fmt``
     """
 
     buckets: Buckets
@@ -50,6 +56,7 @@ class FusedWindow(NamedTuple):
     dropped: torch.Tensor
     offered: torch.Tensor
     residue_meta: torch.Tensor | None = None
+    payload: torch.Tensor | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -57,13 +64,15 @@ class FusedWindow(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def placement_plain(first, counts, swords_pad, aux, capacity: int, *,
-                    routed: bool):
+                    routed: bool, wire_fmt: codec.WireWordFormat | None
+                    = None):
     """Plain PyTorch placement.
 
     first, counts: (B, D) int32 start and length of each destination's run
     in the sorted window; swords_pad: (B, n + C) sorted words (the C pad
     absorbs reads past the end); aux: (B, n + C) sorted meta, or the
-    (B, n_lut) GUID table when ``routed``.  -> data, meta (B, D, C) int32.
+    (B, n_lut) GUID table when ``routed``.  -> data, meta (B, D, C) int32,
+    and with ``wire_fmt`` also their wire payload (B, D, 2C) int32.
     """
     b, d = first.shape
     slot = torch.arange(capacity, dtype=torch.int32, device=first.device)
@@ -77,16 +86,21 @@ def placement_plain(first, counts, swords_pad, aux, capacity: int, *,
         g = torch.gather(aux, 1, addr.reshape(b, -1).long())
     else:
         g = torch.gather(aux, 1, idx)
-    return data, torch.where(live, g.reshape(b, d, capacity), zero)
+    meta = torch.where(live, g.reshape(b, d, capacity), zero)
+    if wire_fmt is None:
+        return data, meta
+    return data, meta, torch.cat(codec.encode_plain(data, meta, wire_fmt),
+                                 dim=-1)
 
 
 def placement(first, counts, swords_pad, aux, capacity: int, *,
-              routed: bool):
+              routed: bool, wire_fmt: codec.WireWordFormat | None = None):
     """Bucket placement: kernel A on CUDA tensors, the plain version on CPU
-    tensors (same arguments and results as :func:`placement_plain`)."""
+    tensors (same arguments and results as :func:`placement_plain`); with
+    ``wire_fmt`` the kernel encodes the placed rows in the same launch."""
     if not dispatch.on_cuda(first, counts, swords_pad, aux):
         return placement_plain(first, counts, swords_pad, aux, capacity,
-                               routed=routed)
+                               routed=routed, wire_fmt=wire_fmt)
     b, d = first.shape
     n_pad = swords_pad.shape[-1]
     for name, t in (("first", first), ("counts", counts),
@@ -105,12 +119,19 @@ def placement(first, counts, swords_pad, aux, capacity: int, *,
     data = torch.empty((b, d, capacity), dtype=torch.int32,
                        device=first.device)
     meta = torch.empty_like(data)
+    payload = None
+    if wire_fmt is not None:
+        payload = torch.empty((b, d, 2 * capacity), dtype=torch.int32,
+                              device=first.device)
+    fmt = wire_fmt if wire_fmt is not None else codec.DEFAULT_WORD
     if data.numel():
         dispatch.launch("placement", "repro_placement", first.data_ptr(),
                         counts.data_ptr(), swords_pad.data_ptr(),
                         aux.data_ptr(), data.data_ptr(), meta.data_ptr(),
-                        b, d, capacity, n_pad, aux.shape[-1], int(routed))
-    return data, meta
+                        None if payload is None else payload.data_ptr(),
+                        b, d, capacity, n_pad, aux.shape[-1], int(routed),
+                        *fmt.validate()[:3])
+    return (data, meta) if payload is None else (data, meta, payload)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +167,8 @@ def placement_operands(skey, swords, aux, n_dest: int, capacity: int, *,
 
 
 def _finish(skey, swords, aux, n_dest: int, capacity: int, residue_len: int,
-            *, routed: bool, with_residue_meta: bool = False) -> FusedWindow:
+            *, routed: bool, with_residue_meta: bool = False,
+            wire_fmt: codec.WireWordFormat | None = None) -> FusedWindow:
     if with_residue_meta and routed:
         raise ValueError("with_residue_meta needs per-event meta (the "
                          "explicit-guids path), not a routed guid LUT")
@@ -154,8 +176,10 @@ def _finish(skey, swords, aux, n_dest: int, capacity: int, residue_len: int,
     dev = swords.device
     first, counts, swords_pad, aux_pad = placement_operands(
         skey, swords, aux, n_dest, capacity, routed=routed)
-    data, gui = placement(first, counts, swords_pad, aux_pad, capacity,
-                          routed=routed)
+    data, gui, *payload = placement(first, counts, swords_pad, aux_pad,
+                                    capacity, routed=routed,
+                                    wire_fmt=wire_fmt)
+    payload = payload[0] if payload else None
     accepted = torch.clamp(counts, max=capacity)
     offered = counts.sum(-1, dtype=torch.int32)
     overflow = offered - accepted.sum(-1, dtype=torch.int32)
@@ -166,7 +190,7 @@ def _finish(skey, swords, aux, n_dest: int, capacity: int, residue_len: int,
         empty = torch.zeros((b, 0), dtype=torch.int32, device=dev)
         return FusedWindow(buckets, empty, torch.zeros_like(overflow),
                            overflow, offered,
-                           empty if with_residue_meta else None)
+                           empty if with_residue_meta else None, payload)
     # overflow events: sorted position >= first-of-destination + capacity
     first_of = torch.gather(first, -1,
                             torch.clamp(skey, max=n_dest - 1).long())
@@ -185,7 +209,7 @@ def _finish(skey, swords, aux, n_dest: int, capacity: int, residue_len: int,
         res_meta = torch.cat([torch.where(
             live_r, torch.gather(aux, -1, order), zero), pad], dim=-1)
     return FusedWindow(buckets, res, deferred, overflow - deferred, offered,
-                       res_meta)
+                       res_meta, payload)
 
 
 def _batched(fn, words, *rest):
@@ -199,32 +223,38 @@ def _batched(fn, words, *rest):
 
 
 def fused_aggregate(words, dest, guids, n_dest: int, capacity: int, *,
-                    residue_len: int = 0,
-                    with_residue_meta: bool = False) -> FusedWindow:
+                    residue_len: int = 0, with_residue_meta: bool = False,
+                    wire_fmt: codec.WireWordFormat | None = None
+                    ) -> FusedWindow:
     """Sort-based aggregation with explicit per-event destinations and meta.
 
     Window order within each destination, capacity clip, invalid events
     (valid bit clear or dest out of range) ignored.  ``guids`` is an int32
     meta value riding with each event; ``with_residue_meta`` also carries
-    it for the deferred events.
+    it for the deferred events; ``wire_fmt`` adds the buckets' wire
+    payload.
     """
     def run(w, d, g):
         skey, swords, sguids = sort_by_destination(
             w, d, n_dest, g.to(torch.int32))
         return _finish(skey, swords, sguids, n_dest, capacity, residue_len,
-                       routed=False, with_residue_meta=with_residue_meta)
+                       routed=False, with_residue_meta=with_residue_meta,
+                       wire_fmt=wire_fmt)
     return _batched(run, words, dest, guids)
 
 
 def fused_route_aggregate(words, dest_lut, guid_lut, n_dest: int,
-                          capacity: int, *,
-                          residue_len: int = 0) -> FusedWindow:
+                          capacity: int, *, residue_len: int = 0,
+                          wire_fmt: codec.WireWordFormat | None = None
+                          ) -> FusedWindow:
     """Routing-LUT gather + capacity-bounded binning in one pass; the GUID
     gather runs inside placement over accepted events only.  Tables follow
-    the clamped-index semantics of ``RoutingTables.route``."""
+    the clamped-index semantics of ``RoutingTables.route``.  ``wire_fmt``
+    adds the buckets' wire payload."""
     def run(w, dl, gl):
         addr = torch.clamp(ev.address(w), max=dl.shape[-1] - 1)
         skey, swords = sort_by_destination(w, lookup(dl, addr), n_dest)
         return _finish(skey, swords, gl.to(torch.int32).contiguous(),
-                       n_dest, capacity, residue_len, routed=True)
+                       n_dest, capacity, residue_len, routed=True,
+                       wire_fmt=wire_fmt)
     return _batched(run, words, dest_lut, guid_lut)

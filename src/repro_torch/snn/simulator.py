@@ -6,20 +6,23 @@ The simulation advances in flush windows of ``window`` dt steps, with
 destination before its timestamp deadline.  The window loop is software
 pipelined as in the reference: iteration k
 
-  1. encodes window k-1's pending buckets into 64-bit wire words (CUDA
-     codec kernel), ships them through the transport (``cfg.transport``:
-     the ``alltoall`` crossbar, or ``torus2d`` / ``torus3d`` with
-     hop-by-hop credits) and decodes them, charges their wire latency and
+  1. ships window k-1's pending buckets, already encoded into 64-bit wire
+     words by the placement kernel that built them, through the transport
+     (``cfg.transport``: the ``alltoall`` crossbar, or ``torus2d`` /
+     ``torus3d`` with hop-by-hop credits), decodes them (CUDA codec
+     kernel), charges their wire latency and
      scatters their weighted input into the delay ring, checking
      deadlines.  A row refused at its source egress link is deferred and
      re-enters this window's aggregation ahead of everything else; a row
      refused at a transit link parks in the fabric and resumes from its
      hop in a later window;
-  2. runs ``window`` LIF steps off the ring (CUDA LIF kernel);
+  2. runs ``window`` LIF steps off the ring (one launch of the CUDA LIF
+     window kernel);
   3. compacts the spikes into event words, puts the transport-deferred
      rows first, then the residue of window k-1, then the fresh events, and
-     runs the fused route+aggregate (CUDA placement kernel); the new
-     buckets and residue become the pending half of the carry.
+     runs the fused route+aggregate (CUDA placement kernel, which also
+     encodes the placed rows as wire words); the new buckets, their wire
+     payload and the residue become the pending half of the carry.
 
 One ``drain`` after the last window walks the fabric's transit buffers
 empty and then flushes the last window's buckets, credits bypassed.
@@ -57,7 +60,7 @@ from repro_torch.core import aggregator, events as ev
 from repro_torch.core.routing import RoutingTables, lookup
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import fused_route_bucket as frb
-from repro_torch.kernels.lif_step import lif_step
+from repro_torch.kernels.lif_step import lif_window
 from repro_torch.snn import lif, network
 
 
@@ -93,13 +96,16 @@ class ShardState(NamedTuple):
 class PendingWindow(NamedTuple):
     """Window k's aggregated buckets, shipped at the start of window k+1,
     plus the deferred events re-offered into window k+1.  ``meta`` carries
-    each event's injection step, for the latency model."""
+    each event's injection step, for the latency model; ``payload`` is
+    ``wire.encode_planar(data, meta)``, written by the placement kernel
+    that built the buckets."""
 
     data: torch.Tensor          # (S, S, C) int32 events [src, dst, slot]
     meta: torch.Tensor          # (S, S, C) int32 injection steps
     counts: torch.Tensor        # (S, S) int32 accepted per destination
     residue: torch.Tensor       # (S, residue) int32 deferred events
     residue_meta: torch.Tensor  # (S, residue) int32 their injection steps
+    payload: torch.Tensor       # (S, S, 2C) int32 wire lanes (lo | hi)
 
 
 class WindowStats(NamedTuple):
@@ -188,7 +194,8 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                        device=device)
         return PendingWindow(z(S, S, C), z(S, S, C), z(S, S),
-                             z(S, cfg.residue), z(S, cfg.residue))
+                             z(S, cfg.residue), z(S, cfg.residue),
+                             z(S, S, 2 * C))
 
     def init_link() -> tp.LinkState:
         return backend.init_state(2 * C, device=device)
@@ -199,8 +206,7 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         left their senders [src, dst], the link statistics, the fabric
         state and the queueing dwell of the rows delivered to each
         shard."""
-        payload = wire.encode_planar(pend.data, pend.meta)
-        out = backend.exchange(lstate, payload, pend.counts,
+        out = backend.exchange(lstate, pend.payload, pend.counts,
                                enforce_credits=enforce_credits)
         recv, recv_meta = wire.decode_planar(out.recv_payload)
         return (recv, recv_meta, out.recv_counts, out.sent_mask, out.stats,
@@ -240,37 +246,32 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
 
     def _simulate_steps(neuron, ring_exc, ring_inh, t0: int, drive):
         """``window`` LIF steps off the rings (consumed slots cleared in
-        place) -> (neuron, spikes (window, S, per) bool)."""
-        spikes = []
-        for k in range(cfg.window):
-            slot = (t0 + k) % L
-            neuron, spk = lif_step(neuron, cfg.params,
-                                   ring_exc[slot] + drive[k], ring_inh[slot])
-            ring_exc[slot].zero_()
-            ring_inh[slot].zero_()
-            spikes.append(spk)
-        return neuron, torch.stack(spikes)
+        place) -> (neuron, spikes (S, window, per) bool)."""
+        return lif_window(neuron, cfg.params, ring_exc, ring_inh, t0,
+                          drive.contiguous())
 
     def _spikes_to_events(spikes, t0: int, delays):
-        """Compact the (window, S, per) raster into <= e_max spikes per
+        """Compact the (S, window, per) raster into <= e_max spikes per
         shard, each replicated to ``max_fan`` event words (addr = id * fan
-        + k), with each replica's injection step and the spikes lost."""
-        w, _, per = spikes.shape
-        flat = spikes.permute(1, 0, 2).reshape(S, w * per)
+        + k), with each replica's injection step, the spikes lost and the
+        (S,) spike counts."""
+        _, w, per = spikes.shape
+        flat = spikes.reshape(S, w * per)
         # stable compaction: spiking slots first, window order kept
         order = torch.sort((~flat).to(torch.uint8), dim=-1,
                            stable=True).indices[:, :cfg.e_max]
         sel = torch.gather(flat, 1, order)
         sel_step = (order // per).to(torch.int32)
         sel_id = order % per
-        lost = torch.clamp(flat.sum(-1) - cfg.e_max, min=0).to(torch.int32)
+        fired = flat.sum(-1, dtype=torch.int32)
+        lost = torch.clamp(fired - cfg.e_max, min=0)
         ts = (t0 + sel_step + torch.gather(delays, 1, sel_id)) & ev.TS_MASK
         addr = (sel_id.to(torch.int32)[..., None] * cfg.max_fan
                 + fan).reshape(S, -1)
         words = ev.pack(addr, ts.repeat_interleave(cfg.max_fan, -1),
                         valid=sel.repeat_interleave(cfg.max_fan, -1))
         inject = (t0 + sel_step).repeat_interleave(cfg.max_fan, -1)
-        return words, inject, lost
+        return words, inject, lost, fired
 
     def body(carry, t: int, tables: RoutingTables, weights_t, inh_src,
              delays, drive):
@@ -286,7 +287,7 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                                          state.ring_inh, t, drive)
         # 3. route + aggregate: transport-deferred rows first, then the
         #    residue, then fresh spikes (oldest deadlines win bucket slots)
-        words, inject, lost = _spikes_to_events(spikes, t, delays)
+        words, inject, lost, fired = _spikes_to_events(spikes, t, delays)
         if can_defer:
             held = (~sent_mask[..., None]) & (slots < pend.counts[..., None])
             words = torch.cat([torch.where(held, pend.data, 0).reshape(S, -1),
@@ -300,11 +301,12 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                            max=tables.dest_of_addr.shape[-1] - 1)
         fw = frb.fused_aggregate(words, lookup(tables.dest_of_addr, addr),
                                  inject, S, C, residue_len=cfg.residue,
-                                 with_residue_meta=True)
+                                 with_residue_meta=True,
+                                 wire_fmt=wire.DEFAULT_WORD)
         b = fw.buckets
         cost = aggregator.window_cost(b.counts.masked_fill(own, 0))
         stats = WindowStats(
-            spikes=spikes.sum((0, 2), dtype=torch.int32),
+            spikes=fired,
             events_sent=b.counts.sum(-1, dtype=torch.int32),
             overflow=lost + fw.dropped,
             wire_bytes=cost.bytes,
@@ -317,7 +319,7 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         state = ShardState(neuron, state.ring_exc, state.ring_inh,
                            state.t + cfg.window, state.generator)
         pend = PendingWindow(b.data, b.guids, b.counts, fw.residue,
-                             fw.residue_meta)
+                             fw.residue_meta, fw.payload)
         return (state, pend, lstate), stats
 
     def drain(state: ShardState, pend: PendingWindow, lstate, t: int,

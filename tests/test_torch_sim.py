@@ -24,6 +24,7 @@ import torch
 from md_helper import SRC, run_md
 from repro_torch import convert, transport
 from repro_torch.snn import microcircuit as mc, network, simulator as sim
+from repro_torch.wire import codec as t_codec
 
 SCALE, N_SHARDS, N_WINDOWS, SEED = 0.004, 4, 6, 0
 # capacity, residue, wire format
@@ -215,18 +216,34 @@ def test_sim_residue_chain_balances_under_pressure(port_runs):
 
 
 def test_convert_carry_round_trip(ref, part):
-    """Reference carry -> port -> reference layout gives the same arrays."""
+    """Reference carry -> port -> reference layout gives the same arrays;
+    the port's pending wire payload (no reference counterpart) is encoded
+    from the pending buckets on the way in and dropped on the way out."""
     spec, p = part
     flat = {f"state.{k[len('ample.init.'):]}": v for k, v in ref.items()
             if k.startswith("ample.init.")}
     cfg = _cfg(p, "ample")
     init_pending, init_link, _, _ = sim.make_pipeline_fns(cfg, device="cpu")
     pend = convert.flatten(init_pending())
+    assert not pend.pop("payload").any()     # empty buckets encode to 0
+    rng = np.random.default_rng(3)
+    pend["data"] = rng.integers(0, 1 << 30, pend["data"].shape).astype(
+        np.int32)
+    pend["meta"] = rng.integers(-2**31, 2**31, pend["meta"].shape,
+                                dtype=np.int64).astype(np.int32)
     flat.update({f"pending.{k}": (v.view(np.uint32) if k in ("data",
                                                              "residue")
                                   else v) for k, v in pend.items()})
     carry = convert.carry_from_reference(flat, init_link(), device="cpu")
+    data, meta = torch.from_numpy(pend["data"]), torch.from_numpy(
+        pend["meta"])
+    assert torch.equal(carry.pending.payload,
+                       torch.cat(t_codec.encode_plain(data, meta), dim=-1))
+    assert all(torch.equal(a, b) for a, b in zip(
+        t_codec.decode_planar(carry.pending.payload), (data, meta)))
     back = convert.carry_to_reference(carry)
+    pending_keys = lambda d: {k for k in d if k.startswith("pending.")}
+    assert pending_keys(back) == pending_keys(flat)   # payload dropped
     for key, value in back.items():
         assert value.dtype == flat[key].dtype, key
         assert (value == flat[key]).all(), key
