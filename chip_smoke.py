@@ -13,22 +13,28 @@ Phases, each raising on failure (exit code != 0, no result line):
    -sass``) in the SSD chunk's tensor-core kernel, which must not be 0;
 3. kernels -- each hand-written kernel against its plain PyTorch version on
    the card, at the main paths' full-width shapes and on edge cases (bit
-   for bit for placement with and without its wire-encode epilogue,
-   codec, the LIF step and the LIF window, and bucket_scatter; rtol/atol
-   2e-4 for the SSD chunk, whose bf16 cases take the tensor-core kernel
-   and f32 cases the FMA kernel); device times per call (CUDA graph) of
-   kernel and plain version; in turns: placement with and without the
+   for bit for the flush window on every ``FusedWindow`` field, the
+   per-row placement (on no path since the flush window) with and without
+   its wire-encode epilogue, codec, the LIF step and the LIF window, and
+   bucket_scatter; rtol/atol 2e-4 for the SSD chunk, whose bf16 cases take
+   the tensor-core kernel and f32 cases the FMA kernel); device times per
+   call (CUDA graph) of kernel and plain version; in turns: the flush
+   window against the chain it replaced (route, sort, operands, per-row
+   placement with its encode, residue) at the crossbar and torus shapes,
+   with each chain's device functions, placement with and without the
    epilogue, one LIF window kernel against the 8-step sequence it
    replaced, and for the SSD chunk the tensor-core kernel, the FMA kernel
-   on the same bf16 inputs and the plain version;
+   on the same bf16 inputs and the plain version; bucket_scatter beside
+   the parent's times;
 4. slice   -- a small microcircuit (scale 0.004, 4 shards, 8 windows) on
    the card against the same run of the plain versions on the CPU, with
    the same initial potentials and background drive;
 5. main path 1 -- the Potjans-Diesmann microcircuit at scale 0.2 (15,431
    neurons, the largest round scale whose addresses fit the 14-bit event
    field) on 4 wafer shards, transport alltoall, wire format extoll, for
-   25 windows (20 ms biological) with launch counts (placement and the
-   LIF window once a window, the codec's decode once an exchange),
+   25 windows (20 ms biological) with launch counts (the flush window and
+   the LIF window once a window, the codec's decode once an exchange,
+   the per-row placement never),
    deadline, residue and link-conservation checks, and the summary of
    ``examples/multiwafer_microcircuit.py``; then a torch.profiler pass
    over 5 more windows for the device busy share and device functions
@@ -40,7 +46,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    threaded through: every field card == CPU, the uncredited tori deliver
    what alltoall delivers, the credit identities hold, rows park and
    resume, and on every exchanged window kernel D equals
-   ``aggregate(impl="sort")`` and the fused buckets;
+   ``aggregate(impl="sort")`` and the flush window's buckets (the
+   per-row placement launched never);
 5b. a small torus run (scale 0.004, torus3d 2x2x2, binding credits) on the
    card against the CPU;
 5c. main path 3 -- the microcircuit at scale 0.2 over 8 wafer shards on
@@ -68,7 +75,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    over one prefill wave and 8 decode steps;
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
-   to 0 just before that path: A-C from main path 3, D from the exchange,
+   to 0 just before that path: A-C from main path 3 (the per-row
+   placement 0: it is on no path), D from the exchange,
    E's tensor-core kernel from main path 2, E's FMA kernel from the f32
    scan of phase 6) and, last, the device JSON line.
 """
@@ -176,12 +184,14 @@ def _words(gen, shape, n_addr=1 << 14, p_valid=0.9):
 
 
 def check_placement(gen, cfg, n_lut):
-    """Kernel A at the main path's shapes (S windows of residue + e_max *
-    max_fan events, D = S destinations, C = capacity), then ragged edge
-    cases; both variants, each without and with the encode epilogue in
-    three word formats (the payload also against ``encode_plain`` of the
-    rows the kernel placed); plus the whole fused window on the card
-    against the CPU.  Times placement with and without the epilogue in
+    """Kernel A's per-row placement, which the flush window replaced on
+    every path (kept with its checks: the sort-based chain that
+    ``check_flush_window`` times runs it), at the main path's shapes (S
+    windows of residue + e_max * max_fan events, D = S destinations, C =
+    capacity), then ragged edge cases; both variants, each without and
+    with the encode epilogue in three word formats (the payload also
+    against ``encode_plain`` of the rows the kernel placed); plus the
+    whole fused window on the card against the CPU.  Times placement with and without the epilogue in
     turns: the difference is what the fused encode costs."""
     from repro_torch.kernels import fused_route_bucket as frb
     from repro_torch.wire import codec
@@ -282,9 +292,190 @@ def check_placement(gen, cfg, n_lut):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, eager_ms=eager_ms,
                 plain_eager_ms=plain_eager_ms, bare_ms=bare_ms,
-                parity="bit-exact (both variants, 5 shapes, without and "
-                       "with the encode epilogue in 3 word formats); timed "
-                       "with the epilogue")
+                parity="on no path since the flush window; bit-exact "
+                       "(both variants, 5 shapes, without and with the "
+                       "encode epilogue in 3 word formats); timed with the "
+                       "epilogue")
+
+
+FLUSH_MODES = (("dest", "meta"), ("dest_lut", "meta"),
+               ("dest_lut", "guid_lut"), ("dest", "guid_lut"))
+FLUSH_FMTS = (None, (15, 14, 32), (16, 14, 20), (15, 14, 0))  # 2nd: default
+
+
+def _flush_inputs(gen, b, n, d, mode, how, n_lut=200, n_guid=70):
+    """Operands of ``flush_window``: (b, n) words (10% with the valid bit
+    clear, addresses up to n_lut + 19, so tables clamp), destinations -1 ..
+    d per event or per address (``how``: "uniform"; "biased", most to 0
+    and 1, so both overflow; "one", all to d // 2), meta per event or a
+    GUID table."""
+    dev = gen.device
+
+    def dests(shape):
+        if how == "one":
+            return torch.full(shape, d // 2, dtype=torch.int32, device=dev)
+        probs = torch.ones(d + 2, device=dev)
+        if how == "biased":
+            probs[1:3] += 4 * d
+        k = shape[0] * shape[1]
+        flat = torch.multinomial(probs, max(k, 1), True, generator=gen)[:k]
+        return (flat.reshape(shape) - 1).to(torch.int32)
+
+    words = _words(gen, (b, n), n_addr=n_lut + 20)
+    kw = {"dest": dests((b, n))} if mode[0] == "dest" else \
+        {"dest_lut": dests((b, n_lut))}
+    if mode[1] == "meta":
+        kw["meta"] = torch.randint(-2**31, 2**31 - 1, (b, n), generator=gen,
+                                   device=dev, dtype=torch.int32)
+    else:
+        kw["guid_lut"] = torch.randint(-5, 1 << 20, (b, n_guid),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int32)
+    return words, kw
+
+
+def _window_fields(fw):
+    return [("buckets." + k, v) for k, v in fw.buckets._asdict().items()] + \
+        [(k, v) for k, v in fw._asdict().items() if k != "buckets"]
+
+
+def _route_chain(words, dest_lut, meta, d, c, r, fmt):
+    """The sequence the flush-window kernel replaced on the simulator's
+    path: the route (address, clamp, table lookup), then the sort-based
+    chain (``fused_aggregate``: stable sort and gathers, run edges, pads,
+    the per-row placement kernel with its encode, the residue's second
+    sort and gathers, reductions)."""
+    from repro_torch.core import events as ev
+    from repro_torch.core.routing import lookup
+    from repro_torch.kernels import fused_route_bucket as frb
+    addr = torch.clamp(ev.address(words), max=dest_lut.shape[-1] - 1)
+    return frb.fused_aggregate(words, lookup(dest_lut, addr), meta, d, c,
+                               residue_len=r, with_residue_meta=True,
+                               wire_fmt=fmt)
+
+
+def check_flush_window(gen, cfg, n_lut):
+    """Kernel A's flush window against its plain version, bit for bit on
+    every ``FusedWindow`` field: the crossbar path's shape (S windows of
+    residue + e_max * max_fan events, the destination table and meta per
+    event), the credited torus's with its held rows (8 windows of 8 x C +
+    residue + e_max x 8 events), the exchange's routed shape (8 x 4096, D 8,
+    C 256, both tables), then ragged cases (n 0 and 1, C 1, D 13, no
+    residue, a residue longer than n or shorter than the overflow, two
+    overflowing destinations, every event to one destination, a window
+    split over a cluster of 8 blocks) in all four operand combinations;
+    each in three word formats and none.  Then, in turns at the crossbar
+    and torus shapes, the kernel against the chain it replaced (the route
+    and ``fused_aggregate``), each chain's device functions counted."""
+    from repro_torch.core import events as ev
+    from repro_torch.kernels import fused_route_bucket as frb
+    from repro_torch.wire import codec
+    S, C, R = cfg.n_shards, cfg.capacity, cfg.residue
+    n_main = R + cfg.e_max * cfg.max_fan
+    n_torus = 8 * C + R + cfg.e_max * 8
+    shapes = [  # label, (b, n, d, c, r), modes, how, n_lut, n_guid
+        ("crossbar", (S, n_main, S, C, R), FLUSH_MODES[1:2], "biased",
+         n_lut, 70),
+        ("torus with held rows", (8, n_torus, 8, C, R), FLUSH_MODES[1:2],
+         "biased", n_lut, 70),
+        ("exchange", (8, 4096, 8, 256, 0), FLUSH_MODES[2:3], "uniform",
+         1024, 64)]
+    shapes += [(f"ragged {case}", case, FLUSH_MODES, how, 200, 70)
+               for case, how in (((2, 0, 4, 8, 5), "uniform"),
+                                 ((2, 1, 4, 8, 5), "uniform"),
+                                 ((2, 63, 7, 1, 16), "biased"),
+                                 ((1, 257, 13, 19, 300), "biased"),
+                                 ((5, 300, 4, 16, 0), "biased"),
+                                 ((3, 600, 3, 8, 20), "biased"),
+                                 ((3, 1000, 7, 33, 128), "uniform"),
+                                 ((2, 9000, 5, 100, 50), "one"))]
+    err, n_cases, two_overflow, clipped = 0.0, 0, False, False
+    for label, (b, n, d, c, r), modes, how, lut_n, guid_n in shapes:
+        for mode in modes:
+            words, kw = _flush_inputs(gen, b, n, d, mode, how, lut_n, guid_n)
+            kw.update(residue_len=r, with_residue_meta=mode[1] == "meta")
+            for f in FLUSH_FMTS:
+                fmt = None if f is None else codec.WireWordFormat(*f)
+                got = frb.flush_window(words, d, c, wire_fmt=fmt, **kw)
+                want = frb.flush_window_plain(words, d, c, wire_fmt=fmt, **kw)
+                what = f"flush_window {label} {mode} fmt {f}"
+                for (name, a), (_, e) in zip(_window_fields(got),
+                                             _window_fields(want)):
+                    if (a is None) != (e is None):
+                        raise AssertionError(f"{what}: {name} present in one")
+                    if a is not None:
+                        require_equal(f"{what}: {name}", [(a, e)])
+                        err = max(err, max_abs_err([(a, e)]))
+                n_cases += 1
+            ovf = (want.buckets.counts == c).sum(-1)
+            two_overflow |= bool(((ovf >= 2) & (want.buckets.overflow > 0)
+                                  ).any())
+            clipped |= bool((want.dropped > 0).any())
+    if not (two_overflow and clipped):
+        raise AssertionError("flush_window: no window with two overflowing "
+                             "destinations or a clipped residue tested")
+
+    fmt = codec.DEFAULT_WORD
+    timed = {}
+    for label, b, n, d in (("crossbar", S, n_main, S),
+                           ("torus", 8, n_torus, 8)):
+        words = _words(gen, (b, n), n_addr=n_lut)
+        lut = torch.randint(0, d, (b, n_lut), generator=gen, device=gen.device,
+                            dtype=torch.int32)
+        meta = torch.randint(0, 1 << 20, (b, n), generator=gen,
+                             device=gen.device, dtype=torch.int32)
+        fns = {"kernel": lambda: frb.flush_window(
+                   words, d, C, dest_lut=lut, meta=meta, residue_len=R,
+                   with_residue_meta=True, wire_fmt=fmt),
+               "chain": lambda: _route_chain(words, lut, meta, d, C, R, fmt)}
+        for (name, a), (_, e) in zip(_window_fields(fns["kernel"]()),
+                                     _window_fields(fns["chain"]())):
+            require_equal(f"flush_window vs the chain at {label}: {name}",
+                          [(a, e)])
+        times = {k: [] for k in fns}
+        for order in (("kernel", "chain"), ("chain", "kernel")):
+            for k in order:
+                times[k].append(time_ms(fns[k]))
+        timed[label] = {k: tuple(statistics.mean(v) for v in zip(*times[k]))
+                        for k in fns}
+        timed[label]["functions"] = {
+            k: profile_device(fns[k], f"one call of the {k} at the {label} "
+                              f"shape", 1, "call", top=0) for k in fns}
+        if label == "crossbar":
+            plain = time_ms(lambda: frb.flush_window_plain(
+                words, d, C, dest_lut=lut, meta=meta, residue_len=R,
+                with_residue_meta=True, wire_fmt=fmt))
+            # each input read once: words, meta and the table entries the
+            # valid words address; each output written once: rows, metas,
+            # payload lanes, counts, residue and its meta, 4 scalars
+            valid = ev.is_valid(words)
+            addr = torch.clamp(ev.address(words), max=n_lut - 1)
+            entries = sum(int(torch.unique(addr[i][valid[i]]).numel())
+                          for i in range(b))
+            n_bytes = (8 * b * n + 4 * entries + 16 * b * d * C + 4 * b * d
+                       + 8 * b * R + 16 * b)
+            bms, by = bound_ms(n_bytes, 30 * b * n)
+    for label, t in timed.items():
+        f = t["functions"]
+        print(f"flush_window at the {label} shape: kernel {t['kernel'][0]:.4f}"
+              f" ms ({f['kernel']} device functions), the chain it replaced "
+              f"(route + sort + operands + per-row placement with its encode "
+              f"+ residue) {t['chain'][0]:.4f} ms ({f['chain']} device "
+              f"functions), in turns")
+    (ms, eager_ms), (chain_ms, _) = (timed["crossbar"]["kernel"],
+                                     timed["crossbar"]["chain"])
+    return dict(name="flush_window", route="cuda",
+                source="src/repro_torch/csrc/flush_window.cu",
+                replaces="src/repro/kernels/fused_route_bucket.py:122",
+                max_abs_err=err, ms=ms, plain_ms=plain[0], bound_ms=bms,
+                bound_by=by, library_ms=None, eager_ms=eager_ms,
+                plain_eager_ms=plain[1], chain_ms=chain_ms,
+                torus_ms=timed["torus"]["kernel"][0],
+                torus_chain_ms=timed["torus"]["chain"][0],
+                parity=f"bit-exact on every FusedWindow field ({n_cases} "
+                       f"cases: 3 path shapes, 8 ragged in 4 operand "
+                       f"combinations, 3 word formats and none); timed at "
+                       f"the crossbar shape")
 
 
 def check_codec(gen, cfg):
@@ -582,16 +773,18 @@ def _scatter_bytes(batch, n, d, c):
 def check_bucket_scatter(gen):
     """Kernel D at the exchange path's shape (8 shard windows of N 4096,
     D 8 destinations, C 256, one launch), at (N 4096, D 64, C 128) alone
-    and with a shard axis of 8, and on ragged shapes, bit for bit against
-    its plain version; destinations -1 .. D (out of range matches no
-    row)."""
+    and with a shard axis of 8, on ragged shapes and on windows that span
+    every block of a cluster, bit for bit against its plain version;
+    destinations -1 .. D (out of range matches no row)."""
     from repro_torch.kernels import bucket_scatter as bs
     dev = gen.device
     path = ((8,), 4096, 8, 256)
     wide = ((), 4096, 64, 128)
+    # the last two span every block of a cluster of 8
     cases = [path, wide, ((8,), 4096, 64, 128), ((), 100, 13, 7),
              ((8,), 128, 3, 124), ((8,), 1024, 64, 16), ((3,), 1000, 7, 33),
-             ((2,), 1, 5, 0), ((2,), 0, 4, 8)]
+             ((2,), 1, 5, 0), ((2,), 0, 4, 8), ((4,), 20000, 8, 256),
+             ((2,), 9000, 3, 5000)]
 
     def inputs(batch, n, d, c):
         words = _words(gen, batch + (n,))
@@ -625,6 +818,10 @@ def check_bucket_scatter(gen):
     print(f"bucket_scatter at (N 4096, D 64, C 128): kernel {w_ms:.4f} ms, "
           f"plain {w_plain:.4f} ms, bound {w_bound:.6f} ms (bytes, "
           f"{_scatter_bytes(1, *wide[1:])} B)")
+    print(f"bucket_scatter, one cluster per window: {ms:.4f} ms at (8, 4096, "
+          f"8, 256), {w_ms:.4f} ms at (4096, 64, 128); the previous design, "
+          f"one block per row, as PERF.md records it: 0.008958 and 0.0097 "
+          f"ms")
     return dict(name="bucket_scatter", route="cuda",
                 source="src/repro_torch/csrc/bucket_scatter.cu",
                 replaces="src/repro/kernels/bucket_scatter.py:79",
@@ -788,9 +985,10 @@ def run_main_path():
     if not (link["sent_events"].sum(0) == link["delivered_events"].sum(0)
             ).all():
         raise AssertionError("link conservation: sum(sent) != sum(delivered)")
-    # one LIF window launch per window; the encode runs inside placement,
-    # so the codec decodes each exchange (+1: the drain's)
-    want = {"placement": N_WINDOWS, "wire_codec": N_WINDOWS + 1,
+    # one LIF window launch and one flush window per window; the encode
+    # runs inside the flush window, so the codec decodes each exchange
+    # (+1: the drain's); the per-row placement runs no more
+    want = {"flush_window": N_WINDOWS, "wire_codec": N_WINDOWS + 1,
             "lif_step": N_WINDOWS}
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
@@ -899,8 +1097,8 @@ def require_same_outputs(what, got, want, rtol=1e-6):
 
 def check_window_buckets(words, tables):
     """Kernel D (``ops.bucket_scatter``) on the routed words of one
-    exchanged window against ``aggregate(impl="sort")`` and the fused
-    route+aggregate buckets (kernel A)."""
+    exchanged window against ``aggregate(impl="sort")`` and the flush
+    window's buckets (kernel A)."""
     from repro_torch.core import aggregator
     from repro_torch.kernels import fused_route_bucket as frb, ops
     dest, guid, routed = tables.route(words)
@@ -908,9 +1106,9 @@ def check_window_buckets(words, tables):
     by_d = ops.bucket_scatter(masked, dest, guid, X_SHARDS, X_CAPACITY)
     by_sort = aggregator.aggregate(masked, dest, guid, X_SHARDS, X_CAPACITY,
                                    impl="sort")
-    fused = frb.fused_route_aggregate(words, tables.dest_of_addr,
-                                      tables.guid_of_addr, X_SHARDS,
-                                      X_CAPACITY).buckets
+    fused = frb.flush_window(words, X_SHARDS, X_CAPACITY,
+                             dest_lut=tables.dest_of_addr,
+                             guid_lut=tables.guid_of_addr).buckets
     require_equal("bucket_scatter vs aggregate(sort)",
                   list(zip(by_d, by_sort)))
     require_equal("bucket_scatter vs fused buckets", list(zip(by_d, fused)))
@@ -981,11 +1179,12 @@ def run_exchange_path():
         windows += 1
     torch.cuda.synchronize()
     launches = dict(dispatch.LAUNCHES)
-    if launches.get("bucket_scatter") != windows or not all(
-            launches.get(k, 0) > 0 for k in ("placement", "wire_codec")):
+    if launches.get("bucket_scatter") != windows or "placement" in \
+            launches or not all(launches.get(k, 0) > 0
+                                for k in ("flush_window", "wire_codec")):
         raise AssertionError(f"exchange path launches {launches}: want "
-                             f"bucket_scatter {windows} and placement, "
-                             f"wire_codec > 0")
+                             f"bucket_scatter {windows}, flush_window and "
+                             f"wire_codec > 0, placement 0")
 
     words_c, tables_c = exchange_inputs("cpu")
     for label, run in runs.items():
@@ -1181,7 +1380,7 @@ def run_torus_main_path():
         if not np.isfinite(state.neuron.v.cpu().numpy()).all():
             raise AssertionError(f"{name}: non-finite membrane potentials")
         can_defer = fields.get("link_credits", 0) > 0
-        want = {"placement": N_WINDOWS,
+        want = {"flush_window": N_WINDOWS,
                 "wire_codec": N_WINDOWS + 1 + int(can_defer),
                 "lif_step": N_WINDOWS}
         if launches[name] != want:
@@ -1610,7 +1809,8 @@ def main() -> int:
     from repro_torch.models.ssm import dims
     lm = get_config(MAMBA_ARCH)
     banner("kernels against their plain versions")
-    records = [check_placement(gen, cfg, per * cfg.max_fan),
+    records = [check_flush_window(gen, cfg, per * cfg.max_fan),
+               check_placement(gen, cfg, per * cfg.max_fan),
                check_codec(gen, cfg), check_lif(gen, cfg),
                check_bucket_scatter(gen),
                *check_ssd_chunk(gen, MAMBA_SLOTS * dims(lm)[1],
@@ -1656,8 +1856,8 @@ def main() -> int:
     for path, counts in paths.items():
         print(f"launches on {path}: {counts}")
 
-    for r in records:
-        r["launches"] = launches[r["name"]]
+    for r in records:           # the per-row placement is on no path: 0
+        r["launches"] = launches.get(r["name"], 0)
     print("\nkernels: " + ", ".join(
         f"{r['name']} launches={r['launches']} parity={r['parity']}"
         for r in records))

@@ -15,7 +15,7 @@ Layouts:
 * the reference's per-shard PRNG key has no port counterpart (the port
   draws from a ``torch.Generator`` or takes its drive as input);
 * the port's ``PendingWindow.payload`` (the pending buckets as wire words,
-  which its placement kernel writes) has no reference counterpart: it is
+  which its flush-window kernel writes) has no reference counterpart: it is
   encoded from ``data`` and ``meta`` on the way in and dropped on the way
   out;
 * LM parameters: the same nested dicts, block parameters stacked along a

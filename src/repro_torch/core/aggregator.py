@@ -2,9 +2,10 @@
 model (port of ``src/repro/core/aggregator.py``, paper §3.1).
 
 ``aggregate(..., impl=)`` bins a window of events into per-destination
-buckets in window order: ``"fused"`` / ``"pallas"`` through the sort-based
-``kernels.fused_route_bucket`` (placement kernel A on CUDA tensors),
-``"onehot"`` and ``"sort"`` as staged cross-check oracles.  Functions
+buckets in window order: ``"pallas"`` through the flush-window kernel A
+(``kernels.fused_route_bucket.flush_window``), ``"fused"`` through the
+sort-based chain beside it, ``"onehot"`` and ``"sort"`` as staged
+cross-check oracles.  Functions
 reduce over the last axis, so a leading shard axis gives one result per
 shard.
 """
@@ -98,8 +99,8 @@ def aggregate(words, dest, guids, n_dest: int, capacity: int,
     """Bin a window of events into per-destination buckets.
 
     impl: ``"onehot" | "sort" | "fused" | "pallas" | "auto"``.  ``"pallas"``
-    names the hand-written placement kernel (``kernels.ops.fused_scatter``;
-    the plain version on CPU tensors); ``"auto"`` is the kernel on a CUDA
+    names the hand-written flush-window kernel
+    (``kernels.ops.fused_scatter``; its plain version on CPU tensors); ``"auto"`` is the kernel on a CUDA
     tensor and ``"fused"`` on a CPU one.
     """
     if guids is None:

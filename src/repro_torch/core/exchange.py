@@ -5,12 +5,13 @@ A window is:
 
 1. **route + aggregate** -- the source LUT lookup (§3, LUT 1) and the
    capacity-bounded per-destination buckets (§3.1): ``impl`` ``"fused"``
-   / ``"pallas"`` / ``"auto"`` in one sort-based pass with the routed
-   placement kernel A (``kernels.fused_route_bucket``); ``"onehot"`` /
+   / ``"pallas"`` / ``"auto"`` in one launch of the flush-window kernel A
+   (``kernels.fused_route_bucket.flush_window``: route, rank, placement
+   with the GUID lookup, encode); ``"onehot"`` /
    ``"sort"`` staged through ``RoutingTables.route`` and
    ``core.aggregator.aggregate``;
 2. **transport** -- every (event, guid) pair becomes one 64-bit wire word
-   (lane-planar rows; the fused impls encode inside placement kernel A,
+   (lane-planar rows; the fused impls encode inside kernel A,
    the staged ones with codec kernel B), a ``transport`` backend ships the
    rows (``alltoall`` crossbar, or the credited ``torus2d`` / ``torus3d``)
    and kernel B decodes them;
@@ -68,9 +69,10 @@ def exchange_window(words: torch.Tensor, tables: RoutingTables, *,
     own."""
     # 1. route + aggregate
     if impl in ("auto", "fused", "pallas"):
-        fw = frb.fused_route_aggregate(words, tables.dest_of_addr,
-                                       tables.guid_of_addr, n_shards,
-                                       capacity, wire_fmt=wire.DEFAULT_WORD)
+        fw = frb.flush_window(words, n_shards, capacity,
+                              dest_lut=tables.dest_of_addr,
+                              guid_lut=tables.guid_of_addr,
+                              wire_fmt=wire.DEFAULT_WORD)
         b, payload = fw.buckets, fw.payload
     else:
         dest, guid, routed = tables.route(words)

@@ -12,75 +12,84 @@
 // Words are int32 bit patterns of 30-bit event words.
 //
 // The TPU kernel builds each row with an O(N * D * C) one-hot integer
-// select-reduce on the vector lanes.  Here the same function is an ordered
-// compaction: one block per row sweeps the window in tiles of 256 events;
-// each warp ranks its matching events with __ballot_sync / __popc, the
-// warp totals go through shared memory, and a running base carries the
-// count from tile to tile.  Slots come from the prefix count, never from
-// an atomicAdd, so window order is kept.
+// select-reduce on the vector lanes.  Here the same function is the
+// ranker of dest_rank.cuh plus a placement, in one pass over the window:
+// one thread-block cluster per batch row stages its chunks of the window
+// in shared memory (cp.async, read from device memory once) and ranks
+// every event among its destination's in window order (__match_any_sync
+// inside a warp, a warps x D table across warps, the cluster's chunk
+// counts through distributed shared memory); then each block writes the
+// accepted events of its chunk to their slots, the cluster's blocks split
+// the dead slots, and block 0 writes the raw counts.  No atomic decides a
+// slot, so window order is kept.
 //
 // Bound on an H100 (3.35 TB/s): bytes.  The function reads each input once
 // (12 N bytes) and writes each output once (8 D C + 4 D bytes): at N 4096,
 // D 64, C 128 that is 114,944 B, about 0.034 us, far below one launch.
-// Every block reads the whole dests vector (D * 4 N bytes, from L2 after
-// the first), which is the price of one block per row and no second pass.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dest_rank.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+namespace rk = repro_rank;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rk::kThreads)
 bucket_scatter_kernel(const int32_t* __restrict__ words,
                       const int32_t* __restrict__ dests,
                       const int32_t* __restrict__ guids,
                       int32_t* __restrict__ data, int32_t* __restrict__ gout,
-                      int32_t* __restrict__ counts, int64_t n, int n_dest,
-                      int capacity) {
-  __shared__ int warp_count[kWarps];
-  const int d = blockIdx.x;
+                      int32_t* __restrict__ counts, int64_t n, int64_t chunk,
+                      int n_dest, int capacity) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = n_dest;
+  const int C = capacity;
   const int64_t b = blockIdx.y;
-  const int64_t row = b * n_dest + d;
+  const rk::Chunk c = rk::my_chunk(n, chunk);
+  const rk::Shared sh = rk::carve(smem, D);
+  int32_t* s_words = reinterpret_cast<int32_t*>(sh.key + chunk);
+  int32_t* s_guids = s_words + chunk;
   const int32_t* w_b = words + b * n;
   const int32_t* d_b = dests + b * n;
   const int32_t* g_b = guids + b * n;
-  int32_t* data_row = data + row * capacity;
-  int32_t* gout_row = gout + row * capacity;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
-  int base = 0;                       // events of d in the earlier tiles
-  for (int64_t start = 0; start < n; start += kThreads) {
-    const int64_t i = start + threadIdx.x;
-    const bool match = i < n && d_b[i] == d;
-    const unsigned ballot = __ballot_sync(0xffffffffu, match);
-    if (lane == 0) warp_count[warp] = __popc(ballot);
-    __syncthreads();
-    int before = base;
-    int total = 0;
-    for (int k = 0; k < kWarps; ++k) {
-      const int c = warp_count[k];
-      before += k < warp ? c : 0;
-      total += c;
+  rk::rank_chunk(
+      c, D, sh,
+      [=](int64_t g, int64_t l) {
+        rk::cp_async4(sh.key + l, d_b + g);
+        rk::cp_async4(s_words + l, w_b + g);
+        rk::cp_async4(s_guids + l, g_b + g);
+      },
+      [=](int64_t l) -> int {
+        const int d = static_cast<int>(sh.key[l]);
+        return d >= 0 && d < D ? d : -1;
+      });
+  rk::cluster_bases(c, D, sh);
+  for (int64_t l = threadIdx.x; l < c.len; l += rk::kThreads) {
+    const uint32_t key = sh.key[l];
+    if (key == rk::kNone) continue;
+    const int d = static_cast<int>(key >> rk::kRankBits);
+    const int64_t k = sh.base[d] + static_cast<int64_t>(key & rk::kRankMask);
+    if (k < C) {
+      const int64_t slot = (b * D + d) * C + k;
+      data[slot] = s_words[l];
+      gout[slot] = s_guids[l];
     }
-    if (match) {
-      const int slot = before + __popc(ballot & lanes_below);
-      if (slot < capacity) {
-        data_row[slot] = w_b[i];
-        gout_row[slot] = g_b[i];
-      }
+  }
+  const int stride = static_cast<int>(c.blocks) * rk::kThreads;
+  for (int j = static_cast<int>(c.rank) * rk::kThreads + threadIdx.x;
+       j < D * C; j += stride) {        // D * C < 2^31
+    const int d = j / C;
+    if (j - d * C >= sh.tot[d]) {
+      data[b * D * C + j] = 0;
+      gout[b * D * C + j] = 0;
     }
-    base += total;
-    __syncthreads();                  // warp_count is rewritten next tile
   }
-  for (int j = min(base, capacity) + threadIdx.x; j < capacity;
-       j += kThreads) {
-    data_row[j] = 0;
-    gout_row[j] = 0;
+  if (c.rank == 0) {
+    for (int d = threadIdx.x; d < D; d += rk::kThreads)
+      counts[b * D + d] = sh.tot[d];
   }
-  if (threadIdx.x == 0) counts[row] = base;
+  rk::finish();
 }
 
 }  // namespace
@@ -91,12 +100,12 @@ extern "C" int repro_bucket_scatter(const void* words, const void* dests,
                                     int64_t n, int n_dest, int capacity,
                                     void* stream) {
   if (batch == 0 || n_dest == 0) return 0;
-  const dim3 grid(n_dest, batch);
-  bucket_scatter_kernel<<<grid, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(words), static_cast<const int32_t*>(dests),
-      static_cast<const int32_t*>(guids), static_cast<int32_t*>(data),
-      static_cast<int32_t*>(gout), static_cast<int32_t*>(counts), n, n_dest,
-      capacity);
-  return static_cast<int>(cudaGetLastError());
+  if (n_dest > rk::kMaxDest || n > rk::max_window(n_dest, 3))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(rk::launch(
+      bucket_scatter_kernel, n, batch, rk::smem_bytes(n, n_dest, 3),
+      static_cast<cudaStream_t>(stream), static_cast<const int32_t*>(words),
+      static_cast<const int32_t*>(dests), static_cast<const int32_t*>(guids),
+      static_cast<int32_t*>(data), static_cast<int32_t*>(gout),
+      static_cast<int32_t*>(counts), n, rk::chunk_of(n), n_dest, capacity));
 }

@@ -6,8 +6,9 @@
 //
 // What it computes: encode packs a 30-bit event word and a 32-bit meta
 // value into one 64-bit wire word held as two u32 lanes (lo, hi); decode
-// is the inverse.  The bit layout lives in wire_word.cuh, which placement
-// (placement.cu) shares for its encode epilogue.  Rows are lane-planar: a
+// is the inverse.  The bit layout lives in wire_word.cuh, which the flush
+// window (flush_window.cu) and placement (placement.cu) share for their
+// encode.  Rows are lane-planar: a
 // (rows, C) input maps to a (rows, 2C) buffer whose first C lanes are lo
 // and last C lanes are hi, so the wrapper needs no concatenation around
 // the kernel.  Decode also takes the distance between input rows, so it
@@ -22,7 +23,7 @@
 // Design: one thread per word with a grid-stride loop; consecutive
 // threads touch consecutive words of each lane, so loads and stores are
 // coalesced.  The launch dominates, so the simulator and the fused
-// exchange encode inside placement's launch (the rows it has just
+// exchange encode inside the flush window's launch (the rows it has just
 // placed) and launch only the decode; this standalone encode serves every
 // other caller.
 #include <cstdint>

@@ -1,6 +1,7 @@
 // The 64-bit spike wire word's bit layout, shared by the codec kernels
-// (wire_codec.cu) and placement's encode epilogue (placement.cu), so the
-// layout is written once.
+// (wire_codec.cu), the flush window's encode (flush_window.cu) and
+// placement's encode epilogue (placement.cu), so the layout is written
+// once.
 //
 // A 30-bit event word (ts 15, address 14, valid 1) and a 32-bit meta value
 // become one 64-bit wire word held as two u32 lanes (lo, hi), fields

@@ -11,6 +11,7 @@ nor a GPU until :func:`library` is called.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,6 +37,9 @@ SIGNATURES = {
     "repro_lif_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _L, _L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F,
                          _F, _F, _F, _P),
+    "repro_flush_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _L, _I, _I, _L, _L, _L, _L, _L, _I, _I, _I,
+                           _P),
     "repro_bucket_scatter": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
     "repro_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                         _I, _P),
@@ -114,7 +118,20 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            lib.repro_rank_max_window.argtypes = (_I, _I)
+            lib.repro_rank_max_window.restype = _L
             lib.repro_error_string.argtypes = (ctypes.c_int,)
             lib.repro_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+MAX_DEST = 256             # destinations the ranker takes (kMaxDest)
+
+
+@functools.lru_cache(maxsize=None)
+def max_window(n_dest: int, arrays: int) -> int:
+    """The longest window the ranker of ``csrc/dest_rank.cuh`` takes for
+    ``n_dest`` destinations with ``arrays`` 4-byte values staged per
+    event (its shared memory bounds a cluster's chunks)."""
+    return library().repro_rank_max_window(n_dest, arrays)

@@ -8,7 +8,8 @@ binning kept as an independent cross-check of the sort-based aggregation
 (``kernels.ops.bucket_scatter``): for each destination, the matching events
 take the row's slots in window order up to the capacity, and the counts
 are the raw, pre-clip counts.  Leading batch axes (the shard axis) run in
-one launch.
+one launch: one thread-block cluster per window ranks and places it in a
+single pass (``csrc/dest_rank.cuh``).
 """
 from __future__ import annotations
 
@@ -54,8 +55,15 @@ def bucket_scatter(words, dests, guids, n_dest: int, capacity: int):
                              f"int32 tensor of shape {tuple(shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     batch = math.prod(shape[:-1])
-    if batch > MAX_BATCH:
-        raise ValueError(f"bucket_scatter: {batch} batch rows > {MAX_BATCH}")
+    from repro_torch.kernels import _build
+    longest = _build.max_window(n_dest, 3)      # key, word, guid per event
+    if batch > MAX_BATCH or n_dest > _build.MAX_DEST or \
+            shape[-1] > longest or n_dest * capacity >= 2**31:
+        raise ValueError(f"bucket_scatter: {batch} rows of {shape[-1]} "
+                         f"events to {n_dest} destinations of {capacity} "
+                         f"slots; the kernel takes at most {MAX_BATCH} rows "
+                         f"of {longest} events, {_build.MAX_DEST} "
+                         f"destinations and 2^31 slots a row")
     data = torch.empty(shape[:-1] + (n_dest, capacity), dtype=torch.int32,
                        device=words.device)
     gout = torch.empty_like(data)

@@ -1,26 +1,38 @@
 """Fused route+aggregate flush window (port of
 ``src/repro/kernels/fused_route_bucket.py``).
 
-1. **route**   -- ``dest = dest_lut[addr]``, validity from the valid bit
-                  and the destination range;
-2. **rank**    -- one stable sort by destination groups each destination's
-                  events contiguously in window order (``torch.sort(...,
-                  stable=True)`` plus gathers, as the reference's
-                  multi-operand ``lax.sort``);
-3. **place**   -- each destination's bucket row is a slice of the sorted
-                  window, zeroed past its count: the hand-written kernel
-                  ``csrc/placement.cu`` on CUDA tensors, ``placement_plain``
-                  on CPU tensors.  The routed variant looks the GUID up
-                  inside the kernel for accepted events only.  Given a
-                  ``wire_fmt``, the same launch also writes each row as
-                  64-bit wire words (``wire.encode_planar`` of the row's
-                  words and meta), the payload the transport ships;
-4. **residue** -- events beyond a bucket's capacity are compacted into a
-                  fixed-size buffer that is offered again next window.
+The window stage of every path is :func:`flush_window`: route, rank,
+place, encode and residue of all shards' windows in one launch of the
+hand-written kernel ``csrc/flush_window.cu`` on CUDA tensors, and
+:func:`flush_window_plain`, the same function in the kernel's
+formulation (one-hot ranks, overflow bases, no sort), on CPU tensors:
+
+1. **route**   -- the destination per event, or ``dest_lut[addr]``
+                  (addresses clamped to the table); validity from the
+                  valid bit and the destination range;
+2. **rank**    -- each valid event's rank among its destination's events
+                  in window order, and the per-destination counts;
+3. **place**   -- rank k < C takes slot k of its destination's row, with
+                  its meta or ``guid_lut[addr]``; slots past the count are
+                  zero.  Given a ``wire_fmt``, every slot is also written
+                  as a 64-bit wire word (``wire.encode_planar`` of the
+                  row's words and meta), the payload the transport ships;
+4. **residue** -- events of rank >= C are compacted, destination-major,
+                  into a fixed-size buffer that is offered again next
+                  window.
+
+The reference's sort-based chain stays beside it as
+:func:`fused_aggregate` / :func:`fused_route_aggregate`: a stable
+``torch.sort`` by destination plus gathers (the reference's multi-operand
+``lax.sort``), the run edges, the per-row placement kernel
+``csrc/placement.cu`` (``placement_plain`` on CPU tensors) and a second
+sort for the residue.  Neither the simulator nor the exchange runs it
+(``aggregator.aggregate(impl="fused")`` does); ``chip_smoke.py`` times
+:func:`flush_window` against it on the card.
 
 Every function takes one window ``(n,)`` or a batch of windows ``(B, n)``
-(the simulator passes its S shards as the batch, so placement is one
-launch per window for all shards).
+(the simulator passes its S shards as the batch, so each is one launch
+per window for all shards).
 """
 from __future__ import annotations
 
@@ -33,6 +45,8 @@ from repro_torch.core.aggregator import Buckets
 from repro_torch.core.routing import lookup
 from repro_torch.kernels import dispatch
 from repro_torch.wire import codec
+
+MAX_BATCH = 65535          # the kernel's windows are grid.y
 
 
 class FusedWindow(NamedTuple):
@@ -60,7 +74,185 @@ class FusedWindow(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# Stage 3: placement -- kernel A and its plain version.
+# The flush window -- kernel A's stage in one launch, and its plain version.
+# ---------------------------------------------------------------------------
+
+def _window_operands(words, dest, dest_lut, meta, guid_lut, n_dest: int,
+                     with_residue_meta: bool):
+    """Checks shared by :func:`flush_window` and its plain version ->
+    (single, words, dest, dest_lut, meta, guid_lut): int32, per-event
+    operands (B, n) (a single (n,) window gets B = 1, ``single`` True),
+    tables (1 or B, n_table)."""
+    if (dest is None) == (dest_lut is None):
+        raise ValueError("flush_window: give exactly one of dest and "
+                         "dest_lut")
+    if (meta is None) == (guid_lut is None):
+        raise ValueError("flush_window: give exactly one of meta and "
+                         "guid_lut")
+    if with_residue_meta and guid_lut is not None:
+        raise ValueError("with_residue_meta needs per-event meta (the "
+                         "explicit-guids path), not a routed guid LUT")
+    if n_dest < 1:
+        raise ValueError(f"flush_window: n_dest {n_dest} < 1")
+    single = words.dim() == 1
+    per_event = [None if t is None else t.to(torch.int32)
+                 for t in (words, dest, meta)]
+    if single:
+        per_event = [None if t is None else t[None] for t in per_event]
+    words, dest, meta = per_event
+    for name, t in (("dest", dest), ("meta", meta)):
+        if t is not None and t.shape != words.shape:
+            raise ValueError(f"flush_window: {name} {tuple(t.shape)} does "
+                             f"not match words {tuple(words.shape)}")
+    tables = []
+    for name, t in (("dest_lut", dest_lut), ("guid_lut", guid_lut)):
+        if t is not None:
+            t = t.to(torch.int32)
+            t = t[None] if t.dim() == 1 else t
+            if t.dim() != 2 or t.shape[0] not in (1, words.shape[0]) \
+                    or t.shape[1] == 0:
+                raise ValueError(f"flush_window: {name} must be (n_table,) "
+                                 f"or (B, n_table), got {tuple(t.shape)}")
+        tables.append(t)
+    return single, words, dest, tables[0], meta, tables[1]
+
+
+def _one_window(fw: FusedWindow) -> FusedWindow:
+    return FusedWindow(*(None if f is None else (
+        Buckets(*(x[0] for x in f)) if isinstance(f, Buckets) else f[0])
+        for f in fw))
+
+
+def _table_lookup(table, words):
+    """``table[b, min(address(w), n_table - 1)]`` for every event."""
+    idx = torch.clamp(ev.address(words), max=table.shape[-1] - 1).long()
+    return torch.gather(table.expand(words.shape[0], -1), 1, idx)
+
+
+def flush_window_plain(words, n_dest: int, capacity: int, *, dest=None,
+                       dest_lut=None, meta=None, guid_lut=None,
+                       residue_len: int = 0, with_residue_meta: bool = False,
+                       wire_fmt: codec.WireWordFormat | None = None
+                       ) -> FusedWindow:
+    """Plain PyTorch flush window, in the kernel's formulation.
+
+    words: (B, n) or (n,) int32 event words.  The destination of each event
+    is ``dest`` (per event) or ``dest_lut[min(address, n_lut - 1)]``; its
+    meta is ``meta`` (per event) or ``guid_lut[min(address, n_guid - 1)]``.
+    Tables are (n_table,) or one row per window.  The rank of an event
+    among its destination's is the exclusive cumsum of the (D, n) one-hot;
+    rank k < C takes slot k, rank k >= C residue position ``ovf_base[d] +
+    k - C`` (``ovf_base``: the exclusive cumsum of the destinations'
+    overflow).  Returns what :func:`fused_aggregate` /
+    :func:`fused_route_aggregate` return, bit for bit.
+    """
+    single, words, dest, dest_lut, meta, guid_lut = _window_operands(
+        words, dest, dest_lut, meta, guid_lut, n_dest, with_residue_meta)
+    b, n = words.shape
+    dev = words.device
+    C = capacity
+    if dest_lut is not None:
+        dest = _table_lookup(dest_lut, words)
+    if guid_lut is not None:
+        meta = _table_lookup(guid_lut, words)
+    valid = ev.is_valid(words) & (dest >= 0) & (dest < n_dest)
+    d_ids = torch.arange(n_dest, dtype=torch.int32, device=dev)
+    onehot = ((dest[:, None, :] == d_ids[:, None]) & valid[:, None, :]).to(
+        torch.int32)                                         # (B, D, n)
+    counts = onehot.sum(-1, dtype=torch.int32)
+    d_of = torch.where(valid, dest, 0).long()
+    rank = torch.gather(torch.cumsum(onehot, -1, dtype=torch.int32) - onehot,
+                        1, d_of[:, None, :])[:, 0]           # (B, n)
+    accepted = torch.clamp(counts, max=C)
+    offered = counts.sum(-1, dtype=torch.int32)
+    overflow = offered - accepted.sum(-1, dtype=torch.int32)
+
+    def scatter(values, index, width):      # column ``width`` takes the rest
+        out = torch.zeros((b, width + 1), dtype=torch.int32, device=dev)
+        return out.scatter_(1, index, values)[:, :width]
+
+    slot = torch.where(valid & (rank < C), d_of * C + rank, n_dest * C)
+    data, gmeta = (scatter(v, slot, n_dest * C).reshape(b, n_dest, C)
+                   for v in (words, meta))
+    payload = None
+    if wire_fmt is not None:
+        payload = torch.cat(codec.encode_plain(data, gmeta, wire_fmt), dim=-1)
+
+    r = min(residue_len, n)
+    excess = counts - accepted
+    ovf_base = torch.cumsum(excess, -1, dtype=torch.int32) - excess
+    pos = torch.gather(ovf_base, 1, d_of) + rank - C
+    pos = torch.where(valid & (rank >= C) & (pos < r), pos, r).long()
+    pad = torch.zeros((b, residue_len - r), dtype=torch.int32, device=dev)
+    residue = torch.cat([scatter(words, pos, r), pad], dim=-1)
+    res_meta = None
+    if with_residue_meta:
+        res_meta = torch.cat([scatter(meta, pos, r), pad], dim=-1)
+    deferred = torch.clamp(overflow, max=r)
+    fw = FusedWindow(Buckets(data, gmeta, accepted, overflow), residue,
+                     deferred, overflow - deferred, offered, res_meta,
+                     payload)
+    return _one_window(fw) if single else fw
+
+
+def flush_window(words, n_dest: int, capacity: int, *, dest=None,
+                 dest_lut=None, meta=None, guid_lut=None,
+                 residue_len: int = 0, with_residue_meta: bool = False,
+                 wire_fmt: codec.WireWordFormat | None = None) -> FusedWindow:
+    """The flush window of every window of the batch: one launch of
+    ``csrc/flush_window.cu`` on CUDA tensors, :func:`flush_window_plain`
+    (same arguments and results) on CPU tensors."""
+    operands = [t for t in (words, dest, dest_lut, meta, guid_lut)
+                if t is not None]
+    if not dispatch.on_cuda(*operands):
+        return flush_window_plain(
+            words, n_dest, capacity, dest=dest, dest_lut=dest_lut, meta=meta,
+            guid_lut=guid_lut, residue_len=residue_len,
+            with_residue_meta=with_residue_meta, wire_fmt=wire_fmt)
+    single, words, dest, dest_lut, meta, guid_lut = _window_operands(
+        words, dest, dest_lut, meta, guid_lut, n_dest, with_residue_meta)
+    words, dest, dest_lut, meta, guid_lut = (
+        None if t is None else t.contiguous()
+        for t in (words, dest, dest_lut, meta, guid_lut))
+    b, n = words.shape
+    from repro_torch.kernels import _build
+    # staged per event: key, word (, meta)
+    longest = _build.max_window(n_dest, 2 if meta is None else 3)
+    if n_dest > _build.MAX_DEST or b > MAX_BATCH or n > longest or \
+            n_dest * capacity >= 2**31:
+        raise ValueError(f"flush_window: {b} windows of {n} events to "
+                         f"{n_dest} destinations of {capacity} slots; the "
+                         f"kernel takes at most {MAX_BATCH} windows of "
+                         f"{longest} events, {_build.MAX_DEST} destinations "
+                         f"and 2^31 slots a window")
+    dev = words.device
+    new = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    data, gmeta = new(b, n_dest, capacity), new(b, n_dest, capacity)
+    counts, scalars = new(b, n_dest), new(4, b)
+    residue = new(b, residue_len)
+    res_meta = new(b, residue_len) if with_residue_meta else None
+    payload = new(b, n_dest, 2 * capacity) if wire_fmt is not None else None
+    fmt = wire_fmt if wire_fmt is not None else codec.DEFAULT_WORD
+    ptr = lambda t: None if t is None else t.data_ptr()
+    table = lambda t: (0, 0) if t is None else (
+        t.shape[1], 0 if t.shape[0] == 1 else t.shape[1])
+    if b:
+        dispatch.launch("flush_window", "repro_flush_window", ptr(words),
+                        ptr(dest), ptr(dest_lut), ptr(meta), ptr(guid_lut),
+                        ptr(data), ptr(gmeta), ptr(payload), ptr(counts),
+                        ptr(residue), ptr(res_meta), ptr(scalars), b, n,
+                        n_dest, capacity, residue_len, *table(dest_lut),
+                        *table(guid_lut), *fmt.validate()[:3])
+    offered, overflow, deferred, dropped = scalars
+    fw = FusedWindow(Buckets(data, gmeta, counts, overflow), residue,
+                     deferred, dropped, offered, res_meta, payload)
+    return _one_window(fw) if single else fw
+
+
+# ---------------------------------------------------------------------------
+# The reference's sort-based chain: the per-row placement kernel (no
+# simulator or exchange path runs it since the flush window) and its plain
+# version.
 # ---------------------------------------------------------------------------
 
 def placement_plain(first, counts, swords_pad, aux, capacity: int, *,
@@ -216,10 +408,7 @@ def _batched(fn, words, *rest):
     """Run ``fn`` on (B, n) windows; a single (n,) window gets B = 1."""
     if words.dim() == 2:
         return fn(words, *rest)
-    out = fn(words[None], *(t[None] for t in rest))
-    return FusedWindow(*(None if f is None else (
-        Buckets(*(x[0] for x in f)) if isinstance(f, Buckets) else f[0])
-        for f in out))
+    return _one_window(fn(words[None], *(t[None] for t in rest)))
 
 
 def fused_aggregate(words, dest, guids, n_dest: int, capacity: int, *,

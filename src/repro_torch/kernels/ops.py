@@ -27,11 +27,11 @@ def bucket_scatter(words, dests, guids, n_dest: int,
 
 def fused_scatter(words, dests, guids, n_dest: int,
                   capacity: int) -> Buckets:
-    """Drop-in for ``core.aggregator.aggregate(impl="pallas")``: sort-based
-    slots with the placement stage in kernel A."""
+    """Drop-in for ``core.aggregator.aggregate(impl="pallas")``: the
+    buckets of the flush-window kernel A."""
     from repro_torch.kernels import fused_route_bucket as frb
-    return frb.fused_aggregate(words, dests, guids, n_dest,
-                               capacity).buckets
+    return frb.flush_window(words, n_dest, capacity, dest=dests,
+                            meta=guids).buckets
 
 
 def ssd_chunk(x, dt, A, B, C, s_prev):

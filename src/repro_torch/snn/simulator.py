@@ -7,7 +7,7 @@ destination before its timestamp deadline.  The window loop is software
 pipelined as in the reference: iteration k
 
   1. ships window k-1's pending buckets, already encoded into 64-bit wire
-     words by the placement kernel that built them, through the transport
+     words by the flush-window kernel that built them, through the transport
      (``cfg.transport``: the ``alltoall`` crossbar, or ``torus2d`` /
      ``torus3d`` with hop-by-hop credits), decodes them (CUDA codec
      kernel), charges their wire latency and
@@ -20,8 +20,9 @@ pipelined as in the reference: iteration k
      window kernel);
   3. compacts the spikes into event words, puts the transport-deferred
      rows first, then the residue of window k-1, then the fresh events, and
-     runs the fused route+aggregate (CUDA placement kernel, which also
-     encodes the placed rows as wire words); the new buckets, their wire
+     runs the flush window (one launch of the CUDA flush-window kernel:
+     route through ``dest_of_addr``, rank, placement, the wire encode of
+     the placed rows and the residue); the new buckets, their wire
      payload and the residue become the pending half of the carry.
 
 One ``drain`` after the last window walks the fabric's transit buffers
@@ -57,7 +58,7 @@ import torch
 from repro_torch import transport as tp
 from repro_torch import wire
 from repro_torch.core import aggregator, events as ev
-from repro_torch.core.routing import RoutingTables, lookup
+from repro_torch.core.routing import RoutingTables
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import fused_route_bucket as frb
 from repro_torch.kernels.lif_step import lif_window
@@ -97,8 +98,8 @@ class PendingWindow(NamedTuple):
     """Window k's aggregated buckets, shipped at the start of window k+1,
     plus the deferred events re-offered into window k+1.  ``meta`` carries
     each event's injection step, for the latency model; ``payload`` is
-    ``wire.encode_planar(data, meta)``, written by the placement kernel
-    that built the buckets."""
+    ``wire.encode_planar(data, meta)``, written by the flush-window
+    kernel that built the buckets."""
 
     data: torch.Tensor          # (S, S, C) int32 events [src, dst, slot]
     meta: torch.Tensor          # (S, S, C) int32 injection steps
@@ -297,12 +298,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         else:
             words = torch.cat([pend.residue, words], dim=-1)
             inject = torch.cat([pend.residue_meta, inject], dim=-1)
-        addr = torch.clamp(ev.address(words),
-                           max=tables.dest_of_addr.shape[-1] - 1)
-        fw = frb.fused_aggregate(words, lookup(tables.dest_of_addr, addr),
-                                 inject, S, C, residue_len=cfg.residue,
-                                 with_residue_meta=True,
-                                 wire_fmt=wire.DEFAULT_WORD)
+        fw = frb.flush_window(words, S, C, dest_lut=tables.dest_of_addr,
+                              meta=inject, residue_len=cfg.residue,
+                              with_residue_meta=True,
+                              wire_fmt=wire.DEFAULT_WORD)
         b = fw.buckets
         cost = aggregator.window_cost(b.counts.masked_fill(own, 0))
         stats = WindowStats(
