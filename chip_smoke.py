@@ -54,8 +54,25 @@ Phases, each raising on failure (exit code != 0, no result line):
    torus3d 2x2x2, 25 windows: the crossbar run of the same network, the
    torus with ample credits (equal to it window for window, 0 deadline
    misses) and with credits that bind (conservation and the residue chain
-   exact, deadline misses printed as the model's output); launch counts,
-   ms per window, a torch.profiler pass;
+   exact, deadline misses printed as the model's output); launch counts
+   (the admission kernel F once per credited window), ms per window, a
+   torch.profiler pass;
+5d. kernel F -- the admission replay (``csrc/admission.cu``) against both
+   plain loops, bit for bit on every field: on the states of 8 more windows
+   of main path 3's binding run (no mask, and an all-false mask against
+   both loops), and on transport runs of 8 windows on torus2d 2x4 and
+   torus3d 2x2x2 under the fault matrix's four schedules and chaos seeds
+   0-4 (credits 24), each also card == CPU; its time, bound and both
+   loops' times;
+5e. a small fault run (scale 0.004, torus3d 2x2x2, chaos seed 0) on the
+   card against the CPU;
+5f. the fault matrix of ``benchmarks/bench_microcircuit.py`` (none, a dead
+   cable, a flapping cable, a dropped node, from window 2) at main path 3's
+   width and binding credits, 25 windows, one drive: window by window
+   conservation, the credit identity and nothing spent or held on a dead
+   link; detours where a cable dies; the drain empties the fabric; the
+   healthy schedule equals the run without one; ms per window, device
+   functions, rerouted / parked / deferred / deadline misses;
 6. Mamba-2 slice -- the reduced mamba2 (2 layers; its blocks compute in
    bf16, so the SSD chunk takes the tensor-core kernel) on the card
    against the CPU: hidden states, caches and decode at the model
@@ -75,7 +92,7 @@ Phases, each raising on failure (exit code != 0, no result line):
    over one prefill wave and 8 decode steps;
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
-   to 0 just before that path: A-C from main path 3 (the per-row
+   to 0 just before that path: A-C and F from main path 3 (the per-row
    placement 0: it is on no path), D from the exchange,
    E's tensor-core kernel from main path 2, E's FMA kernel from the f32
    scan of phase 6) and, last, the device JSON line.
@@ -1179,12 +1196,16 @@ def run_exchange_path():
         windows += 1
     torch.cuda.synchronize()
     launches = dict(dispatch.LAUNCHES)
+    credited = (sum("link_credits" in (o or {}) for _, _, o in X_CASES)
+                + len(impls) + X_STUDY_WINDOWS)
     if launches.get("bucket_scatter") != windows or "placement" in \
-            launches or not all(launches.get(k, 0) > 0
-                                for k in ("flush_window", "wire_codec")):
+            launches or launches.get("admission") != credited or \
+            not all(launches.get(k, 0) > 0
+                    for k in ("flush_window", "wire_codec")):
         raise AssertionError(f"exchange path launches {launches}: want "
-                             f"bucket_scatter {windows}, flush_window and "
-                             f"wire_codec > 0, placement 0")
+                             f"bucket_scatter {windows}, admission "
+                             f"{credited}, flush_window and wire_codec > 0, "
+                             f"placement 0")
 
     words_c, tables_c = exchange_inputs("cpu")
     for label, run in runs.items():
@@ -1383,6 +1404,8 @@ def run_torus_main_path():
         want = {"flush_window": N_WINDOWS,
                 "wire_codec": N_WINDOWS + 1 + int(can_defer),
                 "lif_step": N_WINDOWS}
+        if can_defer:           # kernel F once per credited window
+            want["admission"] = N_WINDOWS
         if launches[name] != want:
             raise AssertionError(f"{name}: launches {launches[name]} != "
                                  f"{want}")
@@ -1402,6 +1425,7 @@ def run_torus_main_path():
               f"{launches[name]}")
         if name.endswith("binding credits"):
             window_functions(run, state, 3)
+            captured = capture_admission(lambda: run(state, 8))
     base, ample = stats["alltoall"], stats["torus3d, ample credits"]
     binding = stats["torus3d, binding credits"]
     if int(base["spikes"].sum()) == 0:
@@ -1419,7 +1443,386 @@ def run_torus_main_path():
           f"binding credits: identities and residue chain exact, "
           f"{int(binding['deadline_miss'].sum())} deadline misses (model "
           f"output)")
-    return launches["torus3d, binding credits"]
+    return launches["torus3d, binding credits"], captured, part, spec
+
+
+# ---------------------------------------------------------------------------
+# The fault phase: kernel F (the admission replay) and fault injection.
+# ---------------------------------------------------------------------------
+
+F_CREDITS, F_WINDOWS = 24, 8
+F_TORI = (("torus2d 2x4", "torus2d", (2, 4)),
+          ("torus3d 2x2x2", "torus3d", (2, 2, 2)))
+# the chain's least time: each of its dependent steps (a row with work, of
+# the 2 n^2) needs at least one shared-memory round trip, about 30 cycles
+# on Hopper (microbenchmark papers: 29-33), at the H100 SXM's 1,980 MHz
+# boost clock (data sheet)
+SHARED_ROUND_TRIP_CYCLES = 30
+SM_CLOCK_HZ = 1.98e9
+
+
+def capture_admission(fn):
+    """Run ``fn`` with every call of the admission wrapper recorded: ->
+    [(counts, FabricState, RouteTables, link_down)], each tensor a copy."""
+    from repro_torch.kernels import admission
+    real, calls = admission.admission, []
+
+    def spy(counts, state, tables, link_down=None):
+        copy = lambda t: None if t is None else t.clone()
+        calls.append((counts.clone(), type(state)(*(
+            type(x)(*map(copy, x)) if hasattr(x, "_fields") else copy(x)
+            for x in state)), tables, copy(link_down)))
+        return real(counts, state, tables, link_down)
+
+    admission.admission = spy
+    try:
+        fn()
+    finally:
+        admission.admission = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def check_admission_case(what, counts, state, tables, down):
+    """Kernel F against the plain loops on one window, every field: with
+    no mask against the healthy loop, and with an all-false mask against
+    both loops; with a mask against the faulted loop."""
+    from repro_torch.kernels import admission as adm
+    got = adm.admission(counts, state, tables, down)
+    if down is None:
+        plain = adm.admission_plain(counts, state, tables)
+        require_equal(f"{what}: kernel F vs the healthy loop",
+                      list(zip(got, plain)))
+        off = torch.zeros_like(state.parked_by_link, dtype=torch.bool)
+        masked = adm.admission(counts, state, tables, off)
+        for name, want in (("healthy", plain), ("faulted", (
+                adm.admission_faulted_plain(counts, state, tables, off)))):
+            require_equal(f"{what}: kernel F, all-false mask, vs the "
+                          f"{name} loop", list(zip(masked, want)))
+        return got
+    require_equal(f"{what}: kernel F vs the faulted loop",
+                  list(zip(got, adm.admission_faulted_plain(
+                      counts, state, tables, down))))
+    return got
+
+
+def fault_schedules(dims, n_win, device, chaos_seeds=()):
+    """benchmarks/bench_microcircuit.py:48-54's four schedules (faults from
+    window 2: none, a dead cable, a flapping one, a dropped node), then
+    ``chaos`` for each of ``chaos_seeds``."""
+    from repro_torch.fabric import faults
+    out = {"none": faults.healthy(dims, n_win, device=device),
+           "link_down": faults.link_fault(dims, n_win, 0, 0, start=2,
+                                          device=device),
+           "link_flap": faults.link_flap(dims, n_win, 0, 0, period=2,
+                                         start=2, device=device),
+           "node_down": faults.node_fault(dims, n_win, 3, start=2,
+                                          device=device)}
+    for seed in chaos_seeds:
+        out[f"chaos {seed}"] = faults.chaos(dims, n_win, seed, device=device)
+    return out
+
+
+def _fault_transport_run(backend, dims, sched, seed, device):
+    """8 windows of one transport under ``sched``, traffic from
+    ``traffic_rng(seed)``: -> [(counts, state before, mask, out)]."""
+    from repro_torch import transport as tp
+    from repro_torch.fabric import faults
+    from repro_torch.serve.loadgen import draw_counts, draw_payload, \
+        traffic_rng
+    n = int(np.prod(dims))
+    tb = tp.create(backend, n_shards=n, link_credits=F_CREDITS,
+                   notify_latency=2, max_row_events=F_CREDITS,
+                   **dict(zip(("nx", "ny", "nz"), dims)))
+    rng = traffic_rng(seed)
+    state = tb.init_state(4, device=device)
+    rows = []
+    for w in range(F_WINDOWS):
+        counts = torch.from_numpy(draw_counts(rng, (n, n), F_CREDITS)).to(
+            device)
+        payload = torch.from_numpy(draw_payload(rng, (n, n, 4)).view(
+            np.int32)).to(device)
+        down = faults.mask_at(sched, w)
+        out = tb.exchange(state._replace(link_down=down), payload, counts)
+        rows.append((counts, state, down, out))
+        state = out.state
+    return tb, rows
+
+
+def check_admission(captured):
+    """Kernel F against both plain loops, bit for bit on every field: on
+    the healthy states captured from main path 3's binding-credit run, and
+    on transport runs of 8 windows under the fault matrix's schedules and
+    chaos seeds 0-4 on torus2d 2x4 and torus3d 2x2x2 (credits 24, traffic
+    from traffic_rng / draw_counts), each also card == CPU; then times
+    kernel F, both loops, on a captured state."""
+    from repro_torch.convert import flatten
+    from repro_torch.kernels import admission as adm
+    cases = 0
+    for i, (counts, state, tables, down) in enumerate(captured):
+        if down is not None:
+            raise AssertionError("main path 3 stamped a fault mask")
+        check_admission_case(f"main path 3 window {i}", counts, state,
+                             tables, None)
+        cases += 1
+    seen = dict(rerouted=0, hop0=0, parked=0, deferred=0)
+    for label, backend, dims in F_TORI:
+        scheds = {d: fault_schedules(dims, F_WINDOWS, d, range(5))
+                  for d in ("cuda", "cpu")}
+        for k, (name, sched) in enumerate(scheds["cuda"].items()):
+            tb, rows = _fault_transport_run(backend, dims, sched, k, "cuda")
+            tables = tb._dev(torch.device("cuda"))["routes"]
+            for w, (counts, state, down, out) in enumerate(rows):
+                got = check_admission_case(f"{label} {name} window {w}",
+                                           counts, state, tables, down)
+                seen["rerouted"] += int(got.rerouted.sum())
+                seen["hop0"] += int(((got.park_count > 0)
+                                     & (got.park_hop == 0)).sum())
+                seen["parked"] += int(got.fresh_park.sum())
+                seen["deferred"] += int((got.stall_hop >= 0).sum())
+                cases += 1
+            _, cpu = _fault_transport_run(backend, dims,
+                                          scheds["cpu"][name], k, "cpu")
+            for w, (g, c) in enumerate(zip(rows, cpu)):
+                require_same_outputs(f"{label} {name} window {w} card vs "
+                                     f"CPU", g[3], c[3])
+    if not all(seen.values()):
+        raise AssertionError(f"admission cases exercised too little: {seen}")
+    counts, state, tables, _ = captured[-1]
+    n = counts.shape[0]
+    ms, eager_ms = time_ms(lambda: adm.admission(counts, state, tables))
+    healthy_ms = time_loop(lambda: adm.admission_plain(counts, state,
+                                                       tables))
+    off = torch.zeros_like(state.parked_by_link, dtype=torch.bool)
+    faulted_ms = time_loop(lambda: adm.admission_faulted_plain(
+        counts, state, tables, off))
+    # without a mask the kernel reads only combo 0 of the route tables and
+    # never the axis segments
+    n_bytes = (sum(x.numel() * x.element_size() for x in (
+        counts, state.parked_count, state.parked_hop, state.parked_age,
+        state.bank.credits, state.bank.epoch, state.parked_by_link,
+        tables.seq_alt[0], tables.len_alt[0]))
+        + sum(x.numel() * x.element_size()
+              for x in adm.admission(counts, state, tables)))
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    # the chain this input needs: a parked row to resume, or an off-diagonal
+    # fresh row with events; every other row (a local one has no links, an
+    # empty one spends, notifies and holds nothing) is decided in parallel
+    eye = torch.eye(n, dtype=torch.bool, device=counts.device)
+    steps = int((state.parked_count > 0).sum()) + int(
+        ((counts > 0) & ~eye).sum())
+    t_chain = steps * SHARED_ROUND_TRIP_CYCLES / SM_CLOCK_HZ * 1e3
+    bms, by = max((t_bytes, "bytes"), (t_chain, "operations"))
+    print(f"admission: {cases} windows bit for bit against the loops "
+          f"({seen}); at main path 3's shape (8 shards, 48 links): kernel "
+          f"{ms:.4f} ms (CUDA graph), eager {eager_ms:.4f} ms; the healthy "
+          f"loop {healthy_ms:.3f} ms and the faulted loop {faulted_ms:.3f} "
+          f"ms a call (eager, events around 5 calls); bound {bms:.6f} ms "
+          f"({'the chain: ' if by == 'operations' else ''}"
+          f"{steps} dependent steps of {2 * n * n} rows x "
+          f"{SHARED_ROUND_TRIP_CYCLES} cycles at "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz = {t_chain:.6f} ms; {n_bytes} B = "
+          f"{t_bytes:.6f} ms)")
+    return dict(name="admission", route="cuda",
+                source="src/repro_torch/csrc/admission.cu",
+                replaces="none: no TPU kernel (the reference replays with "
+                         "lax.scan, src/repro/transport/torus.py:387 and "
+                         ":528)",
+                max_abs_err=0.0, ms=ms, plain_ms=healthy_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, eager_ms=eager_ms,
+                plain_eager_ms=healthy_ms, faulted_loop_ms=faulted_ms,
+                parity=f"bit-exact ({cases} windows, both loops)")
+
+
+def time_loop(fn, calls: int = 5) -> float:
+    """ms per call of a plain loop, eager: CUDA events around ``calls``
+    calls after one warm-up (its cost is its launches, so no graph)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def run_fault_matrix(part, spec):
+    """The fault matrix of benchmarks/bench_microcircuit.py at main path
+    3's width: the scale-0.2 microcircuit over 8 shards on torus3d 2x2x2
+    with its binding credits, 25 windows, one drive for every schedule.
+    A timed run of the 25 windows and their drain; then the same windows
+    one by one, their WindowStats equal to the timed run's: conservation,
+    the credit identity, nothing spent or held on a dead link once its mask
+    lands; detours where a cable dies; the drain
+    empties the fabric; the healthy schedule equals the run without one.
+    Then device functions per window (torch.profiler)."""
+    from repro_torch import transport as tp
+    from repro_torch.convert import flatten
+    from repro_torch.fabric import faults
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import lif
+    from repro_torch.snn import simulator as sim
+    fields = TORUS_RUNS["torus3d, binding credits"]
+    cfg = sim_config(part, **{**dict(e_max=1024, capacity=1024,
+                                     residue=256), **fields})
+    limit = cfg.link_credits
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    per, S = part.per_shard, TORUS_SHARDS
+    bg = torch.from_numpy(np.pad(spec.bg_rates(), (0, S * per - len(
+        spec.bg_rates()))).reshape(S, per).astype(np.float32)).cuda()
+    drive = lif.poisson_input(bg.expand(N_WINDOWS, cfg.window, S, per),
+                              87.8, cfg.params.dt, generator=gen)
+    tb = tp.create("torus3d", n_shards=S, nx=2, ny=2, nz=2,
+                   link_credits=limit, notify_latency=cfg.notify_latency)
+    stats, rows = {}, []
+    scheds = fault_schedules((2, 2, 2), N_WINDOWS, "cuda")
+    for name, sched in {**scheds, None: None}.items():
+        seg_init, run_segment, finish = sim.build_sharded_segments(
+            cfg, part, spec.bg_rates(), fault_schedule=sched,
+            device="cuda")
+
+        def run(n_windows, drive=None):
+            carry, st = run_segment(seg_init(0), n_windows, drive)
+            _, miss = finish(carry)     # the drain's misses: last window
+            m = st.deadline_miss.clone()
+            m[:, -1] += miss
+            return st._replace(deadline_miss=m)
+
+        run(1, drive[:1])                       # warm-up
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t1 = time.perf_counter()
+        st = run(N_WINDOWS, drive)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3 / N_WINDOWS
+        launches = dict(dispatch.LAUNCHES)
+        want = {"flush_window": N_WINDOWS, "wire_codec": N_WINDOWS + 2,
+                "lif_step": N_WINDOWS, "admission": N_WINDOWS}
+        if launches != want:
+            raise AssertionError(f"fault matrix {name}: launches "
+                                 f"{launches} != {want}")
+        s = stats[name] = flatten(st)
+        check_backpressure_chain(f"fault matrix {name}", s, S)
+        if name is None:
+            continue
+        # window by window: the fabric state after each exchange
+        carry, per_window = seg_init(0), []
+        for k in range(N_WINDOWS):
+            prev = carry.link
+            carry, w_st = run_segment(carry, 1, drive[k:k + 1])
+            per_window.append(flatten(w_st))
+            link, dead = carry.link, faults.mask_at(sched, k)
+            if not bool((link.bank.credits + link.bank.pending.sum(-1)
+                         + link.parked_by_link == limit).all()):
+                raise AssertionError(f"fault matrix {name} window {k}: "
+                                     f"credits + pending + held != limit")
+            spent = prev.bank.credits + prev.bank.pending[:, 0] \
+                - link.bank.credits
+            if int(spent[dead].abs().sum()) or int(
+                    link.parked_by_link[dead].abs().sum()):
+                raise AssertionError(f"fault matrix {name} window {k}: a "
+                                     f"dead link spent or held credits")
+        if not np.isfinite(carry.state.neuron.v.cpu().numpy()).all():
+            raise AssertionError(f"fault matrix {name}: non-finite v")
+        # the windows checked one by one are the timed run's windows
+        _, miss = finish(carry)
+        again = {key: np.concatenate([w[key] for w in per_window], axis=1)
+                 for key in s}
+        again["deadline_miss"][:, -1] += miss.cpu().numpy()
+        for key in s:
+            what = (f"fault matrix {name}: {key} of the window-by-window "
+                    f"pass against the timed run")
+            if s[key].dtype.kind == "f":      # as require_same_outputs
+                np.testing.assert_allclose(again[key], s[key], rtol=1e-6,
+                                           atol=1e-6, err_msg=what)
+            elif not np.array_equal(again[key], s[key]):
+                raise AssertionError(f"{what}: differs")
+        fab = tb.drain_fabric(carry.link)
+        if int(fab.state.parked_count.abs().sum()) or int(
+                fab.state.parked_by_link.abs().sum()) or not bool((
+                fab.state.bank.credits + fab.state.bank.pending.sum(-1)
+                == limit).all()):
+            raise AssertionError(f"fault matrix {name}: the drain left the "
+                                 f"fabric's tables non-empty")
+        if name in ("link_down", "link_flap") and \
+                int(s["link.rerouted"].sum()) == 0:
+            raise AssertionError(f"fault matrix {name}: no detour")
+        rows.append(dict(
+            fault=name, ms_per_window=ms,
+            rerouted=int(s["link.rerouted"].sum()),
+            parked=int(s["link.parked_events"].sum()),
+            deferred=int(s["link.deferred_events"].sum()),
+            deadline_miss=int(s["deadline_miss"].sum()),
+            spikes=int(s["spikes"].sum()),
+            delivered=int(s["link.delivered_events"].sum())))
+        print(f"fault matrix {name}: {ms:.3f} ms per window ({N_WINDOWS} "
+              f"windows + drain, host clock); rerouted "
+              f"{rows[-1]['rerouted']}, parked {rows[-1]['parked']}, "
+              f"deferred {rows[-1]['deferred']}, deadline misses "
+              f"{rows[-1]['deadline_miss']}, spikes {rows[-1]['spikes']}, "
+              f"delivered {rows[-1]['delivered']}; launches {launches}; "
+              f"every window's checks passed")
+        window_functions(lambda _state, n: run(n, drive[:n]), None, 3)
+    # a stamped all-false mask changes nothing but hops (a masked ring
+    # phase runs n - 1 hops each way, the reference's rule)
+    a, b = stats["none"], stats[None]
+    for key in a:
+        if key != "link.hops" and not (a[key] == b[key]).all():
+            raise AssertionError(f"healthy schedule: {key} differs from "
+                                 f"the run without a schedule")
+    print(f"healthy schedule == the run without one on every WindowStats "
+          f"field but hops ({int(a['link.hops'][0, -1])} a window against "
+          f"{int(b['link.hops'][0, -1])})")
+    print("FAULT_MATRIX " + json.dumps(rows))
+
+
+def check_fault_slice_small():
+    """Card vs CPU for the window loop under chaos seed 0 on the credited
+    torus3d 2x2x2 at scale 0.004 over 8 shards: every integer WindowStats
+    field equal, floats within the LIF tolerances."""
+    from repro_torch.convert import flatten
+    from repro_torch.fabric import faults
+    from repro_torch.snn import microcircuit as mc, network
+    from repro_torch.snn import simulator as sim
+    spec = mc.MicrocircuitSpec(scale=0.004)
+    part = network.build_partition(*spec.weight_matrix(),
+                                   n_shards=TORUS_SHARDS)
+    cfg = sim_config(part, e_max=256, capacity=16, residue=64,
+                     transport="torus3d", torus_nx=2, torus_ny=2, torus_nz=2,
+                     link_credits=16, notify_latency=2)
+    n_win = 8
+    rng = np.random.default_rng(0)
+    drive = torch.from_numpy(rng.poisson(
+        1.3, (n_win, cfg.window, TORUS_SHARDS, cfg.per_shard)).astype(
+            np.float32) * np.float32(87.8))
+    out = {}
+    for device in ("cpu", "cuda"):
+        sched = faults.chaos((2, 2, 2), n_win, 0, device=device)
+        init, run = sim.build_sharded_sim(cfg, part, spec.bg_rates(),
+                                          fault_schedule=sched,
+                                          device=device)
+        st = init(0)
+        if device == "cpu":
+            v0 = st.neuron.v
+        st = st._replace(neuron=st.neuron._replace(v=v0.to(device)),
+                         generator=None)
+        out[device] = run(st, n_win, drive=drive)
+    require_same_outputs("fault slice card vs CPU", out["cuda"][1],
+                         out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0].neuron.v.cpu(),
+                               out["cpu"][0].neuron.v, rtol=2e-5, atol=1e-4)
+    s = flatten(out["cpu"][1])
+    check_backpressure_chain("fault slice", s, TORUS_SHARDS)
+    rerouted = int(s["link.rerouted"].sum())
+    if rerouted == 0:
+        raise AssertionError("fault slice: no detour")
+    print(f"fault slice (scale 0.004, torus3d 2x2x2, credits 16, chaos "
+          f"seed 0, {n_win} windows): card == CPU on every integer stat; "
+          f"{rerouted} events rerouted, {int(s['link.parked_events'].sum())}"
+          f" parked, {int(s['spikes'].sum())} spikes")
 
 
 # ---------------------------------------------------------------------------
@@ -1837,7 +2240,18 @@ def main() -> int:
     check_torus_slice_small()
 
     banner("main path 3: microcircuit on the credited torus3d")
-    paths["microcircuit, torus3d"] = run_torus_main_path()
+    paths["microcircuit, torus3d"], captured, part3, spec3 = \
+        run_torus_main_path()
+
+    banner("kernel F, the admission replay, against both plain loops")
+    records.append(check_admission(captured))
+
+    banner("fault slice, card vs CPU")
+    check_fault_slice_small()
+
+    banner("the fault matrix at main path 3's width")
+    run_fault_matrix(part3, spec3)
+    del part3, captured
 
     banner("Mamba-2, reduced, card vs CPU")
     check_mamba_small()

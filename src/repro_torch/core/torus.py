@@ -5,10 +5,10 @@ the BrainScaleS arrangement gathers 6 FPGAs at each of 8 concentrator
 nodes per wafer, and the concentrators are the torus nodes.  Host-side
 numpy analysis: address <-> coordinate mapping, dimension-ordered route
 enumeration (the routes ``transport.torus`` spends credits on), hop
-counts and per-link loads of a traffic matrix.
-
-The fault detours (``route_links_detour`` / ``route_links_avoiding``) come
-with fault injection (ROADMAP queue 1, item 8).
+counts, per-link loads of a traffic matrix, and the fault detours: each
+axis segment walked the short or the long way around its ring
+(``axis_segment_links``, ``route_links_detour``, ``route_links_avoiding``),
+from which the credited torus builds its detour tables.
 """
 from __future__ import annotations
 
@@ -80,13 +80,65 @@ class Torus:
         path = self.route(src, dst)
         return [(u, self.link_dir(u, v)) for u, v in zip(path[:-1], path[1:])]
 
-    def route_links_detour(self, src: int, dst: int, flips=None) -> list:
-        raise NotImplementedError("fault detours are not ported yet (ROADMAP "
-                                  "queue 1, item 8: fault injection)")
+    # -- fault-aware detours ----------------------------------------------
+    def _ring_walk(self, a: int, b: int, n: int, longway: bool = False):
+        """Signed ring walk a -> b: (step, dist); ``longway`` reverses the
+        shortest direction and walks the other ``n - dist`` hops."""
+        fwd = (b - a) % n
+        bwd = (a - b) % n
+        step = 1 if fwd <= bwd else -1            # same tie-break as route
+        dist = min(fwd, bwd)
+        if longway and dist > 0:
+            step, dist = -step, n - dist
+        return step, dist
 
-    def route_links_avoiding(self, src: int, dst: int, down) -> list:
-        raise NotImplementedError("fault detours are not ported yet (ROADMAP "
-                                  "queue 1, item 8: fault injection)")
+    def axis_segment_links(self, src: int, dst: int, axis: int,
+                           longway: bool = False) -> list:
+        """The (node, direction) links of the ``axis`` segment of the
+        dimension-ordered route src -> dst, short arc or the long way
+        around.  The direction follows the walk's step sign, not the
+        coordinate delta: on a 2-ring both neighbours are one hop away and
+        the + and - cables are distinct.  Axis ``a`` starts at coordinates
+        ``(d_0..d_{a-1}, s_a, .., s_2)`` whichever arcs earlier axes took."""
+        sc = [int(v) for v in self.coords(src)]
+        dc = [int(v) for v in self.coords(dst)]
+        dims = (self.nx, self.ny, self.nz)
+        at = list(dc[:axis]) + list(sc[axis:])    # segment start coords
+        step, dist = self._ring_walk(sc[axis], dc[axis], dims[axis], longway)
+        direction = 2 * axis + (0 if step > 0 else 1)
+        links = []
+        c = sc[axis]
+        for _ in range(dist):
+            at[axis] = c
+            links.append((int(self.node_id(*at)), direction))
+            c = (c + step) % dims[axis]
+        return links
+
+    def route_links_detour(self, src: int, dst: int,
+                           flips=(False, False, False)) -> list:
+        """The route as (node, direction) links with each flipped axis
+        walking its ring the long way; no flips is :meth:`route_links`."""
+        return [l for a in range(3)
+                for l in self.axis_segment_links(src, dst, a, flips[a])]
+
+    def route_links_avoiding(self, src: int, dst: int, down):
+        """Per axis, the long way around when the short arc crosses a link
+        in ``down`` (a set of (node, direction) pairs) and the long arc is
+        clean -> ``(links, flips)``, or ``None`` when some axis is dead both
+        ways: the host oracle of the transport's reroute decision."""
+        down = set(down)
+        flips = []
+        for a in range(3):
+            short = self.axis_segment_links(src, dst, a, longway=False)
+            if not any(l in down for l in short):
+                flips.append(False)
+                continue
+            if any(l in down
+                   for l in self.axis_segment_links(src, dst, a, True)):
+                return None
+            flips.append(True)
+        flips = tuple(flips)
+        return self.route_links_detour(src, dst, flips), flips
 
     def hops(self, src, dst) -> np.ndarray:
         """Vectorized hop count (sum of shortest ring distances per axis)."""

@@ -45,6 +45,8 @@ SIGNATURES = {
                         _I, _P),
     "repro_ssd_chunk_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _P),
+    "repro_admission": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,3 +1,3 @@
-"""Serving (port of ``src/repro/serve``): so far the batched LM engine.
-The spike-stream engine, tenancy and load generation come with ROADMAP
-queue 1, item 9."""
+"""Serving (port of ``src/repro/serve``): the batched LM engine and the
+seeded open-loop load generator (``loadgen``).  The spike-stream engine
+and tenancy come with ROADMAP queue 1, item 9."""

@@ -59,6 +59,7 @@ from repro_torch import transport as tp
 from repro_torch import wire
 from repro_torch.core import aggregator, events as ev
 from repro_torch.core.routing import RoutingTables
+from repro_torch.fabric import faults as fabric_faults
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import fused_route_bucket as frb
 from repro_torch.kernels.lif_step import lif_window
@@ -147,6 +148,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                       recorder=None):
     """Build the pipelined per-window machinery.
 
+    ``fault_schedule`` (a ``fabric.faults.FaultSchedule``; credited torus
+    only) stamps window ``t // window``'s dead-link mask on the fabric
+    state before each exchange.
+
     Returns ``(init_pending, init_link, body, drain)``:
       init_pending()  -> empty PendingWindow
       init_link()     -> transport fabric state
@@ -160,9 +165,6 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                          fabric's parked rows, then the pending buckets
                          (updates the state's rings in place)
     """
-    if fault_schedule is not None:
-        raise NotImplementedError("fault injection is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
     if recorder is not None:
         raise NotImplementedError("the flight recorder is not ported yet "
                                   "(ROADMAP queue 1, item 10)")
@@ -181,6 +183,14 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     # only where it can)
     can_defer = (cfg.transport in ("torus2d", "torus3d")
                  and cfg.link_credits > 0)
+    if fault_schedule is not None:
+        if not can_defer:
+            raise ValueError(
+                "fault injection needs a credit-throttled torus transport "
+                "(transport='torus2d'/'torus3d' with link_credits > 0): an "
+                "uncredited fabric has no admission point to reroute at")
+        fault_schedule = fabric_faults.FaultSchedule(
+            fault_schedule.link_down.to(device))
     fmt = backend.wire_fmt
     hops = backend.route_hops(device=device)
     own = torch.eye(S, dtype=torch.bool, device=device)
@@ -205,21 +215,27 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         """Ship window k-1's buckets as 64-bit wire words; returns the
         received rows [dst, src], their meta and counts, the rows that
         left their senders [src, dst], the link statistics, the fabric
-        state and the queueing dwell of the rows delivered to each
-        shard."""
+        state, the queueing dwell of the rows delivered to each shard and,
+        under fault injection, the links each delivered row crossed
+        [dst, src] (else None)."""
         out = backend.exchange(lstate, pend.payload, pend.counts,
                                enforce_credits=enforce_credits)
         recv, recv_meta = wire.decode_planar(out.recv_payload)
+        links = None if out.links_used is None else out.links_used.T
         return (recv, recv_meta, out.recv_counts, out.sent_mask, out.stats,
-                out.state, out.queue_us.T)
+                out.state, out.queue_us.T, links)
 
-    def _window_latency(t: int, recv_meta, counts, queue_us):
+    def _window_latency(t: int, recv_meta, counts, queue_us, links=None):
         """Wire latency of the events just delivered: waiting since each
         event's injection step + the row's per-link switch and
-        serialization charges + the queueing dwell."""
+        serialization charges + the queueing dwell.  ``links`` (fault
+        injection only) are the links each row actually crossed, so
+        detour hops are charged."""
         live = slots < counts[..., None]
         wait_us = (t - recv_meta).to(torch.float32) * cfg.step_us
-        hop_us = wire.hop_latency_us(fmt, counts, hops) + queue_us
+        hop_us = wire.hop_latency_us(fmt, counts,
+                                     hops if links is None else links) \
+            + queue_us
         lat = torch.clamp(wait_us, min=0.0) + hop_us[..., None]
         return wire.summarize_latency(lat, live, batch_dims=1)
 
@@ -277,10 +293,15 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     def body(carry, t: int, tables: RoutingTables, weights_t, inh_src,
              delays, drive):
         state, pend, lstate = carry
-        # 1. exchange + decode window k-1 (state.t == that window's end)
-        recv, rmeta, counts, sent_mask, lstats, lstate, qcol = _exchange(
-            pend, lstate, enforce_credits=True)
-        latency = _window_latency(t, rmeta, counts, qcol)
+        # 1. exchange + decode window k-1 (state.t == that window's end),
+        #    under this window's dead-link mask when faults are injected
+        #    (the exchange returns a state without it)
+        if fault_schedule is not None:
+            lstate = lstate._replace(link_down=fabric_faults.mask_at(
+                fault_schedule, t // cfg.window))
+        recv, rmeta, counts, sent_mask, lstats, lstate, qcol, links = \
+            _exchange(pend, lstate, enforce_credits=True)
+        latency = _window_latency(t, rmeta, counts, qcol, links)
         miss = _apply_events(state.ring_exc, state.ring_inh, recv, counts,
                              t, weights_t, inh_src)
         # 2. simulate window k

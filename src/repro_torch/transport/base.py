@@ -40,7 +40,11 @@ class FabricState(NamedTuple):
     (``parked_count[s, d]`` events of row (s, d) parked mid-route at hop
     ``parked_hop[s, d]`` for ``parked_age[s, d]`` windows, holding
     ``parked_by_link[l]`` credits; ``parked_payload[s]`` holds shard s's
-    parked rows).  The crossbar carries zero-size tables."""
+    parked rows).  The crossbar carries zero-size tables.
+
+    ``link_down`` is not carried: a caller injecting faults stamps the
+    window's (K,) bool dead-link mask (``fabric.faults.mask_at``) right
+    before ``exchange``, which returns a state without it."""
 
     bank: CreditBank
     parked_count: torch.Tensor        # (n, n) int32
@@ -49,6 +53,7 @@ class FabricState(NamedTuple):
     parked_by_link: torch.Tensor      # (K,) int32
     parked_payload: torch.Tensor      # (S, n, W) int32, per shard
     parked_hold_shared: torch.Tensor  # (n, n) int32
+    link_down: torch.Tensor | None = None   # (K,) bool, this window only
 
 
 LinkState = FabricState
@@ -141,6 +146,10 @@ class TransportOut(NamedTuple):
                                  #   delivered from the fabric this window
     park_wait_us: torch.Tensor   # (S, S) f32 park-dwell charge of rows
                                  #   delivered after parking
+    links_used: torch.Tensor | None = None  # (S, S) int32 links of the
+                                 #   route each row was delivered over
+                                 #   this window, detours included, 0 for
+                                 #   the rest; only under fault injection
 
 
 class Transport:

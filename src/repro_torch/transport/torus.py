@@ -25,19 +25,26 @@ source-major, rotated by the bank's epoch: parked rows resume first from
 their blocked hop, then fresh rows walk their route; a row short of
 credits at a transit hop parks there (holding its arrival link's credit),
 one short at hop 0 is deferred and head-of-line blocks its source egress
-link for the rest of the window.  The replay is a Python loop over rows
-whose body is tensor operations over the route's hops: it stays on the
-device and never reads a value back to the host.
+link for the rest of the window.  On the card the replay is one launch of
+kernel F (``kernels/admission.py``, ``csrc/admission.cu``); on the CPU it
+is a loop over the rows whose body is tensor operations over the route's
+hops.  Neither reads a value back to the host.
 
-Not ported here: fault injection (``_admit_global_faulted``,
-``_phase_fault``; ROADMAP queue 1, item 8), the multi-tenant transport
-(item 9) and per-link stall attribution for the flight recorder
-(``_stall_attr``; item 10).
+Fault injection: a caller stamps the window's (K,) dead-link mask on the
+state (``FabricState.link_down``, ``fabric.faults.mask_at``).  Admission
+then reroutes each axis whose short arc crosses a dead link the long way
+around its ring, evicts parked rows whose remaining route or held link
+died, and admits a detoured row all or nothing (the same kernel, the
+faulted plain loop on the CPU); each ring phase flips the same rows, both
+directions run ``n - 1`` hops and absorption adds.  A mask needs credits.
+
+Not ported here: the multi-tenant transport (ROADMAP queue 1, item 9) and
+per-link stall attribution for the flight recorder (``_stall_attr``; item
+10).
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -45,28 +52,10 @@ import torch
 from repro_torch.core import aggregator
 from repro_torch.core import flow_control as fc
 from repro_torch.core.torus import Torus
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import admission, dispatch
 from repro_torch.transport import base
 from repro_torch.wire import framing as wire_framing
 from repro_torch.wire import latency as wire_latency
-
-
-class AdmissionOut(NamedTuple):
-    """One window's admission replay; (S, S) fields are [src, dst]."""
-
-    fresh_complete: torch.Tensor    # bool fresh rows delivered this window
-    fresh_park: torch.Tensor        # bool fresh rows newly parked
-    resumed_complete: torch.Tensor  # bool parked rows that finished
-    resume_age: torch.Tensor        # int32 windows the resumed rows waited
-    stall_hop: torch.Tensor         # int32 blocking hop of deferred rows, -1
-    park_count: torch.Tensor        # int32 post-window occupancy table
-    park_hop: torch.Tensor          # int32 post-window blocked-hop table
-    park_age: torch.Tensor          # int32 post-window ages
-    parked_by_link: torch.Tensor    # (K,) int32 post-window held units
-    links_traversed: torch.Tensor   # int32 links each row crossed now
-    spent: torch.Tensor             # (K,) int32 subtracted from credits
-    notify: torch.Tensor            # (K,) int32 entering the delay line
-    queue_events: torch.Tensor      # int32 parked events ahead on the route
 
 
 def default_shape(n_shards: int) -> tuple[int, int]:
@@ -137,25 +126,52 @@ class TorusTransport(base.Transport):
         self.notify_latency = int(notify_latency)
         pad = dims + (1,) * (3 - self.ndim)
         self._host = Torus(nx=pad[0], ny=pad[1], nz=pad[2])
+        hops_alt = sum(d - 1 for d in dims)
+        if self.link_credits > 0 and hops_alt > admission.MAX_HOPS:
+            raise ValueError(
+                f"torus {dims}: detour routes of up to {hops_alt} hops; "
+                f"the admission kernel replays at most {admission.MAX_HOPS} "
+                f"(one lane of a warp per hop)")
         self._build_routes()
         self._tables: dict[torch.device, dict] = {}
 
     # -- static topology ---------------------------------------------------
     def _build_routes(self):
-        """Host precompute of every pair's route as hop-ordered egress link
-        ids (node * n_links + direction, -1 padded; local rows all -1):
-        ``_link_seq`` (n², max_hops), and the host model's hop counts."""
+        """Host precompute of every pair's routes as hop-ordered egress
+        link ids (node * n_links + direction, -1 padded; local rows all
+        -1): for every subset of axes walking their ring the long way
+        (combo bit a set = axis a detours; combo 0 is the default route)
+        the whole route, ``_link_seq_alt`` (2^ndim, n², max_hops_alt), and
+        each axis' short and long segment, ``_seg_links`` (ndim, 2, n²,
+        Hs), which the per-window reroute decision gathers the mask over;
+        and the host model's hop counts."""
         n, nl = self.n_shards, self.n_links
+        host = self._host
         self.max_hops = max(sum(d // 2 for d in self.dims), 1)
-        seq = np.full((n * n, self.max_hops), -1, np.int32)
+        self.max_hops_alt = max(sum(d - 1 for d in self.dims), 1)
+        n_combo = 1 << self.ndim
+        alt = np.full((n_combo, n * n, self.max_hops_alt), -1, np.int32)
+        seg_len = max(max(d - 1 for d in self.dims), 1)
+        seg = np.full((self.ndim, 2, n * n, seg_len), -1, np.int32)
+        pad3 = (False,) * (3 - self.ndim)
         for s in range(n):
             for d in range(n):
                 if s == d:
                     continue
-                for h, (u, dir_) in enumerate(self._host.route_links(s, d)):
-                    seq[s * n + d, h] = u * nl + dir_
-        self._link_seq = seq
-        self._route_len = (seq >= 0).sum(-1).astype(np.int32)
+                for a in range(self.ndim):
+                    for var in (0, 1):
+                        for h, (u, dir_) in enumerate(host.axis_segment_links(
+                                s, d, a, longway=bool(var))):
+                            seg[a, var, s * n + d, h] = u * nl + dir_
+                for combo in range(n_combo):
+                    flips = tuple(bool(combo >> a & 1)
+                                  for a in range(self.ndim)) + pad3
+                    for h, (u, dir_) in enumerate(
+                            host.route_links_detour(s, d, flips)):
+                        alt[combo, s * n + d, h] = u * nl + dir_
+        self._link_seq_alt = alt
+        self._route_len_alt = (alt >= 0).sum(-1).astype(np.int32)
+        self._seg_links = seg
         ids = np.arange(n)
         self._hops_matrix = self._host.hops(
             ids[:, None], ids[None, :]).astype(np.int32)
@@ -163,16 +179,14 @@ class TorusTransport(base.Transport):
     def _dev(self, device: torch.device) -> dict:
         """The static tables on ``device``, made once per device."""
         if device not in self._tables:
-            seq = torch.from_numpy(self._link_seq).to(device)
+            to = lambda a: torch.from_numpy(a).to(device)
             ids = torch.arange(self.n_shards, device=device)
             self._tables[device] = dict(
-                idx=torch.clamp(seq, min=0).long(),
-                valid=seq >= 0,
-                first=torch.clamp(seq[:, 0], min=0).long(),
-                routed=seq[:, 0] >= 0,
-                route_len=torch.from_numpy(self._route_len).to(device),
-                hops=torch.from_numpy(self._hops_matrix).to(device),
-                hop_idx=torch.arange(self.max_hops, device=device),
+                routes=admission.RouteTables(
+                    seq_alt=to(self._link_seq_alt),
+                    len_alt=to(self._route_len_alt),
+                    seg=to(self._seg_links)),
+                hops=to(self._hops_matrix),
                 coords=[c.long() for c in self._coords_of(ids)],
                 eye=torch.eye(self.n_shards, dtype=torch.bool,
                               device=device),
@@ -200,156 +214,25 @@ class TorusTransport(base.Transport):
     def _stall_attr(self, stall_hop, counts):
         raise _not_ported("per-link stall attribution", 10, "observability")
 
-    def _admit_global_faulted(self, state, counts_all, link_down):
-        raise _not_ported("fault-aware admission", 8, "fault injection")
-
-    def _phase_fault(self, down, a: int, me, my_c):
-        raise _not_ported("fault detours of the ring phases", 8,
-                          "fault injection")
-
     # -- canonical hop-by-hop admission with transit buffers ---------------
     def _admit_global(self, state: base.FabricState,
-                      counts_all: torch.Tensor) -> AdmissionOut:
-        """The two-phase admission replay over the global state.
+                      counts_all: torch.Tensor,
+                      link_down: torch.Tensor | None = None
+                      ) -> admission.AdmissionOut:
+        """The two-phase admission replay over the global state (kernel F
+        on the card; on the CPU ``admission.admission_plain``, or under a
+        (K,) dead-link mask ``admission.admission_faulted_plain``): parked
+        rows resume first from their blocked hop, then fresh rows walk
+        their route, source-major with the sources rotated by
+        ``bank.epoch``.  Under a mask rows reroute around dead arcs, parked
+        rows whose remaining route or held link died are evicted, and
+        detours are all-or-nothing."""
+        return admission.admission(
+            counts_all.to(torch.int32), state,
+            self._dev(counts_all.device)["routes"], link_down)
 
-        Rows are processed source-major, the source order rotated by
-        ``bank.epoch`` (round-robin over progress rounds).
-
-        **Phase A** -- every parked row tries to resume from its blocked
-        hop ``h``: it crosses hops whose links still hold ``count``
-        credits and stops at the first short one.  Reaching the end
-        completes it; advancing and blocking again re-parks it at the new
-        hop (its old arrival link's hold is released into the delay line,
-        the new one's held); not moving keeps its hold.
-
-        **Phase B** -- a fresh row whose (src, dst) slot is free and whose
-        source egress link is not head-of-line blocked walks its route the
-        same way: complete, or park at the first short hop ``h >= 1``, or,
-        short at hop 0, deferred (``stall_hop = 0``), blocking every later
-        row on that egress link this window.
-
-        Each phase is a loop over the rows whose body is tensor operations
-        over the ``max_hops`` hops, with the running credits, notifies and
-        holds as one (3, K) tensor updated in place.
-        """
-        n, H = self.n_shards, self.max_hops
-        t = self._dev(counts_all.device)
-        hop_idx, idx_all, valid_all = t["hop_idx"], t["idx"], t["valid"]
-        flat = counts_all.reshape(-1).to(torch.int32)
-        pc0 = state.parked_count.reshape(-1)
-        ph0 = state.parked_hop.reshape(-1)
-        pa0 = state.parked_age.reshape(-1)
-        r_all = torch.arange(n * n, device=flat.device)
-        rows = ((r_all // n + state.bank.epoch) % n) * n + r_all % n
-
-        # congestion snapshot: events parked along each row's remaining
-        # route at window start (a parked row counts from its blocked hop,
-        # past its own held events)
-        start_hop = torch.where(pc0 > 0, ph0, 0)[:, None]
-        queue_events = torch.where(
-            valid_all & (hop_idx >= start_hop),
-            state.parked_by_link[idx_all], 0).sum(
-                -1, dtype=torch.int32).reshape(n, n)
-
-        # per-row operands in processing order
-        idx_p, valid_p = idx_all[rows], valid_all[rows]
-        len_p, first_p = t["route_len"][rows], t["first"][rows]
-        routed_p = t["routed"][rows]
-        c_p, a_p, f_p = pc0[rows], pa0[rows], flat[rows]
-        h_p, len_p = ph0[rows].long(), len_p.long()
-        # running [remaining credits, notify, held] per link
-        run = torch.stack([state.bank.credits,
-                           torch.zeros_like(state.bank.credits),
-                           state.parked_by_link])
-        remaining = run[0]
-        zero = torch.zeros((), dtype=torch.int32, device=flat.device)
-
-        res_c, pc_a, ph_a, age_res, age_a, trav_a = ([] for _ in range(6))
-        for i in range(n * n):                           # phase A: resume
-            c, h, idx, valid, L = c_p[i], h_p[i], idx_p[i], valid_p[i], \
-                len_p[i]
-            active = c > 0
-            from_h = valid & (hop_idx >= h)
-            short = from_h & (remaining[idx] < c)
-            h_new = torch.where(short, hop_idx, H).amin()
-            complete = active & (h_new >= L)
-            h_stop = torch.maximum(torch.where(complete, L, h_new), h)
-            moved = active & (h_stop > h)
-            trav = from_h & (hop_idx < h_stop) & active
-            # the last traversed link becomes the new hold when re-parking;
-            # leaving the old park spot releases its arrival link's hold
-            at_hold = moved & ~complete & (hop_idx == h_stop - 1)
-            rel = moved & (h >= 1) & (hop_idx == h - 1)
-            cc = torch.where(trav, c, zero)
-            hold = torch.where(at_hold, c, zero)
-            rel_c = torch.where(rel, c, zero)
-            run.index_add_(1, idx, torch.stack([-cc, cc - hold + rel_c,
-                                                hold - rel_c]))
-            parked_on = active & ~complete
-            res_c.append(complete)
-            pc_a.append(torch.where(complete, zero, c))
-            ph_a.append(torch.where(parked_on, h_stop, zero))
-            age_res.append(torch.where(complete, a_p[i], zero))
-            age_a.append(torch.where(parked_on, a_p[i] + 1, zero))
-            trav_a.append(trav.sum(dtype=torch.int32))
-
-        blocked = torch.zeros(run.shape[1], dtype=torch.int32,
-                              device=flat.device)   # deferrals per link
-        adm_c, adm_p, stall, hp_b, trav_b = ([] for _ in range(5))
-        minus_one = torch.full((), -1, dtype=torch.int32, device=flat.device)
-        for i in range(n * n):                           # phase B: offer
-            c, idx, valid, L = f_p[i], idx_p[i], valid_p[i], len_p[i]
-            fl = first_p[i:i + 1]
-            routed = routed_p[i] & (c > 0)
-            short = valid & (remaining[idx] < c)
-            h_block = torch.where(short, hop_idx, H).amin()
-            ok = routed & (c_p[i] <= 0) & (blocked[fl][0] == 0)
-            admit_c = ok & (h_block >= L)
-            admit_p = ok & (h_block < L) & (h_block >= 1)
-            defer = routed & ~admit_c & ~admit_p
-            h_stop = torch.where(admit_c, L,
-                                 torch.where(admit_p, h_block, zero))
-            trav = valid & (hop_idx < h_stop)
-            at_hold = admit_p & (hop_idx == h_stop - 1)
-            cc = torch.where(trav, c, zero)
-            hold = torch.where(at_hold, c, zero)
-            run.index_add_(1, idx, torch.stack([-cc, cc - hold, hold]))
-            blocked.index_add_(0, fl, defer.to(torch.int32)[None])
-            adm_c.append(admit_c)
-            adm_p.append(admit_p)
-            stall.append(torch.where(defer, zero, minus_one))
-            hp_b.append(h_stop)
-            trav_b.append(trav.sum(dtype=torch.int32))
-
-        def unrot(xs):              # processing order -> row order
-            x = torch.stack(xs)
-            out = torch.empty_like(x)
-            out[rows] = x
-            return out
-
-        fresh_complete, fresh_park = unrot(adm_c), unrot(adm_p)
-        resumed_complete = unrot(res_c)
-        # a freshly parked row enters at age 1
-        park_count = torch.where(fresh_park, flat, unrot(pc_a))
-        park_hop = torch.where(fresh_park, unrot(hp_b).to(torch.int32),
-                               unrot(ph_a).to(torch.int32))
-        park_age = torch.where(fresh_park, 1, unrot(age_a))
-        sq = lambda x: x.reshape(n, n)
-        return AdmissionOut(
-            fresh_complete=sq(fresh_complete),
-            fresh_park=sq(fresh_park),
-            resumed_complete=sq(resumed_complete),
-            resume_age=sq(unrot(age_res)),
-            stall_hop=sq(unrot(stall)),
-            park_count=sq(park_count),
-            park_hop=sq(park_hop),
-            park_age=sq(park_age).to(torch.int32),
-            parked_by_link=run[2].clone(),
-            links_traversed=sq(unrot(trav_a) + unrot(trav_b)),
-            spent=state.bank.credits - remaining,
-            notify=run[1].clone(),
-            queue_events=queue_events,
-        )
+    # the reference's name for the replay under a mask
+    _admit_global_faulted = _admit_global
 
     # -- the rotation, replayed on the row counts ----------------------------
     # A holder's (S,) row axis keeps the reference's flattened layout
@@ -384,32 +267,71 @@ class TorusTransport(base.Transport):
         t = v.reshape(*reversed(self.dims), *s[1:])
         return torch.roll(t, step, dims=self.ndim - 1 - a).reshape(s)
 
-    def _ring_phase(self, bundles: torch.Tensor, a: int, acc: dict):
+    def _phase_fault(self, down: torch.Tensor, a: int):
+        """Each holder's axis-``a`` ring view of the (K,) mask -> (S, n)
+        bool pair: is the + / - link of the ring node at coordinate c
+        dead.  That node is ``s + (c - my_c) * stride``."""
+        t = self._dev(down.device)
+        n = self.dims[a]
+        stride = math.prod(self.dims[:a])
+        ring = (t["shards"][:, None] + (torch.arange(n, device=down.device)
+                                        - t["coords"][a][:, None]) * stride)
+        link = ring * self.n_links + 2 * a
+        return down[link], down[link + 1]
+
+    def _ring_phase(self, bundles: torch.Tensor, a: int, acc: dict,
+                    down: torch.Tensor | None = None):
         """Rotate (S, n, B) bundle counts (by target ring coordinate) to
         their owners -> (S, n, B) by source ring coordinate; ``acc``
         gathers each holder's LinkStats terms: wire bytes of every hop
         (legacy packet model and frame-exact), hops, and the peak
-        store-and-forward occupancy after each absorption."""
+        store-and-forward occupancy after each absorption.
+
+        Under a dead-link mask each holder flips the bundles whose short
+        arc crosses a dead link and whose long arc is clean to the other
+        direction (the admission's per-axis rule, on the same mask), both
+        directions run ``n - 1`` hops, and absorption adds (a bundle goes
+        one way, never both)."""
         t = self._dev(bundles.device)
         n, my_c, ar = self.dims[a], t["coords"][a], t["shards"]
-        fwd = (torch.arange(n, device=bundles.device)[None, :]
-               - my_c[:, None]) % n
-        plus = ((fwd >= 1) & (fwd <= n // 2))[..., None]
-        minus = (fwd > n // 2)[..., None]
+        k = torch.arange(n, device=bundles.device)
+        fwd = (k[None, :] - my_c[:, None]) % n
+        short_plus = fwd <= n // 2
+        if down is None:
+            plus = (fwd >= 1) & short_plus
+            minus = fwd > n // 2
+            hops_p, hops_m = n // 2, (n - 1) // 2
+        else:
+            down_p, down_m = self._phase_fault(down, a)
+            # dead links among the first k walking + / - from the holder
+            cum_p = torch.cumsum(down_p.gather(
+                1, (my_c[:, None] + k) % n).to(torch.int32), 1)
+            cum_m = torch.cumsum(down_m.gather(
+                1, (my_c[:, None] - k) % n).to(torch.int32), 1)
+            dirty = lambda cum, d: (d >= 1) & (cum.gather(
+                1, torch.clamp(d - 1, min=0)) > 0)
+            dirty_p, dirty_m = dirty(cum_p, fwd), dirty(cum_m, (n - fwd) % n)
+            flip = (torch.where(short_plus, dirty_p, dirty_m)
+                    & ~torch.where(short_plus, dirty_m, dirty_p))
+            use_plus = short_plus ^ flip
+            plus = (fwd >= 1) & use_plus
+            minus = (fwd >= 1) & ~use_plus
+            hops_p = hops_m = n - 1
         zero = torch.zeros((), dtype=bundles.dtype, device=bundles.device)
         recv = torch.zeros_like(bundles)
         recv[ar, my_c] = bundles[ar, my_c]
         flat = lambda v: v.reshape(v.shape[0], -1)
-        for step, v, n_hops in ((1, torch.where(plus, bundles, zero), n // 2),
-                                (-1, torch.where(minus, bundles, zero),
-                                 (n - 1) // 2)):
+        for step, v, n_hops in (
+                (1, torch.where(plus[..., None], bundles, zero), hops_p),
+                (-1, torch.where(minus[..., None], bundles, zero), hops_m)):
             for h in range(1, n_hops + 1):
                 acc["bytes"] = (acc["bytes"]
                                 + aggregator.window_cost(flat(v)).bytes)
                 acc["owire"] = acc["owire"] + wire_framing.frame_bytes(
                     self.wire_fmt, flat(v)).sum(-1, dtype=torch.int32)
                 v = self._neighbour(v, a, step)
-                recv[ar, (my_c - step * h) % n] = v[ar, my_c]
+                src = (my_c - step * h) % n
+                recv[ar, src] = recv[ar, src] + v[ar, my_c]
                 v = v.clone()
                 v[ar, my_c] = 0
                 acc["hops"] += 1
@@ -419,7 +341,7 @@ class TorusTransport(base.Transport):
                     acc["in_flight_phase"][a], occ)
         return recv
 
-    def _rotate(self, cnt: torch.Tensor):
+    def _rotate(self, cnt: torch.Tensor, down: torch.Tensor | None = None):
         """All dimension-ordered phases over the (S, S) [src, dst] counts
         -> (rotation statistics, (S, S) [dst, src] delivered counts)."""
         z = torch.zeros((self.n_shards,), dtype=torch.int32,
@@ -429,7 +351,7 @@ class TorusTransport(base.Transport):
         buf = cnt
         for a in range(self.ndim):
             buf = self._from_phase(
-                self._ring_phase(self._to_phase(buf, a), a, acc), a)
+                self._ring_phase(self._to_phase(buf, a), a, acc, down), a)
         return acc, buf
 
     @staticmethod
@@ -448,7 +370,13 @@ class TorusTransport(base.Transport):
         eye = t["eye"]
         counts = counts.to(torch.int32)
         zero_w = torch.zeros((), dtype=payload.dtype, device=device)
+        down = state.link_down       # this window's fault mask, or None
         throttled = enforce_credits and self.link_credits > 0
+        if down is not None and not throttled:
+            raise ValueError(
+                "fault injection (FabricState.link_down) requires credit "
+                "flow control: an unthrottled fabric has no per-link "
+                "admission to refuse at a dead link (set link_credits > 0)")
         if throttled:
             if state.parked_payload.shape != payload.shape:
                 raise ValueError(
@@ -460,7 +388,7 @@ class TorusTransport(base.Transport):
             # the reference replicates the (S, S) counts with a ring
             # all-gather whose hops enter no LinkStats counter; on one card
             # the matrix is global already
-            adm = self._admit_global(state, counts)
+            adm = self._admit_global(state, counts, down)
             fresh_c, fresh_p = adm.fresh_complete, adm.fresh_park
             resumed, stall_hop = adm.resumed_complete, adm.stall_hop
             pc0 = state.parked_count
@@ -496,13 +424,14 @@ class TorusTransport(base.Transport):
                                    device=device)
             cnt_in, row_payload = counts, payload
             state = state._replace(bank=fc.credit_tick(
-                state.bank, torch.zeros_like(state.bank.credits)))
+                state.bank, torch.zeros_like(state.bank.credits)),
+                link_down=None)
             sent_mask = sent_now = torch.ones((n, n), dtype=torch.bool,
                                               device=device)
             queue_us = park_wait_us = torch.zeros((n, n),
                                                   dtype=torch.float32,
                                                   device=device)
-        acc, rot = self._rotate(cnt_in)
+        acc, rot = self._rotate(cnt_in, down)
         recv_payload, recv_counts = self._deliver(row_payload, cnt_in)
 
         # deferred rows histogrammed by their blocking hop, parked rows by
@@ -531,9 +460,10 @@ class TorusTransport(base.Transport):
             dwell = torch.where(fresh_c | resumed, queue_us + park_wait_us,
                                 0.0).sum(-1)
             in_fabric = state.parked_count.sum(-1, dtype=torch.int32)
+            rerouted = adm.rerouted.sum(-1, dtype=torch.int32)
         else:
             sent = cnt_in.sum(-1, dtype=torch.int32)
-            parked = unparked = in_fabric = zi
+            parked = unparked = in_fabric = rerouted = zi
             unparked_now = torch.zeros((n, n), dtype=torch.int32,
                                        device=device)
             parked_by_hop = torch.zeros((n, H), dtype=torch.int32,
@@ -558,7 +488,7 @@ class TorusTransport(base.Transport):
             in_fabric_events=in_fabric,
             parked_by_hop=parked_by_hop,
             queue_dwell_us=dwell.to(torch.float32),
-            rerouted=zi,                # no fault detours (item 8)
+            rerouted=rerouted,
         )
         return base.TransportOut(
             state=state,
@@ -570,6 +500,7 @@ class TorusTransport(base.Transport):
             queue_us=queue_us,
             unparked_now=unparked_now,
             park_wait_us=park_wait_us,
+            links_used=adm.links_done if down is not None else None,
         )
 
     # -- end-of-run fabric walk --------------------------------------------

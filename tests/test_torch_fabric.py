@@ -730,10 +730,16 @@ def test_torus_guards_and_unported_paths_raise():
         t_tt.TenantTorusTransport(8, (2, 4))
     tr = t_tp.create("torus2d", n_shards=8, link_credits=64)
     state = tr.init_state(4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tr._admit_global_faulted(state, None, None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_torus.Torus(2, 4, 1).route_links_detour(0, 5)
+    # fault injection (item 8) is ported: the faulted replay and the
+    # detours run
+    down = torch.zeros(tr.n_shards * tr.n_links, dtype=torch.bool)
+    counts = torch.full((8, 8), 3, dtype=torch.int32)
+    faulted = tr._admit_global_faulted(state, counts, down)
+    healthy = tr._admit_global(state, counts)
+    for field in healthy._fields:
+        assert torch.equal(getattr(faulted, field), getattr(healthy, field))
+    assert t_torus.Torus(2, 4, 1).route_links_detour(0, 5) == \
+        t_torus.Torus(2, 4, 1).route_links(0, 5)
     with pytest.raises(ValueError, match="payload"):
         tr.exchange(state, torch.zeros((8, 8, 6), dtype=torch.int32),
                     torch.zeros((8, 8), dtype=torch.int32))

@@ -330,14 +330,20 @@ def test_unported_paths_raise(part):
     with pytest.raises(NotImplementedError, match="item 12"):
         Engine(lm, ServeConfig()).generate_batch(params, [Request(
             0, np.arange(3, 7, dtype=np.int32), extras={"enc_frames": 0})])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        transport.create("torus2d", n_shards=4,
-                         link_credits=64)._admit_global_faulted(None, None,
-                                                                None)
+    # fault injection (item 8) is ported: the faulted replay runs, and
+    # under an all-false mask it is the healthy one
+    tr = transport.create("torus2d", n_shards=4, link_credits=64)
+    st = tr.init_state(4, device="cpu")
+    counts = torch.full((4, 4), 9, dtype=torch.int32)
+    faulted = tr._admit_global_faulted(st, counts, torch.zeros(
+        16, dtype=torch.bool))
+    for a, b in zip(faulted, tr._admit_global(st, counts)):
+        assert torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="item 9"):
         from repro_torch.transport.torus import TenantTorusTransport
         TenantTorusTransport(4, (2, 2))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # a fault schedule needs a credited torus; the crossbar refuses it
+    with pytest.raises(ValueError, match="credit-throttled"):
         sim.build_sharded_sim(_cfg(p, "ample"), p, spec.bg_rates(),
                               fault_schedule=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
