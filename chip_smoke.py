@@ -73,6 +73,25 @@ Phases, each raising on failure (exit code != 0, no result line):
    link; detours where a cable dies; the drain empties the fabric; the
    healthy schedule equals the run without one; ms per window, device
    functions, rerouted / parked / deferred / deadline misses;
+5g. a small serve run (the deployment of 5h for 3 segments, solo and
+   contended) on the card against the same run on the CPU: every
+   ``EngineReport`` integer, every per-window ``WindowServeStats`` integer
+   and every latency histogram equal;
+5h. main path 4 -- the multi-tenant spike serving engine at
+   ``benchmarks/bench_serve.py``'s deployment behind ``BENCH_serve.json``
+   (8 shards on torus3d 2x2x2, capacity 32, link credits 64, tenants
+   quiet (reserve 32, 40 events a window) and hot (reserve 8, 600 events
+   a window, bursts), 24 segments of 8 windows), solo, contended and
+   contended under ``link_fault(0, x+)`` from window 2, each after
+   ``warmup()``: per-tenant conservation, the quiet tenant's p99 factor
+   (at most 4.0), per-tenant counts and latency beside the file's, the
+   launches per served window (the tenant form of kernel F, B's encode
+   and B's decode once each), events/s and ms per window, peak device
+   memory, and a torch.profiler pass over one served segment;
+5i. kernel F's tenant form against both tenant loops, bit for bit on
+   every field, on the states of every 6th window of each of 5h's runs
+   (without a mask also under an all-false mask against both loops);
+   its time (CUDA graph) against its chain bound, and the loops' times;
 6. Mamba-2 slice -- the reduced mamba2 (2 layers; its blocks compute in
    bf16, so the SSD chunk takes the tensor-core kernel) on the card
    against the CPU: hidden states, caches and decode at the model
@@ -92,8 +111,9 @@ Phases, each raising on failure (exit code != 0, no result line):
    over one prefill wave and 8 decode steps;
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
-   to 0 just before that path: A-C and F from main path 3 (the per-row
-   placement 0: it is on no path), D from the exchange,
+   to 0 just before that path: A-C and F from main path 3, F and B also
+   from main path 4's three runs (the per-row placement 0: it is on no
+   path), D from the exchange,
    E's tensor-core kernel from main path 2, E's FMA kernel from the f32
    scan of phase 6) and, last, the device JSON line.
 """
@@ -1425,7 +1445,7 @@ def run_torus_main_path():
               f"{launches[name]}")
         if name.endswith("binding credits"):
             window_functions(run, state, 3)
-            captured = capture_admission(lambda: run(state, 8))
+            captured, _ = capture_admission(lambda: run(state, 8))
     base, ample = stats["alltoall"], stats["torus3d, ample credits"]
     binding = stats["torus3d, binding credits"]
     if int(base["spikes"].sum()) == 0:
@@ -1461,26 +1481,30 @@ SHARED_ROUND_TRIP_CYCLES = 30
 SM_CLOCK_HZ = 1.98e9
 
 
-def capture_admission(fn):
-    """Run ``fn`` with every call of the admission wrapper recorded: ->
-    [(counts, FabricState, RouteTables, link_down)], each tensor a copy."""
+def capture_admission(fn, wrapper: str = "admission", every: int = 1):
+    """Run ``fn`` with every ``every``-th call of the admission wrapper
+    ``wrapper`` (``admission`` or ``admission_tenants``) recorded: ->
+    ([(call index, counts, FabricState, RouteTables, link_down)], each
+    tensor a copy; ``fn``'s result)."""
     from repro_torch.kernels import admission
-    real, calls = admission.admission, []
+    real, calls, seen = getattr(admission, wrapper), [], [0]
 
     def spy(counts, state, tables, link_down=None):
-        copy = lambda t: None if t is None else t.clone()
-        calls.append((counts.clone(), type(state)(*(
-            type(x)(*map(copy, x)) if hasattr(x, "_fields") else copy(x)
-            for x in state)), tables, copy(link_down)))
+        if seen[0] % every == 0:
+            copy = lambda t: None if t is None else t.clone()
+            calls.append((seen[0], counts.clone(), type(state)(*(
+                type(x)(*map(copy, x)) if hasattr(x, "_fields") else copy(x)
+                for x in state)), tables, copy(link_down)))
+        seen[0] += 1
         return real(counts, state, tables, link_down)
 
-    admission.admission = spy
+    setattr(admission, wrapper, spy)
     try:
-        fn()
+        out = fn()
     finally:
-        admission.admission = real
+        setattr(admission, wrapper, real)
     torch.cuda.synchronize()
-    return calls
+    return calls, out
 
 
 def check_admission_case(what, counts, state, tables, down):
@@ -1559,7 +1583,7 @@ def check_admission(captured):
     from repro_torch.convert import flatten
     from repro_torch.kernels import admission as adm
     cases = 0
-    for i, (counts, state, tables, down) in enumerate(captured):
+    for i, counts, state, tables, down in captured:
         if down is not None:
             raise AssertionError("main path 3 stamped a fault mask")
         check_admission_case(f"main path 3 window {i}", counts, state,
@@ -1588,7 +1612,7 @@ def check_admission(captured):
                                      f"CPU", g[3], c[3])
     if not all(seen.values()):
         raise AssertionError(f"admission cases exercised too little: {seen}")
-    counts, state, tables, _ = captured[-1]
+    _, counts, state, tables, _ = captured[-1]
     n = counts.shape[0]
     ms, eager_ms = time_ms(lambda: adm.admission(counts, state, tables))
     healthy_ms = time_loop(lambda: adm.admission_plain(counts, state,
@@ -1823,6 +1847,294 @@ def check_fault_slice_small():
           f"seed 0, {n_win} windows): card == CPU on every integer stat; "
           f"{rerouted} events rerouted, {int(s['link.parked_events'].sum())}"
           f" parked, {int(s['spikes'].sum())} spikes")
+
+
+# ---------------------------------------------------------------------------
+# Main path 4: the multi-tenant spike serving engine, and kernel F's tenant
+# form.
+# ---------------------------------------------------------------------------
+
+# benchmarks/bench_serve.py:140-155, the full (non-smoke) deployment behind
+# BENCH_serve.json
+SERVE_CFG = dict(capacity=32, link_credits=64, notify_latency=2,
+                 window_us=100.0, seg_windows=8, nx=2, ny=2, nz=2,
+                 queue_depth=2)
+SERVE_TENANTS = (("quiet", 32, 40.0), ("hot", 8, 600.0))
+SERVE_SHARDS, SERVE_SEGMENTS, SERVE_SEED = 8, 24, 7
+SERVE_SMALL_SEGMENTS = 3
+QOS_P99_BOUND = 4.0                # benchmarks/bench_serve.py:35
+SERVE_FAULT_START = 2              # link_fault(0, x+) from window 2
+# every how many windows of each main-path-4 run phase 5i checks the
+# admission state against both loops (they take ~0.3-0.4 s a call on the
+# card): 32-36 windows a run, spread over it and its drain
+SERVE_CAPTURE_EVERY = 6
+
+
+def serve_engine(device, hot: bool, fault: bool = False):
+    """The bench_serve deployment on ``device``: 8 shards on torus3d
+    2x2x2, the quiet tenant (reserve 32, 40 events a window) and the hot
+    one (reserve 8, 600 events a window, bursts x3 at p 0.25; rate 0 when
+    ``hot`` is False), seed 7; ``fault``: the cable x+ of node 0 dead from
+    window 2."""
+    from repro_torch.fabric import faults
+    from repro_torch.serve import loadgen, spike_engine, tenancy
+    specs = [tenancy.TenantSpec(n, reserve=r, rate_epw=rate)
+             for n, r, rate in SERVE_TENANTS]
+    profiles = [loadgen.TenantProfile("quiet", SERVE_TENANTS[0][2]),
+                loadgen.TenantProfile("hot", SERVE_TENANTS[1][2] if hot
+                                      else 0.0, burst_factor=3.0,
+                                      burst_prob=0.25)]
+    cfg = spike_engine.EngineConfig(**SERVE_CFG)
+    src = loadgen.PoissonLoadGen(SERVE_SEED, profiles, SERVE_SHARDS,
+                                 cfg.capacity)
+    n_win = SERVE_SEGMENTS * cfg.seg_windows
+    sched = (faults.link_fault((2, 2, 2), n_win, 0, 0,
+                               start=SERVE_FAULT_START, device=device)
+             if fault else None)
+    return spike_engine.SpikeEngine(SERVE_SHARDS, specs, cfg, src,
+                                    fault_schedule=sched, device=device)
+
+
+def _report_ints(rep) -> dict:
+    out = {f: np.asarray(getattr(rep, f)) for f in (
+        "injected", "delivered", "shed", "clipped")}
+    out["windows"] = np.array([rep.windows, rep.drain_windows,
+                               int(rep.conservation_checked)])
+    for d in rep.tenants:
+        out[d.name + ".hist"] = d.hist
+        out[d.name + ".p50_p99_delivered"] = np.array(
+            [d.p50_us, d.p99_us, d.delivered])
+    return out
+
+
+def check_serve_slice_small():
+    """The engine at the deployment's shapes for 3 segments of 8 windows,
+    solo and contended, on the card against the same run on the CPU (the
+    plain versions): every EngineReport integer, every per-window
+    WindowServeStats integer and every latency histogram equal; max and
+    mean at rtol 1e-6."""
+    from repro_torch.convert import flatten
+    for hot in (False, True):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            eng = serve_engine(device, hot)
+            rep = eng.run(SERVE_SMALL_SEGMENTS)
+            runs[device] = (rep, eng.window_stats)
+        (rc, wc), (rp, wp) = runs["cuda"], runs["cpu"]
+        label = "contended" if hot else "solo"
+        for key, a in _report_ints(rc).items():
+            if not np.array_equal(a, _report_ints(rp)[key]):
+                raise AssertionError(f"serve slice {label}: {key} card "
+                                     f"{a} != CPU {_report_ints(rp)[key]}")
+        for x, y in zip(rc.tenants, rp.tenants):
+            np.testing.assert_allclose([x.max_us, x.mean_us],
+                                       [y.max_us, y.mean_us], rtol=1e-6)
+        if len(wc) != len(wp):
+            raise AssertionError(f"serve slice {label}: {len(wc)} segments "
+                                 f"on the card, {len(wp)} on the CPU")
+        for k, (a, b) in enumerate(zip(wc, wp)):
+            fa, fb = flatten(a), flatten(b)
+            for key in fa:
+                if fa[key].dtype.kind == "f":
+                    np.testing.assert_allclose(fa[key], fb[key], rtol=1e-6,
+                                               atol=1e-6,
+                                               err_msg=f"{label} {key}")
+                elif not np.array_equal(fa[key], fb[key]):
+                    raise AssertionError(f"serve slice {label} segment "
+                                         f"{k}: {key} differs card vs CPU")
+        print(f"serve slice {label} ({SERVE_SMALL_SEGMENTS} segments of "
+              f"{SERVE_CFG['seg_windows']} windows + {rc.drain_windows} "
+              f"drain): card == CPU on every report integer, {len(wc)} "
+              f"segments of WindowServeStats and the histograms; injected "
+              f"{rc.injected.tolist()}, delivered {rc.delivered.tolist()}, "
+              f"shed {rc.shed.tolist()}")
+
+
+def _serve_segment_profile(eng, seg: int):
+    """torch.profiler over served segment ``seg`` (its traffic staged and
+    run from the engine's initial carry after ``seg`` segments)."""
+    nw = eng.cfg.seg_windows
+    with eng._on_stream():
+        carry = eng._carry
+        for k in range(seg + 1):
+            eng._fill_segment(0, k)
+            fw, fc_, copied = eng._stage(0)
+            copied.synchronize()
+            if k < seg:
+                carry, ws = eng._segment(carry, fw, fc_, k * nw)
+                eng._ready(ws)
+        torch.cuda.synchronize()
+        return profile_device(
+            lambda: eng._ready(eng._segment(carry, fw, fc_, seg * nw)[1]),
+            f"one served segment ({nw} windows, contended)", nw, "window")
+
+
+def run_serve_main_path(smi: str):
+    """Main path 4: the bench_serve deployment for 24 segments (192
+    windows), solo, contended and contended under link_fault(0, x+) from
+    window 2, each after warmup(): conservation per tenant, the QoS factor,
+    launches per served window, a profile of one segment, events/s and ms
+    per window (host clock), peak device memory."""
+    from repro_torch.kernels import dispatch
+    bench = {r["op"]: r for r in json.loads(
+        (ROOT / "BENCH_serve.json").read_text())}
+    reports, launches, captured = {}, {}, []
+    for label, hot, fault in (("solo", False, False),
+                              ("contended", True, False),
+                              ("contended, link_fault(0, x+)", True, True)):
+        eng = serve_engine("cuda", hot, fault)
+        eng.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()      # earlier phases' tensors
+        dispatch.reset_launches()
+        calls, rep = capture_admission(
+            lambda: eng.run(SERVE_SEGMENTS, timeout=900),
+            "admission_tenants", SERVE_CAPTURE_EVERY)
+        launches[label] = dict(dispatch.LAUNCHES)
+        entries = dict(dispatch.ENTRY_LAUNCHES)
+        captured += [(label, *c) for c in calls]
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        reports[label] = rep
+        if not rep.conservation_checked or not np.array_equal(
+                rep.injected, rep.delivered + rep.shed):
+            raise AssertionError(f"{label}: conservation not checked or "
+                                 f"violated: {rep}")
+        if rep.windows != SERVE_SEGMENTS * SERVE_CFG["seg_windows"]:
+            raise AssertionError(f"{label}: served {rep.windows} windows")
+        # one replay, one encode and one decode a window (drain segments
+        # included); the final walk encodes once and decodes twice
+        n_win = rep.windows + rep.drain_windows
+        want = {"repro_admission_tenants": n_win,
+                "repro_wire_encode": n_win + 1,
+                "repro_wire_decode": n_win + 2}
+        if entries != want:
+            raise AssertionError(f"{label}: launches by entry point "
+                                 f"{entries} != {want}")
+        print(f"{label}: {rep.windows} windows + {rep.drain_windows} drain "
+              f"windows; launches per window: admission "
+              f"{entries['repro_admission_tenants'] / n_win:.0f}, encode "
+              f"{(entries['repro_wire_encode'] - 1) / n_win:.0f}, decode "
+              f"{(entries['repro_wire_decode'] - 2) / n_win:.0f} (+ the "
+              f"walk's 1 encode, 2 decodes); {launches[label]}")
+        print(f"{label} [{smi}]: {rep.events_per_s:.0f} events/s, "
+              f"{rep.wall_s * 1e3 / rep.windows:.3f} ms per served window "
+              f"(host clock, ingest start to last absorb), peak device "
+              f"memory {peak:.1f} MiB above the {held / 2**20:.1f} MiB "
+              f"held before the run")
+        for t, d in enumerate(rep.tenants):
+            b = bench.get(f"tenant/{d.name}", {})
+            print(f"  {d.name}: injected {rep.injected[t]}, delivered "
+                  f"{rep.delivered[t]}, shed {rep.shed[t]}, clipped "
+                  f"{rep.clipped[t]}; p50 {d.p50_us} us, p99 {d.p99_us} us, "
+                  f"max {d.max_us:.3f} us, mean {d.mean_us:.3f} us"
+                  + (f"  [BENCH_serve.json (jax 0.4.37): {b['injected']} / "
+                     f"{b['delivered']} / {b['shed']} / {b['clipped']}, p50 "
+                     f"{b['latency_p50_us']}, p99 {b['latency_p99_us']}]"
+                     if b and label == "contended" else ""))
+    solo, cont = reports["solo"], reports["contended"]
+    if not np.array_equal(solo.injected[0], cont.injected[0]):
+        raise AssertionError("the quiet tenant's traffic differs solo vs "
+                             "contended")
+    factor = cont.tenants[0].p99_us / max(solo.tenants[0].p99_us, 1e-9)
+    q = bench.get("qos/quiet_p99", {})
+    print(f"QoS: quiet p99 contended {cont.tenants[0].p99_us} us / solo "
+          f"{solo.tenants[0].p99_us} us = factor {factor:.3f} (bound "
+          f"{QOS_P99_BOUND}; BENCH_serve.json: {q.get('factor')})")
+    if factor > QOS_P99_BOUND:
+        raise AssertionError(f"QoS violated: factor {factor:.3f} > "
+                             f"{QOS_P99_BOUND}")
+    if int(reports["contended, link_fault(0, x+)"].shed[1]) == 0:
+        raise AssertionError("faulted run: the hot tenant shed nothing")
+    eng = serve_engine("cuda", True)
+    eng.warmup()
+    print(f"[{smi}]")
+    _serve_segment_profile(eng, 4)
+    total = {k: sum(v.get(k, 0) for v in launches.values())
+             for k in ("admission", "wire_codec")}
+    return total, captured
+
+
+def n_links(counts, tables) -> int:
+    """K, the physical links of an (T, S, S) tenant replay's torus."""
+    return counts.shape[-1] * 2 * tables.seg.shape[0]
+
+
+def check_admission_tenants(captured, smi: str):
+    """Kernel F's tenant form against both tenant loops, bit for bit on
+    every TenantAdmissionOut field, on the states main path 4 captured
+    (solo, contended and faulted runs): without a mask against the healthy
+    loop, and with an all-false mask against both; with a mask against the
+    faulted loop.  Then F's time per call (CUDA graph) at the last
+    contended state against its chain bound, and both loops' times."""
+    from repro_torch.kernels import admission as adm
+    seen = dict(hold_shared=0, parked=0, deferred=0, rerouted=0, masked=0)
+    for label, w, counts, state, tables, down in captured:
+        what = f"{label} window {w}"
+        got = adm.admission_tenants(counts, state, tables, down)
+        if down is None:
+            plain = adm.admission_tenants_plain(counts, state, tables)
+            require_equal(f"{what}: tenant F vs the healthy loop",
+                          list(zip(got[:-1], plain[:-1])))
+            off = torch.zeros(n_links(counts, tables), dtype=torch.bool,
+                              device=counts.device)
+            masked = adm.admission_tenants(counts, state, tables, off)
+            for name, want in (("healthy", plain), (
+                    "faulted", adm.admission_tenants_faulted_plain(
+                        counts, state, tables, off))):
+                require_equal(f"{what}: tenant F, all-false mask, vs the "
+                              f"{name} loop", list(zip(masked[:-1],
+                                                       want[:-1])))
+        else:
+            require_equal(f"{what}: tenant F vs the faulted loop", list(zip(
+                got[:-1], adm.admission_tenants_faulted_plain(
+                    counts, state, tables, down)[:-1])))
+            seen["masked"] += 1
+        seen["hold_shared"] += int((got.hold_shared > 0).sum())
+        seen["parked"] += int(got.fresh_park.sum())
+        seen["deferred"] += int((got.stall_hop >= 0).sum())
+        seen["rerouted"] += int(got.rerouted.sum())
+    if not all(seen.values()):
+        raise AssertionError(f"tenant admission cases exercised too "
+                             f"little: {seen}")
+    # the last captured served (not drain) window of the contended run
+    served = SERVE_SEGMENTS * SERVE_CFG["seg_windows"]
+    label, w, counts, state, tables, _ = [
+        c for c in captured if c[0] == "contended" and c[1] < served][-1]
+    T, n = counts.shape[0], counts.shape[1]
+    ms, eager_ms = time_ms(lambda: adm.admission_tenants(counts, state,
+                                                         tables))
+    healthy_ms = time_loop(lambda: adm.admission_tenants_plain(
+        counts, state, tables))
+    off = torch.zeros(n_links(counts, tables), dtype=torch.bool,
+                      device=counts.device)
+    faulted_ms = time_loop(lambda: adm.admission_tenants_faulted_plain(
+        counts, state, tables, off))
+    out = adm.admission_tenants(counts, state, tables)
+    n_bytes = (sum(x.numel() * x.element_size() for x in (
+        counts, state.parked_count, state.parked_hop, state.parked_age,
+        state.parked_hold_shared, state.bank.credits, state.bank.epoch,
+        state.parked_by_link, tables.seq_alt[0], tables.len_alt[0]))
+        + sum(x.numel() * x.element_size() for x in out[:-1]))
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    eye = torch.eye(n, dtype=torch.bool, device=counts.device)
+    steps = int((state.parked_count > 0).sum()) + int(
+        ((counts > 0) & ~eye).sum())
+    t_chain = steps * SHARED_ROUND_TRIP_CYCLES / SM_CLOCK_HZ * 1e3
+    bms, by = max((t_bytes, "bytes"), (t_chain, "operations"))
+    print(f"[{smi}] admission (tenant form): {len(captured)} windows bit "
+          f"for bit against both tenant loops ({seen}); at main path 4's "
+          f"contended window {w} ({T} tenants, {n} shards, "
+          f"{state.bank.credits.shape[0]} slots): kernel {ms:.4f} ms (CUDA graph), "
+          f"eager {eager_ms:.4f} ms; the healthy loop {healthy_ms:.3f} ms "
+          f"and the faulted loop {faulted_ms:.3f} ms a call (eager, events "
+          f"around 5 calls); bound {bms:.6f} ms ({steps} dependent steps of "
+          f"{2 * T * n * n} rows x {SHARED_ROUND_TRIP_CYCLES} cycles at "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz = {t_chain:.6f} ms; {n_bytes} B = "
+          f"{t_bytes:.6f} ms)")
+    return dict(tenant_ms=ms, tenant_bound_ms=bms, tenant_bound_by=by,
+                tenant_healthy_loop_ms=healthy_ms,
+                tenant_faulted_loop_ms=faulted_ms, tenant_steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -2172,6 +2484,7 @@ def run_mamba_main_path():
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    t_start = time.perf_counter()
     from repro_torch.kernels import _build
 
     banner("device")
@@ -2253,6 +2566,19 @@ def main() -> int:
     run_fault_matrix(part3, spec3)
     del part3, captured
 
+    banner("serve slice, card vs CPU")
+    check_serve_slice_small()
+
+    banner("main path 4: multi-tenant spike serving, bench_serve's "
+           "deployment")
+    serve_launches, captured4 = run_serve_main_path(smi.splitlines()[0])
+
+    banner("kernel F's tenant form against both tenant loops")
+    f_record = next(r for r in records if r["name"] == "admission")
+    f_record.update(check_admission_tenants(captured4,
+                                            smi.splitlines()[0]))
+    del captured4
+
     banner("Mamba-2, reduced, card vs CPU")
     check_mamba_small()
 
@@ -2267,11 +2593,17 @@ def main() -> int:
                 "bucket_scatter": paths["exchange"]["bucket_scatter"],
                 "ssd_chunk": paths["serving"]["ssd_chunk"],
                 "ssd_chunk_f32": paths["f32 SSD scan"]["ssd_chunk_f32"]}
+    # F and B also run on main path 4 (its three runs)
+    for name, count in serve_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    paths["spike serving (3 runs)"] = serve_launches
     for path, counts in paths.items():
         print(f"launches on {path}: {counts}")
 
     for r in records:           # the per-row placement is on no path: 0
         r["launches"] = launches.get(r["name"], 0)
+    print(f"\nchip_smoke ran {time.perf_counter() - t_start:.0f} s, the "
+          f"build included")
     print("\nkernels: " + ", ".join(
         f"{r['name']} launches={r['launches']} parity={r['parity']}"
         for r in records))

@@ -47,6 +47,8 @@ SIGNATURES = {
                            _I, _P),
     "repro_admission": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P, _I, _I, _I, _I, _P),
+    "repro_admission_tenants": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -16,6 +16,15 @@ loops over the rows whose body is tensor operations over the route's
 hops.  With an all-false mask the faulted replay is the healthy one on
 every state a healthy run reaches (no flip, every row routable, and only
 a row parked at hop 0, which a healthy run never makes, is evicted).
+
+The tenant form (reference ``_admit_tenants`` and
+``_admit_tenants_faulted``) replays T tenants on one fabric whose bank
+holds ``(T+1) * K`` credit slots, each tenant's slice of every link and
+every link's shared pool: :func:`admission_tenants` launches the same
+source's tenant kernel, one launch per window, and runs
+:func:`admission_tenants_plain` or :func:`admission_tenants_faulted_plain`
+on CPU tensors.  The single-tenant kernel and its loops are untouched by
+it.
 """
 from __future__ import annotations
 
@@ -374,6 +383,374 @@ def admission_faulted_plain(counts, state, tables: RouteTables,
                    queue_events)
 
 
+# ---------------------------------------------------------------------------
+# The tenant form: T tenants on one fabric, credits partitioned per slot.
+# ---------------------------------------------------------------------------
+
+class TenantAdmissionOut(NamedTuple):
+    """One window's tenant-axis admission replay; (T, S, S) fields are
+    [tenant, src, dst], slot fields ``((T+1)*K,)`` (slot ``t*K + l`` is
+    tenant t's slice of link l, ``T*K + l`` link l's shared pool)."""
+
+    fresh_complete: torch.Tensor
+    fresh_park: torch.Tensor
+    resumed_complete: torch.Tensor
+    resume_age: torch.Tensor
+    stall_hop: torch.Tensor
+    park_count: torch.Tensor
+    park_hop: torch.Tensor
+    park_age: torch.Tensor
+    hold_shared: torch.Tensor       # (T, S, S) post-window shared-pool holds
+    parked_by_link: torch.Tensor    # ((T+1)*K,) post-window held units
+    links_traversed: torch.Tensor
+    spent: torch.Tensor             # ((T+1)*K,)
+    notify: torch.Tensor            # ((T+1)*K,)
+    queue_events: torch.Tensor      # (T, S, S) parked events queued ahead
+    rerouted: torch.Tensor          # (T, S, S) events delivered via detour
+    links_done: torch.Tensor        # (T, S, S) delivered-route link counts
+    stalled_by_link: torch.Tensor | None = None   # item 10 (observability)
+
+
+def _tenant_rows(n: int, T: int, epoch: torch.Tensor, device):
+    """Processing order of the T n² rows: a round robin over the combined
+    (tenant, source) index ``t * n + s``, rotated by the epoch."""
+    r_all = torch.arange(T * n * n, device=device)
+    return ((r_all // n + epoch) % (T * n)) * n + r_all % n
+
+
+def _finish_tenants(T, n, rows, flat, res, offer, run, credits,
+                    queue_events) -> TenantAdmissionOut:
+    """Merge the two phases' per-row lists into a TenantAdmissionOut."""
+    res_c, pc_a, ph_a, age_res, age_a, trav_a, hs_a, rer_a, done_a = res
+    adm_c, adm_p, stall, hp_b, trav_b, hs_b, rer_b, done_b = offer
+    fresh_park = _unrot(rows, adm_p)
+    sq = lambda x: x.reshape(T, n, n)
+    i32 = lambda xs: _unrot(rows, xs).to(torch.int32)
+    return TenantAdmissionOut(
+        fresh_complete=sq(_unrot(rows, adm_c)),
+        fresh_park=sq(fresh_park),
+        resumed_complete=sq(_unrot(rows, res_c)),
+        resume_age=sq(i32(age_res)),
+        stall_hop=sq(i32(stall)),
+        park_count=sq(torch.where(fresh_park, flat, i32(pc_a))),
+        park_hop=sq(torch.where(fresh_park, i32(hp_b), i32(ph_a))),
+        park_age=sq(torch.where(fresh_park, 1, i32(age_a)).to(torch.int32)),
+        hold_shared=sq(torch.where(fresh_park, i32(hs_b), i32(hs_a))),
+        parked_by_link=run[2].clone(),
+        links_traversed=sq(i32(trav_a) + i32(trav_b)),
+        spent=credits - run[0],
+        notify=run[1].clone(),
+        queue_events=queue_events.to(torch.int32).reshape(T, n, n),
+        rerouted=sq(i32(rer_a) + i32(rer_b)),
+        links_done=sq(i32(done_a) + i32(done_b)))
+
+
+def _split(run, slot_r, slot_s, trav, c, zero):
+    """Reserved-first draw of ``c`` at every traversed hop: (take_r,
+    take_s), read from the running credits before the row's writes."""
+    take_r = torch.where(trav, torch.minimum(c, run[0][slot_r]), zero)
+    return take_r, torch.where(trav, c - take_r, zero)
+
+
+def _tenant_operands(counts, state, T, n):
+    flat = counts.reshape(-1).to(torch.int32)
+    return (flat, state.parked_count.reshape(-1),
+            state.parked_hop.reshape(-1), state.parked_age.reshape(-1),
+            state.parked_hold_shared.reshape(-1))
+
+
+def admission_tenants_plain(counts, state,
+                            tables: RouteTables) -> TenantAdmissionOut:
+    """The healthy tenant replay, plain PyTorch (the reference's
+    ``_admit_tenants``).
+
+    ``counts`` (T, S, S) rows offered this window; ``state`` a partitioned
+    ``FabricState`` ((T, S, S) transit tables with ``parked_hold_shared``,
+    a bank and ``parked_by_link`` of ``(T+1)*K`` slots).  The single-tenant
+    replay with three twists: a link is available to a row of tenant t
+    when its slice plus the shared pool cover the count; spends and holds
+    split reserved-first over the two slots (a hold's shared part kept per
+    row, ``hold_shared``, and refunded to the slot that funded it); the
+    head-of-line block is per (tenant, egress link).  The queue snapshot
+    reads the held units of the physical links (all slots of a link).
+    """
+    T, n = counts.shape[0], counts.shape[1]
+    R = n * n
+    K = state.bank.credits.shape[0] // (T + 1)
+    seq = tables.seq_alt[0]
+    H = seq.shape[1]
+    device = counts.device
+    hop_idx = torch.arange(H, device=device)
+    idx_all, valid_all = torch.clamp(seq, min=0).long(), seq >= 0
+    flat, pc0, ph0, pa0, hs0 = _tenant_operands(counts, state, T, n)
+    rows = _tenant_rows(n, T, state.bank.epoch, device)
+    pair_all = torch.arange(T * R, device=device) % R
+
+    pbl_phys = state.parked_by_link.reshape(T + 1, K).sum(0)
+    start_hop = torch.where(pc0 > 0, ph0, 0)[:, None]
+    queue_events = torch.where(
+        valid_all[pair_all] & (hop_idx >= start_hop),
+        pbl_phys[idx_all[pair_all]], 0).sum(-1, dtype=torch.int32)
+
+    pair_p, t_p = pair_all[rows], (rows // R)[:, None]
+    idx_p, valid_p = idx_all[pair_p], valid_all[pair_p]
+    slot_r_p, slot_s_p = t_p * K + idx_p, T * K + idx_p
+    c_p, a_p, f_p, hs_p = pc0[rows], pa0[rows], flat[rows], hs0[rows]
+    h_p, len_p = ph0[rows].long(), tables.len_alt[0][pair_p].long()
+    # the old park spot: hop h - 1 of the route, in both of its slots
+    oh_p = idx_p.gather(1, torch.clamp(h_p - 1, min=0)[:, None])
+    ohs_p = torch.cat([t_p * K + oh_p, T * K + oh_p], dim=1)
+    first_p = idx_p[:, 0]
+    routed_p, bl_p = valid_p[:, 0], t_p[:, 0] * K + first_p
+    run = torch.stack([state.bank.credits,
+                       torch.zeros_like(state.bank.credits),
+                       state.parked_by_link])
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+
+    res = tuple([] for _ in range(9))
+    for i in range(T * R):                           # phase A: resume
+        c, h, hs, L = c_p[i], h_p[i], hs_p[i], len_p[i]
+        sr, ss = slot_r_p[i], slot_s_p[i]
+        active = c > 0
+        from_h = valid_p[i] & (hop_idx >= h)
+        short = from_h & (run[0][sr] + run[0][ss] < c)
+        h_new = torch.where(short, hop_idx, H).amin()
+        complete = active & (h_new >= L)
+        h_stop = torch.maximum(torch.where(complete, L, h_new), h)
+        moved = active & (h_stop > h)
+        trav = from_h & (hop_idx < h_stop) & active
+        take_r, take_s = _split(run, sr, ss, trav, c, zero)
+        at_hold = moved & ~complete & (hop_idx == h_stop - 1)
+        hold_r = torch.where(at_hold, take_r, zero)
+        hold_s = torch.where(at_hold, take_s, zero)
+        # departing the old park spot refunds its hold to the slots that
+        # funded it
+        rel_s = torch.where(moved & (h >= 1), hs, zero)
+        rel_r = torch.where(moved & (h >= 1), c, zero) - rel_s
+        rel = torch.stack([rel_r, rel_s])
+        run.index_add_(1, torch.cat([sr, ss, ohs_p[i]]), torch.stack([
+            torch.cat([-take_r, -take_s, torch.zeros_like(rel)]),
+            torch.cat([take_r - hold_r, take_s - hold_s, rel]),
+            torch.cat([hold_r, hold_s, -rel])]))
+        keep = active & ~complete
+        for out, x in zip(res, (
+                complete, torch.where(complete, zero, c),
+                torch.where(keep, h_stop, zero),
+                torch.where(complete, a_p[i], zero),
+                torch.where(keep, a_p[i] + 1, zero),
+                trav.sum(dtype=torch.int32),
+                torch.where(keep, torch.where(moved, hold_s.sum(dtype=torch.int32),
+                                                 hs), zero),
+                zero, torch.where(complete, L, zero))):
+            out.append(x)
+
+    blocked = torch.zeros(T * K, dtype=torch.int32, device=device)
+    offer = tuple([] for _ in range(8))
+    minus_one = torch.full((), -1, dtype=torch.int32, device=device)
+    for i in range(T * R):                           # phase B: offer
+        c, L = f_p[i], len_p[i]
+        sr, ss, valid = slot_r_p[i], slot_s_p[i], valid_p[i]
+        bl = bl_p[i:i + 1]
+        routed = routed_p[i] & (c > 0)
+        short = valid & (run[0][sr] + run[0][ss] < c)
+        h_block = torch.where(short, hop_idx, H).amin()
+        ok = routed & (c_p[i] <= 0) & (blocked[bl][0] == 0)
+        admit_c = ok & (h_block >= L)
+        admit_p = ok & (h_block < L) & (h_block >= 1)
+        defer = routed & ~admit_c & ~admit_p
+        h_stop = torch.where(admit_c, L, torch.where(admit_p, h_block, zero))
+        trav = valid & (hop_idx < h_stop)
+        take_r, take_s = _split(run, sr, ss, trav, c, zero)
+        at_hold = admit_p & (hop_idx == h_stop - 1)
+        hold_r = torch.where(at_hold, take_r, zero)
+        hold_s = torch.where(at_hold, take_s, zero)
+        run.index_add_(1, torch.cat([sr, ss]), torch.stack([
+            torch.cat([-take_r, -take_s]),
+            torch.cat([take_r - hold_r, take_s - hold_s]),
+            torch.cat([hold_r, hold_s])]))
+        blocked.index_add_(0, bl, defer.to(torch.int32)[None])
+        for out, x in zip(offer, (
+                admit_c, admit_p, torch.where(defer, zero, minus_one),
+                h_stop, trav.sum(dtype=torch.int32),
+                hold_s.sum(dtype=torch.int32), zero,
+                torch.where(admit_c, L, zero))):
+            out.append(x)
+    return _finish_tenants(T, n, rows, flat, res, offer, run,
+                           state.bank.credits, queue_events)
+
+
+def admission_tenants_faulted_plain(counts, state, tables: RouteTables,
+                                    link_down: torch.Tensor
+                                    ) -> TenantAdmissionOut:
+    """The tenant replay under a (K,) bool dead-link mask, plain PyTorch
+    (the reference's ``_admit_tenants_faulted``): the fault rules of
+    :func:`admission_faulted_plain` (per-pair reroute shared by every
+    tenant, eviction back to hop 0, all-or-nothing detours) with the
+    reserved-first spending and split hold refunds of
+    :func:`admission_tenants_plain`."""
+    T, n = counts.shape[0], counts.shape[1]
+    R = n * n
+    K = state.bank.credits.shape[0] // (T + 1)
+    device = counts.device
+    seq0 = tables.seq_alt[0]
+    H2 = seq0.shape[1]
+    ndim = tables.seg.shape[0]
+    hop_idx = torch.arange(H2, device=device)
+    flat, pc0, ph0, pa0, hs0 = _tenant_operands(counts, state, T, n)
+    rows = _tenant_rows(n, T, state.bank.epoch, device)
+    pair_all = torch.arange(T * R, device=device) % R
+    down = link_down.to(torch.bool)
+    gather = lambda s: down[torch.clamp(s, min=0).long()] & (s >= 0)
+
+    # per-pair reroute decision: the mask is physical, shared by tenants
+    r_pair = torch.arange(R, device=device)
+    seg_dirty = gather(tables.seg).any(-1)           # (ndim, 2, n²)
+    flip = seg_dirty[:, 0] & ~seg_dirty[:, 1]
+    routable = ~(seg_dirty[:, 0] & seg_dirty[:, 1]).any(0)
+    combo = (flip.long() << torch.arange(ndim, device=device)[:, None]).sum(0)
+    seq_eff = tables.seq_alt[combo, r_pair]          # (n², H2)
+    len_eff = tables.len_alt[combo, r_pair]
+    detour = combo != 0
+
+    # eviction set over the (T, n, n) row tables
+    seq0_rows = seq0[pair_all]
+    rem_dirty = (gather(seq0_rows) & (hop_idx >= ph0[:, None])).any(-1)
+    held_link = seq0_rows.gather(1, torch.clamp(ph0 - 1, min=0)[:, None]
+                                 .long())[:, 0]
+    held_dead = (ph0 >= 1) & down[torch.clamp(held_link, min=0).long()]
+    ev = (pc0 > 0) & ((ph0 == 0) | rem_dirty | held_dead)
+
+    # congestion snapshot over the physical links of the actual routes
+    pbl_phys = state.parked_by_link.reshape(T + 1, K).sum(0)
+    seq_q = torch.where((pc0 > 0)[:, None], seq0_rows, seq_eff[pair_all])
+    start_hop = torch.where((pc0 > 0) & ~ev, ph0, 0)[:, None]
+    queue_events = torch.where(
+        (seq_q >= 0) & (hop_idx >= start_hop),
+        pbl_phys[torch.clamp(seq_q, min=0).long()], 0).sum(
+            -1, dtype=torch.int32)
+
+    # per-row operands in processing order
+    pair_p, t_p = pair_all[rows], (rows // R)[:, None]
+    idx0_p = torch.clamp(seq0[pair_p], min=0).long()
+    valid0_p = seq0[pair_p] >= 0
+    idx2_p = torch.clamp(seq_eff[pair_p], min=0).long()
+    valid2_p = seq_eff[pair_p] >= 0
+    sr0_p, ss0_p = t_p * K + idx0_p, T * K + idx0_p
+    sr2_p, ss2_p = t_p * K + idx2_p, T * K + idx2_p
+    c_p, h_p, a_p, f_p = pc0[rows], ph0[rows].long(), pa0[rows], flat[rows]
+    hs_p = hs0[rows]
+    oh_p = idx0_p.gather(1, torch.clamp(h_p - 1, min=0)[:, None])
+    ohs_p = torch.cat([t_p * K + oh_p, T * K + oh_p], dim=1)
+    len0_p = tables.len_alt[0][pair_p].long()
+    len2_p = len_eff[pair_p].long()
+    ev_p, rt_p, det_p = ev[rows], routable[pair_p], detour[pair_p]
+    bl_p = t_p[:, 0] * K + idx2_p[:, 0]
+    run = torch.stack([state.bank.credits,
+                       torch.zeros_like(state.bank.credits),
+                       state.parked_by_link])
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+
+    res = tuple([] for _ in range(9))
+    for i in range(T * R):                           # phase A: resume
+        c, h, hs, e = c_p[i], h_p[i], hs_p[i], ev_p[i]
+        active = c > 0
+        # branch 1: undisturbed resume on the default route
+        sr, ss, L = sr0_p[i], ss0_p[i], len0_p[i]
+        from_h = valid0_p[i] & (hop_idx >= h)
+        short = from_h & (run[0][sr] + run[0][ss] < c)
+        h_new = torch.where(short, hop_idx, H2).amin()
+        act1 = active & ~e
+        complete1 = act1 & (h_new >= L)
+        h_stop1 = torch.maximum(torch.where(complete1, L, h_new), h)
+        moved1 = act1 & (h_stop1 > h)
+        trav1 = from_h & (hop_idx < h_stop1) & act1
+        take_r1, take_s1 = _split(run, sr, ss, trav1, c, zero)
+        hold1 = moved1 & ~complete1 & (hop_idx == h_stop1 - 1)
+        # branch 2: evicted retry from hop 0 on the detour route (the
+        # branches never both run, so both read the same credits)
+        sr2, ss2, L2 = sr2_p[i], ss2_p[i], len2_p[i]
+        act2 = active & e & rt_p[i]
+        short2 = valid2_p[i] & (run[0][sr2] + run[0][ss2] < c)
+        h_block = torch.where(short2, hop_idx, H2).amin()
+        complete2 = act2 & (h_block >= L2)
+        park2 = act2 & ~det_p[i] & (h_block < L2) & (h_block >= 1)
+        h_stop2 = torch.where(complete2, L2,
+                              torch.where(park2, h_block, 0))
+        trav2 = valid2_p[i] & (hop_idx < h_stop2)
+        take_r2, take_s2 = _split(run, sr2, ss2, trav2, c, zero)
+        hold2 = park2 & (hop_idx == h_stop2 - 1)
+        # leaving (or being evicted from) the old park spot refunds its
+        # hold, split as it was funded; the release may share a link with
+        # the detour: all adds
+        release = (moved1 | (active & e)) & (h >= 1)
+        rel_s = torch.where(release, hs, zero)
+        rel = torch.stack([torch.where(release, c, zero) - rel_s, rel_s])
+        hr1, hs1 = (torch.where(hold1, take_r1, zero),
+                    torch.where(hold1, take_s1, zero))
+        hr2, hs2 = (torch.where(hold2, take_r2, zero),
+                    torch.where(hold2, take_s2, zero))
+        run.index_add_(1, torch.cat([sr, ss, sr2, ss2, ohs_p[i]]),
+                       torch.stack([
+                           torch.cat([-take_r1, -take_s1, -take_r2,
+                                      -take_s2, torch.zeros_like(rel)]),
+                           torch.cat([take_r1 - hr1, take_s1 - hs1,
+                                      take_r2 - hr2, take_s2 - hs2, rel]),
+                           torch.cat([hr1, hs1, hr2, hs2, -rel])]))
+        complete = complete1 | complete2
+        keep = active & ~complete
+        h_keep = torch.where(e, torch.where(park2, h_block, 0), h_stop1)
+        hs_keep = torch.where(e, torch.where(park2, hs2.sum(dtype=torch.int32), zero),
+            torch.where(moved1, hs1.sum(dtype=torch.int32), hs))
+        for out, x in zip(res, (
+                complete, torch.where(complete, zero, c),
+                torch.where(keep, h_keep, zero),
+                torch.where(complete, a_p[i], zero),
+                torch.where(keep, a_p[i] + 1, zero),
+                trav1.sum(dtype=torch.int32) + trav2.sum(dtype=torch.int32),
+                torch.where(keep, hs_keep, zero),
+                torch.where(complete2 & det_p[i], c, zero),
+                torch.where(complete1, L, zero)
+                + torch.where(complete2, L2, zero))):
+            out.append(x)
+
+    blocked = torch.zeros(T * K, dtype=torch.int32, device=device)
+    offer = tuple([] for _ in range(8))
+    minus_one = torch.full((), -1, dtype=torch.int32, device=device)
+    for i in range(T * R):                           # phase B: offer
+        c, L, valid = f_p[i], len2_p[i], valid2_p[i]
+        sr, ss = sr2_p[i], ss2_p[i]
+        bl = bl_p[i:i + 1]
+        has_first = valid[0] & (c > 0)
+        routed = has_first & rt_p[i]
+        short = valid & (run[0][sr] + run[0][ss] < c)
+        h_block = torch.where(short, hop_idx, H2).amin()
+        ok = routed & (c_p[i] <= 0) & (blocked[bl][0] == 0)
+        admit_c = ok & (h_block >= L)
+        admit_p = ok & ~det_p[i] & (h_block < L) & (h_block >= 1)
+        defer = has_first & ~admit_c & ~admit_p
+        h_stop = torch.where(admit_c, L, torch.where(admit_p, h_block, zero))
+        trav = valid & (hop_idx < h_stop)
+        take_r, take_s = _split(run, sr, ss, trav, c, zero)
+        at_hold = admit_p & (hop_idx == h_stop - 1)
+        hold_r = torch.where(at_hold, take_r, zero)
+        hold_s = torch.where(at_hold, take_s, zero)
+        run.index_add_(1, torch.cat([sr, ss]), torch.stack([
+            torch.cat([-take_r, -take_s]),
+            torch.cat([take_r - hold_r, take_s - hold_s]),
+            torch.cat([hold_r, hold_s])]))
+        # an unroutable row never reaches its egress FIFO: no block
+        blocked.index_add_(0, bl, (defer & rt_p[i]).to(torch.int32)[None])
+        for out, x in zip(offer, (
+                admit_c, admit_p, torch.where(defer, zero, minus_one),
+                h_stop, trav.sum(dtype=torch.int32),
+                hold_s.sum(dtype=torch.int32),
+                torch.where(admit_c & det_p[i], c, zero),
+                torch.where(admit_c, L, zero))):
+            out.append(x)
+    return _finish_tenants(T, n, rows, flat, res, offer, run,
+                           state.bank.credits, queue_events)
+
+
 # rows of the kernel's int32 output block, then its bool block, in order
 _I32_FIELDS = ("resume_age", "stall_hop", "park_count", "park_hop",
                "park_age", "links_traversed", "queue_events", "rerouted",
@@ -382,10 +759,20 @@ _BOOL_FIELDS = ("fresh_complete", "fresh_park", "resumed_complete")
 _LINK_FIELDS = ("spent", "notify", "parked_by_link")
 
 
-def shared_bytes(n_rows: int, n_links: int) -> int:
-    """Shared memory of one launch: four per-link and four per-row int32
-    arrays (``csrc/admission.cu``)."""
-    return 4 * (4 * n_links + 4 * n_rows)
+_TENANT_I32_FIELDS = _I32_FIELDS + ("hold_shared",)
+
+
+def shared_bytes(n_rows: int, n_links: int, n_tenants: int = 0) -> int:
+    """Shared memory of one launch (``csrc/admission.cu``) for ``n_rows``
+    (src, dst) pairs and ``n_links`` physical links.  Single-tenant
+    (``n_tenants`` 0): four per-link and four per-row int32 arrays.  The
+    tenant form: three per-slot arrays over ``(T+1) * n_links`` slots, the
+    per-(tenant, link) block flags and four arrays over the ``T * n_rows``
+    rows."""
+    if n_tenants <= 0:
+        return 4 * (4 * n_links + 4 * n_rows)
+    T = n_tenants
+    return 4 * (3 * (T + 1) * n_links + T * n_links + 4 * T * n_rows)
 
 
 def _check(name, t, shape, dtype, contiguous):
@@ -467,3 +854,83 @@ def admission(counts, state, tables: RouteTables,
     fields.update(zip(_BOOL_FIELDS, out_bool))
     fields.update(zip(_LINK_FIELDS, out_links))
     return AdmissionOut(**fields)
+
+
+def admission_tenants(counts, state, tables: RouteTables,
+                      link_down: torch.Tensor | None = None
+                      ) -> TenantAdmissionOut:
+    """Kernel F's tenant form on CUDA tensors, one launch; on CPU tensors
+    the plain replay, healthy (:func:`admission_tenants_plain`) or under
+    the mask (:func:`admission_tenants_faulted_plain`).
+
+    ``counts`` (T, S, S) int32; ``state`` a partitioned ``FabricState``
+    ((T, S, S) transit tables with ``parked_hold_shared``, ``(T+1)*K``
+    bank slots and ``parked_by_link``); ``tables`` the transport's
+    :class:`RouteTables`; ``link_down`` None or the (K,) bool mask of the
+    physical links.  Operands of another type or shape are refused on
+    both paths.
+    """
+    operands = [counts, state.parked_count, state.parked_hop,
+                state.parked_age, state.parked_hold_shared,
+                state.bank.credits, state.bank.epoch, state.parked_by_link,
+                *tables]
+    if link_down is not None:
+        operands.append(link_down)
+    cuda = dispatch.on_cuda(*operands)
+    if counts.dim() != 3:
+        raise ValueError(f"admission_tenants: counts must be (T, S, S), "
+                         f"got {tuple(counts.shape)}")
+    T, n = counts.shape[0], counts.shape[1]
+    R = n * n
+    ndim = tables.seg.shape[0]
+    K = n * 2 * ndim
+    H2, Hs = tables.seq_alt.shape[-1], tables.seg.shape[-1]
+    for name, t, shape in (
+            ("counts", counts, (T, n, n)),
+            ("parked_count", state.parked_count, (T, n, n)),
+            ("parked_hop", state.parked_hop, (T, n, n)),
+            ("parked_age", state.parked_age, (T, n, n)),
+            ("parked_hold_shared", state.parked_hold_shared, (T, n, n)),
+            ("credits", state.bank.credits, ((T + 1) * K,)),
+            ("epoch", state.bank.epoch, ()),
+            ("parked_by_link", state.parked_by_link, ((T + 1) * K,)),
+            ("seq_alt", tables.seq_alt, (1 << ndim, R, H2)),
+            ("len_alt", tables.len_alt, (1 << ndim, R)),
+            ("seg", tables.seg, (ndim, 2, R, Hs))):
+        _check(name, t, shape, torch.int32, cuda)
+    if link_down is not None:
+        _check("link_down", link_down, (K,), torch.bool, cuda)
+    if not 1 <= ndim <= 3 or T < 1 or not 1 <= H2 <= MAX_HOPS:
+        raise ValueError(
+            f"admission_tenants: {T} tenants, {ndim} axes, routes of {H2} "
+            f"hops; the replay takes >= 1 tenant, 1..3 axes and at most "
+            f"{MAX_HOPS} hops")
+    if not cuda:
+        if link_down is None:
+            return admission_tenants_plain(counts, state, tables)
+        return admission_tenants_faulted_plain(counts, state, tables,
+                                               link_down)
+    if shared_bytes(R, K, T) > MAX_SHARED:
+        raise ValueError(f"admission_tenants: {n} shards and {T} tenants "
+                         f"need {shared_bytes(R, K, T)} bytes of shared "
+                         f"memory, the kernel has {MAX_SHARED}")
+    out_i32 = torch.empty((len(_TENANT_I32_FIELDS), T, n, n),
+                          dtype=torch.int32, device=counts.device)
+    out_bool = torch.empty((len(_BOOL_FIELDS), T, n, n), dtype=torch.bool,
+                           device=counts.device)
+    out_links = torch.empty((len(_LINK_FIELDS), (T + 1) * K),
+                            dtype=torch.int32, device=counts.device)
+    dispatch.launch(
+        "admission", "repro_admission_tenants", counts.data_ptr(),
+        state.parked_count.data_ptr(), state.parked_hop.data_ptr(),
+        state.parked_age.data_ptr(), state.parked_hold_shared.data_ptr(),
+        state.bank.credits.data_ptr(), state.parked_by_link.data_ptr(),
+        state.bank.epoch.data_ptr(), tables.seq_alt.data_ptr(),
+        tables.len_alt.data_ptr(), tables.seg.data_ptr(),
+        None if link_down is None else link_down.data_ptr(),
+        out_i32.data_ptr(), out_bool.data_ptr(), out_links.data_ptr(),
+        n, T, ndim, H2, Hs)
+    fields = dict(zip(_TENANT_I32_FIELDS, out_i32))
+    fields.update(zip(_BOOL_FIELDS, out_bool))
+    fields.update(zip(_LINK_FIELDS, out_links))
+    return TenantAdmissionOut(**fields)

@@ -9,17 +9,21 @@
   no fallback from one to the other and no switch that routes the card to
   the plain version.
 * :data:`LAUNCHES` counts kernel launches by kernel name, so a run can
-  show that its main path went through the kernels.
+  show that its main path went through the kernels;
+  :data:`ENTRY_LAUNCHES` counts the same launches by C entry point (a
+  kernel source with several, e.g. the codec's encode and decode).
 """
 from __future__ import annotations
 
 import torch
 
 LAUNCHES: dict[str, int] = {}
+ENTRY_LAUNCHES: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    ENTRY_LAUNCHES.clear()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,3 +63,4 @@ def launch(kernel: str, symbol: str, *args) -> None:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA error {err}: {msg}")
     LAUNCHES[kernel] = LAUNCHES.get(kernel, 0) + 1
+    ENTRY_LAUNCHES[symbol] = ENTRY_LAUNCHES.get(symbol, 0) + 1

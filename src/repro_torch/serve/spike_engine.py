@@ -1,0 +1,512 @@
+"""Streaming multi-tenant spike serving engine (port of
+``src/repro/serve/spike_engine.py``).
+
+A host ingestion thread fills pinned staging buffers; a device thread
+copies each filled slot to the card on a side CUDA stream and runs a
+segment of ``seg_windows`` flush windows on its own compute stream, so the
+host stages segment ``k + 1`` while the card still exchanges segment ``k``.
+
+Per flush window and tenant (every shard at once, the shard axis leading)::
+
+    ingest thread                     device thread (compute stream)
+    -------------                     ------------------------------
+    loadgen / client                  backlog-first merge -> bucket rows
+      |  fill pinned staging slot       | codec.encode_planar (kernel B)
+      v                                 v
+    staged queue (depth 2) --H2D copy-> TenantTorusTransport.exchange
+      ^      (side stream + event)      |  (kernel F's tenant form)
+      +-- free slots <-- event done     v  deferred rows -> backlog carry
+                                        codec.decode_planar (kernel B)
+                                        -> per-tenant latency digests
+
+The engine is loss-accountable end to end: every generated event is
+``delivered``, in the ``backlog`` carry, parked ``in_fabric``, or counted
+as ``shed`` (fresh arrivals beyond the one-row backlog bound).
+``stop(drain=True)`` runs zero-traffic segments until backlog and fabric
+are empty, then one final walk (an uncredited flush plus
+``drain_fabric``), after which ``injected == delivered + shed`` holds per
+tenant.  Latency is attributed on the receiver from the injection window
+each event carries in its wire word's meta lane.
+
+Differences from the reference: the shard axis is a tensor dimension (no
+mesh; ``n_shards`` and ``device`` instead), event words are int32 bit
+patterns, and a segment is a Python loop of windows (the reference scans
+them in one jit).  The flight recorder and the span tracer are ROADMAP
+queue 1, item 10.
+"""
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+import time
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.fabric import faults as fabric_faults
+from repro_torch.kernels import dispatch
+from repro_torch.serve import tenancy
+from repro_torch.wire import codec
+from repro_torch.wire import latency as wire_latency
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
+                               f"item 10: observability)")
+
+
+class EngineConfig(NamedTuple):
+    """Static engine parameters.
+
+    capacity:      C, max events per (tenant, dst) bucket row per window;
+                   also the per-row backlog bound (one deferred row)
+    link_credits:  per-link credit budget split by the tenant partition
+    notify_latency: windows before a spent credit re-arms
+    window_us:     modeled wall-clock per flush window (latency unit)
+    seg_windows:   windows per device segment
+    queue_depth:   staging slots (2 = double buffer)
+    max_drain_segments: zero-traffic segments allowed before the final
+                   uncredited walk
+    """
+
+    capacity: int = 128
+    link_credits: int = 64
+    notify_latency: int = 2
+    window_us: float = 100.0
+    seg_windows: int = 8
+    nx: int = 0
+    ny: int = 0
+    nz: int = 0
+    wire_format: str = "extoll"
+    queue_depth: int = 2
+    max_drain_segments: int = 64
+
+
+class WindowServeStats(NamedTuple):
+    """Per-window, per-shard, per-tenant serving stats: (S, T) each, the
+    latency summary's fields (S, T) and its histogram (S, T, bins)."""
+
+    offered: torch.Tensor
+    sent: torch.Tensor
+    deferred: torch.Tensor
+    parked: torch.Tensor
+    unparked: torch.Tensor
+    delivered: torch.Tensor
+    shed: torch.Tensor
+    latency: wire_latency.LatencySummary
+
+
+class EngineReport(NamedTuple):
+    """What a bounded run (or a stop) hands back."""
+
+    tenants: list                 # list[tenancy.TenantDigest]
+    injected: np.ndarray          # (T,) events staged to the device
+    delivered: np.ndarray         # (T,) events that reached their owners
+    shed: np.ndarray              # (T,) fresh events beyond backlog bound
+    clipped: np.ndarray           # (T,) generator-side over-capacity drop
+    windows: int                  # served windows (excl. drain)
+    drain_windows: int            # zero-traffic windows run to quiesce
+    wall_s: float                 # ingest start -> last absorb
+    events_per_s: float           # delivered.sum() / wall_s
+    conservation_checked: bool    # True iff drained and ledger verified
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a tree of (named) tuples."""
+    if not isinstance(tree, tuple):
+        return fn(tree)
+    items = [_tree_map(fn, x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def _tree_stack(trees):
+    """Stack a list of equal trees of named tuples leaf by leaf."""
+    if not isinstance(trees[0], tuple):
+        return torch.stack(trees)
+    return type(trees[0])(*(_tree_stack(list(x)) for x in zip(*trees)))
+
+
+class SpikeEngine:
+    """Multi-tenant streaming engine over one credit-partitioned fabric.
+
+    ``source`` provides ``next_window(window) -> WindowTraffic``
+    (``serve.loadgen.PoissonLoadGen``); tenants and QoS come from
+    ``tenancy.TenantSpec``.  :meth:`run` serves a bounded number of
+    segments, :meth:`start` / :meth:`stop` serve continuously.  The engine
+    runs on ``device`` (default CUDA; ``"cpu"`` runs the kernels' plain
+    versions).  Host copies of every served window's stats are kept in
+    :attr:`window_stats`, one stacked ``WindowServeStats`` of numpy arrays
+    (leading axis: the windows) per segment.
+    """
+
+    def __init__(self, n_shards: int, tenants: Sequence[tenancy.TenantSpec],
+                 cfg: EngineConfig, source,
+                 fault_schedule: fabric_faults.FaultSchedule | None = None,
+                 recorder=None, tracer=None, *, device=None):
+        if recorder is not None:
+            raise _not_ported("the serve engine's flight recorder")
+        if tracer is not None:
+            raise _not_ported("the serve engine's span tracer")
+        self.device = dispatch.resolve_device(device)
+        self.tenants = tuple(tenants)
+        self.cfg = cfg
+        self.source = source
+        S, T = int(n_shards), len(self.tenants)
+        if getattr(source, "n_tenants", T) != T:
+            raise ValueError(f"source generates {source.n_tenants} "
+                             f"tenants, engine serves {T}")
+        if getattr(source, "capacity", cfg.capacity) != cfg.capacity:
+            raise ValueError("source row capacity != engine capacity")
+        if getattr(source, "n_shards", S) != S:
+            raise ValueError("source n_shards != engine n_shards")
+        self.n_shards, self.n_tenants = S, T
+        self.transport = tenancy.build_fabric(
+            S, self.tenants, link_credits=cfg.link_credits,
+            notify_latency=cfg.notify_latency, nx=cfg.nx, ny=cfg.ny,
+            nz=cfg.nz, max_row_events=cfg.capacity,
+            wire_format=cfg.wire_format)
+        self.fault_schedule = None if fault_schedule is None else \
+            fabric_faults.FaultSchedule(fault_schedule.link_down.to(
+                self.device))
+        self.ledger = tenancy.TenantLedger([t.name for t in self.tenants])
+        self._hops_rx = self.transport.route_hops(
+            device=self.device).T[:, None, :]          # (dst, 1, src)
+        self._pos = torch.arange(cfg.capacity, device=self.device)
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._reset_runtime()
+
+    # -- device functions --------------------------------------------------
+    def _on_stream(self):
+        """The engine's compute stream for the calling thread (the kernel
+        wrappers launch on the current stream)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _attribute(self, out, win_abs: int):
+        """Receiver-side per-event latency of one window's arrivals: the
+        whole windows waited since injection (the meta lane: deferral,
+        backlog dwell and park windows) + per-row wire time + queueing
+        dwell behind parked traffic on the route; under faults a row is
+        charged the links it actually crossed, detours included.
+        -> ((S, T) latency summary, (S, T) delivered events)."""
+        S, T = self.n_shards, self.n_tenants
+        _, r_meta = codec.decode_planar(out.recv_payload)  # (dst, T, src, C)
+        live = self._pos < out.recv_counts[..., None]
+        wait = (win_abs - r_meta).to(torch.float32) * self.cfg.window_us
+        hops_row = (self._hops_rx if out.links_used is None
+                    else out.links_used.permute(2, 0, 1))  # (dst, T, src)
+        row_us = (wire_latency.hop_latency_us(
+            self.transport.wire_fmt, out.recv_counts, hops_row)
+            + out.queue_us.permute(2, 0, 1))
+        lat = wait + row_us[..., None]
+        summary = wire_latency.summarize_latency(
+            lat.reshape(S, T, -1), live.reshape(S, T, -1).to(torch.int32),
+            batch_dims=2)
+        return summary, out.recv_counts.sum(-1, dtype=torch.int32)
+
+    def _window(self, carry, fw_w, fc_w, win_abs: int):
+        """One flush window: FIFO merge (the backlog row first, fresh
+        arrivals behind it, overflow beyond C shed), encode, exchange,
+        attribution -> (carry, WindowServeStats)."""
+        state, bw, bm, bc = carry
+        C, pos = self.cfg.capacity, self._pos
+        b = bc[..., None]
+        sel_b = pos < b
+        fw_g = torch.gather(fw_w, -1, torch.clamp(pos - b, 0, C - 1))
+        take_f = ~sel_b & (pos - b < fc_w[..., None])
+        words = torch.where(sel_b, bw, torch.where(take_f, fw_g, 0))
+        stamp = torch.full((), win_abs, dtype=torch.int32,
+                           device=self.device)
+        meta = torch.where(sel_b, bm, torch.where(take_f, stamp, 0))
+        cnt = torch.clamp(bc + fc_w, max=C)
+        shed = bc + fc_w - cnt
+        payload = codec.encode_planar(words.contiguous(), meta.contiguous())
+        if self.fault_schedule is not None:
+            state = state._replace(link_down=fabric_faults.mask_at(
+                self.fault_schedule, win_abs))
+        out = self.transport.exchange(state, payload, cnt)
+        keep = ~out.sent_mask
+        carry = (out.state, torch.where(keep[..., None], words, 0),
+                 torch.where(keep[..., None], meta, 0),
+                 torch.where(keep, cnt, 0))
+        summary, delivered = self._attribute(out, win_abs)
+        st = out.stats
+        return carry, WindowServeStats(
+            offered=st.offered_events, sent=st.sent_events,
+            deferred=st.deferred_events, parked=st.parked_events,
+            unparked=st.unparked_events, delivered=delivered,
+            shed=shed.sum(-1, dtype=torch.int32), latency=summary)
+
+    def _segment(self, carry, fw, fc_, win0: int):
+        """``seg_windows`` windows from ``fw`` (nw, S, T, S, C) and ``fc_``
+        (nw, S, T, S) -> (carry, (stacked stats on the host, an event
+        recorded behind their copy))."""
+        out = []
+        for i in range(self.cfg.seg_windows):
+            carry, ws = self._window(carry, fw[i], fc_[i], win0 + i)
+            out.append(ws)
+        return carry, self._to_host(_tree_stack(out))
+
+    def _to_host(self, tree):
+        """Queue the copy of ``tree``'s tensors to the host behind the work
+        that makes them -> (host tree, event or None); read it only after
+        :meth:`_ready`."""
+        host = _tree_map(lambda x: x.to("cpu", non_blocking=True), tree)
+        if self._stream is None:
+            return host, None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream())
+        return host, event
+
+    @staticmethod
+    def _ready(item):
+        host, event = item
+        if event is not None:
+            event.synchronize()
+        return host
+
+    def _drain_walk(self, carry, win0: int):
+        """Final walk: one uncredited flush of the backlog plus the
+        transit-buffer drain (``drain_fabric``), so nothing the fabric
+        still holds is lost across engine stop."""
+        state, bw, bm, bc = carry
+        payload = codec.encode_planar(bw.contiguous(), bm.contiguous())
+        out1 = self.transport.exchange(state, payload, bc,
+                                       enforce_credits=False)
+        s1, d1 = self._attribute(out1, win0)
+        out2 = self.transport.drain_fabric(out1.state)
+        s2, d2 = self._attribute(out2, win0)
+        return out2.state, self._to_host((s1, d1, s2, d2))
+
+    # -- runtime state -----------------------------------------------------
+    def _reset_runtime(self):
+        S, T, C = self.n_shards, self.n_tenants, self.cfg.capacity
+        nw, depth = self.cfg.seg_windows, self.cfg.queue_depth
+        z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                       device=self.device)
+        self._carry = (self.transport.init_state(2 * C, device=self.device),
+                       z(S, T, S, C), z(S, T, S, C), z(S, T, S))
+        # the staging slots: filled in place by the ingest thread, pinned
+        # for the card so a copy can run on the side stream
+        pin = self.device.type == "cuda"
+        self._words_buf = torch.zeros((depth, nw, S, T, S, C),
+                                      dtype=torch.int32, pin_memory=pin)
+        self._counts_buf = torch.zeros((depth, nw, S, T, S),
+                                       dtype=torch.int32, pin_memory=pin)
+        self._zero_fw = z(nw, S, T, S, C)
+        self._zero_fc = z(nw, S, T, S)
+        self._free_q: queue.Queue = queue.Queue()
+        for i in range(depth):
+            self._free_q.put(i)
+        self._staged_q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop_evt = threading.Event()
+        self._ingest_t = self._device_t = None
+        self._device_error = None
+        self._max_segments = None
+        self._win = 0
+        self._windows = 0
+        self._drain_windows = 0
+        self._t0 = self._t1 = 0.0
+        self.window_stats: list[WindowServeStats] = []
+
+    # -- host threads ------------------------------------------------------
+    def _fill_segment(self, slot: int, seg: int):
+        nw = self.cfg.seg_windows
+        wbuf = self._words_buf[slot].numpy().view(np.uint32)
+        cbuf = self._counts_buf[slot].numpy()
+        inj = np.zeros((self.n_tenants,), np.int64)
+        clip = np.zeros((self.n_tenants,), np.int64)
+        for i in range(nw):
+            tr = self.source.next_window(seg * nw + i)
+            # shard s offers rows (tenant, dst) = traffic[:, s, :]
+            cbuf[i] = tr.counts.transpose(1, 0, 2)
+            wbuf[i] = tr.words.transpose(1, 0, 2, 3)
+            inj += tr.counts.astype(np.int64).sum((1, 2))
+            clip += tr.clipped
+        return inj, clip
+
+    def _ingest_loop(self):
+        seg = 0
+        try:
+            while not self._stop_evt.is_set():
+                if (self._max_segments is not None
+                        and seg >= self._max_segments):
+                    break
+                try:
+                    slot = self._free_q.get(timeout=0.05)
+                except queue.Empty:
+                    continue
+                inj, clip = self._fill_segment(slot, seg)
+                self._staged_q.put((slot, inj, clip))
+                seg += 1
+        finally:
+            self._staged_q.put(None)
+
+    def _stage(self, slot: int):
+        """The slot's words and counts on the device -> (fw, fc_, event).
+        On the card the copy runs on the side stream and the compute
+        stream waits for it; the slot may be refilled only once the event
+        recorded behind the copy has completed."""
+        if self._copy_stream is None:
+            return (self._words_buf[slot].clone(),
+                    self._counts_buf[slot].clone(), None)
+        with torch.cuda.stream(self._copy_stream):
+            fw = self._words_buf[slot].to(self.device, non_blocking=True)
+            fc_ = self._counts_buf[slot].to(self.device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+        self._stream.wait_event(copied)
+        fw.record_stream(self._stream)
+        fc_.record_stream(self._stream)
+        return fw, fc_, copied
+
+    def _device_loop(self):
+        prev = None
+        try:
+            with self._on_stream():
+                while True:
+                    item = self._staged_q.get()
+                    if item is None:
+                        break
+                    slot, inj, clip = item
+                    fw, fc_, copied = self._stage(slot)
+                    win0 = self._win
+                    self._carry, ws = self._segment(self._carry, fw, fc_,
+                                                    win0)
+                    if copied is not None:
+                        copied.synchronize()
+                    self._free_q.put(slot)    # the copy is done: reusable
+                    self._win += self.cfg.seg_windows
+                    self._windows += self.cfg.seg_windows
+                    self.ledger.add_injected(inj, clip)
+                    if prev is not None:      # absorb k-1 while k runs
+                        self._absorb(prev)
+                    prev = ws
+                if prev is not None:
+                    self._absorb(prev)
+        except BaseException as exc:         # re-raised by stop()
+            self._device_error = exc
+            self._stop_evt.set()
+            while True:                       # unblock the ingest thread
+                try:
+                    self._staged_q.get_nowait()
+                except queue.Empty:
+                    break
+        self._t1 = time.perf_counter()
+
+    def _absorb(self, item):
+        ws = _tree_map(lambda x: x.numpy(), self._ready(item))
+        self.window_stats.append(ws)
+        self.ledger.add_windows(ws.delivered, ws.shed, ws.latency.hist,
+                                ws.latency.max_us, ws.latency.mean_us)
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self, max_segments: int | None = None):
+        """Spawn the ingestion and device threads (continuous serving when
+        ``max_segments`` is None)."""
+        if self._ingest_t is not None:
+            raise RuntimeError("engine already started")
+        self._max_segments = max_segments
+        self._t0 = time.perf_counter()
+        self._ingest_t = threading.Thread(target=self._ingest_loop,
+                                          name="spike-ingest", daemon=True)
+        self._device_t = threading.Thread(target=self._device_loop,
+                                          name="spike-device", daemon=True)
+        self._ingest_t.start()
+        self._device_t.start()
+
+    def warmup(self) -> None:
+        """A zero-traffic segment and drain walk on the current state,
+        results discarded (engine state is not changed): builds the kernel
+        library and warms the allocator, so a timed run excludes them."""
+        with self._on_stream():
+            _, ws = self._segment(self._carry, self._zero_fw, self._zero_fc,
+                                  0)
+            self._ready(ws)
+            _, walk = self._drain_walk(self._carry, 0)
+            self._ready(walk)
+
+    def backlog_events(self) -> int:
+        with self._on_stream():
+            return int(self._carry[3].sum())
+
+    def in_fabric_events(self) -> int:
+        with self._on_stream():
+            return int(self._carry[0].parked_count.sum())
+
+    def recorder_rows(self, shard: int | None = None) -> list[dict]:
+        raise _not_ported("the serve engine's flight recorder")
+
+    def _drain(self):
+        """Quiesce: zero-traffic segments until backlog and fabric are
+        empty (bounded), then the final uncredited walk."""
+        nw = self.cfg.seg_windows
+        with self._on_stream():
+            for _ in range(self.cfg.max_drain_segments):
+                if (self.backlog_events() == 0
+                        and self.in_fabric_events() == 0):
+                    break
+                self._carry, ws = self._segment(self._carry, self._zero_fw,
+                                                self._zero_fc, self._win)
+                self._win += nw
+                self._drain_windows += nw
+                self._absorb(ws)
+            state, walk = self._drain_walk(self._carry, self._win)
+            s1, d1, s2, d2 = self._ready(walk)
+            zero = np.zeros(tuple(d1.shape), np.int64)
+            for s, d in ((s1, d1), (s2, d2)):
+                self.ledger.add_windows(d.numpy(), zero, s.hist.numpy(),
+                                        s.max_us.numpy(), s.mean_us.numpy())
+            S, T, C = self.n_shards, self.n_tenants, self.cfg.capacity
+            z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                           device=self.device)
+            self._carry = (state, z(S, T, S, C), z(S, T, S, C), z(S, T, S))
+            if self._stream is not None:
+                self._stream.synchronize()
+
+    def stop(self, drain: bool = True, timeout: float = 120.0
+             ) -> EngineReport:
+        """Graceful shutdown: stop ingestion, finish staged segments,
+        drain the fabric, verify per-tenant conservation, report."""
+        if self._ingest_t is None:
+            raise RuntimeError("engine not started")
+        self._stop_evt.set()
+        self._ingest_t.join(timeout)
+        self._device_t.join(timeout)
+        if self._ingest_t.is_alive() or self._device_t.is_alive():
+            raise RuntimeError("engine threads failed to stop in time "
+                               "(ingest alive=%s device alive=%s)" % (
+                                   self._ingest_t.is_alive(),
+                                   self._device_t.is_alive()))
+        self._ingest_t = self._device_t = None
+        if self._device_error is not None:
+            raise RuntimeError("the engine's device thread failed") \
+                from self._device_error
+        if drain:
+            self._drain()
+            self.ledger.check_conservation()
+        wall = max(self._t1 - self._t0, 1e-9)
+        return EngineReport(
+            tenants=self.ledger.digests(),
+            injected=self.ledger.injected.copy(),
+            delivered=self.ledger.delivered.copy(),
+            shed=self.ledger.shed.copy(),
+            clipped=self.ledger.clipped.copy(),
+            windows=self._windows,
+            drain_windows=self._drain_windows,
+            wall_s=wall,
+            events_per_s=float(self.ledger.delivered.sum()) / wall,
+            conservation_checked=bool(drain),
+        )
+
+    def run(self, n_segments: int, drain: bool = True,
+            timeout: float = 300.0) -> EngineReport:
+        """Bounded serving run: ``n_segments`` segments, then stop."""
+        self.start(max_segments=n_segments)
+        self._device_t.join(timeout)
+        return self.stop(drain=drain, timeout=timeout)

@@ -38,9 +38,14 @@ died, and admits a detoured row all or nothing (the same kernel, the
 faulted plain loop on the CPU); each ring phase flips the same rows, both
 directions run ``n - 1`` hops and absorption adds.  A mask needs credits.
 
-Not ported here: the multi-tenant transport (ROADMAP queue 1, item 9) and
-per-link stall attribution for the flight recorder (``_stall_attr``; item
-10).
+:class:`TenantTorusTransport` multiplexes T tenants on the same fabric
+with per-tenant credit partitions (``core.flow_control.CreditPartition``):
+its rows carry a tenant axis, its admission is kernel F's tenant form, and
+each bundle of the rotation carries T count columns, one frame train per
+tenant.
+
+Not ported here: per-link stall attribution for the flight recorder
+(``_stall_attr``; ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -245,20 +250,25 @@ class TorusTransport(base.Transport):
         return perm, tuple(int(i) for i in np.argsort(perm))
 
     def _to_phase(self, buf: torch.Tensor, a: int) -> torch.Tensor:
-        """(S, S) [holder, row] -> (S, n_a, B) bundles by ring coordinate."""
+        """(S, S, *E) [holder, row, ...] -> (S, n_a, B, *E) bundles by ring
+        coordinate (``E``: the tenant transport's count columns)."""
         perm, _ = self._phase_perm(a)
-        t = buf.reshape(buf.shape[0], *reversed(self.dims))
-        return t.permute(0, *(1 + p for p in perm)).reshape(
-            buf.shape[0], self.dims[a], -1)
+        extra = tuple(buf.shape[2:])
+        tail = range(1 + self.ndim, 1 + self.ndim + len(extra))
+        t = buf.reshape(buf.shape[0], *reversed(self.dims), *extra)
+        return t.permute(0, *(1 + p for p in perm), *tail).reshape(
+            buf.shape[0], self.dims[a], -1, *extra)
 
     def _from_phase(self, recv: torch.Tensor, a: int) -> torch.Tensor:
         """Inverse layout of :meth:`_to_phase`."""
         _, inv = self._phase_perm(a)
+        extra = tuple(recv.shape[3:])
+        tail = range(1 + self.ndim, 1 + self.ndim + len(extra))
         other = [d for i, d in enumerate(reversed(self.dims))
                  if i != self.ndim - 1 - a]
-        t = recv.reshape(recv.shape[0], self.dims[a], *other)
-        return t.permute(0, *(1 + p for p in inv)).reshape(
-            recv.shape[0], self.n_shards)
+        t = recv.reshape(recv.shape[0], self.dims[a], *other, *extra)
+        return t.permute(0, *(1 + p for p in inv), *tail).reshape(
+            recv.shape[0], self.n_shards, *extra)
 
     def _neighbour(self, v: torch.Tensor, a: int, step: int) -> torch.Tensor:
         """Every holder passes ``v`` one step along its axis-``a`` ring
@@ -281,8 +291,9 @@ class TorusTransport(base.Transport):
 
     def _ring_phase(self, bundles: torch.Tensor, a: int, acc: dict,
                     down: torch.Tensor | None = None):
-        """Rotate (S, n, B) bundle counts (by target ring coordinate) to
-        their owners -> (S, n, B) by source ring coordinate; ``acc``
+        """Rotate (S, n, B, *E) bundle counts (by target ring coordinate)
+        to their owners -> the same shape by source ring coordinate; every
+        count (of every trailing column) is one frame train.  ``acc``
         gathers each holder's LinkStats terms: wire bytes of every hop
         (legacy packet model and frame-exact), hops, and the peak
         store-and-forward occupancy after each absorption.
@@ -321,9 +332,10 @@ class TorusTransport(base.Transport):
         recv = torch.zeros_like(bundles)
         recv[ar, my_c] = bundles[ar, my_c]
         flat = lambda v: v.reshape(v.shape[0], -1)
+        sel = lambda m: m.reshape(m.shape + (1,) * (bundles.dim() - 2))
         for step, v, n_hops in (
-                (1, torch.where(plus[..., None], bundles, zero), hops_p),
-                (-1, torch.where(minus[..., None], bundles, zero), hops_m)):
+                (1, torch.where(sel(plus), bundles, zero), hops_p),
+                (-1, torch.where(sel(minus), bundles, zero), hops_m)):
             for h in range(1, n_hops + 1):
                 acc["bytes"] = (acc["bytes"]
                                 + aggregator.window_cost(flat(v)).bytes)
@@ -342,8 +354,9 @@ class TorusTransport(base.Transport):
         return recv
 
     def _rotate(self, cnt: torch.Tensor, down: torch.Tensor | None = None):
-        """All dimension-ordered phases over the (S, S) [src, dst] counts
-        -> (rotation statistics, (S, S) [dst, src] delivered counts)."""
+        """All dimension-ordered phases over the (S, S, *E) [src, dst, ...]
+        counts -> (rotation statistics, (S, S, *E) [dst, src, ...]
+        delivered counts)."""
         z = torch.zeros((self.n_shards,), dtype=torch.int32,
                         device=cnt.device)
         acc = {"bytes": z, "owire": z, "hops": 0, "in_flight": z,
@@ -620,9 +633,321 @@ class Torus3DTransport(TorusTransport):
         self.nx, self.ny, self.nz = nx, ny, nz
 
 
-class TenantTorusTransport(TorusTransport):
-    """Multi-tenant torus with per-tenant credit partitions."""
+# ---------------------------------------------------------------------------
+# Multi-tenant torus: T concurrent experiments on one fabric with per-tenant
+# QoS credit partitions (the serving substrate of ``serve.spike_engine``).
+# ---------------------------------------------------------------------------
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("the multi-tenant torus transport", 9,
-                          "the multi-tenant serve engine")
+class TenantTorusTransport(TorusTransport):
+    """Torus exchange multiplexing T tenants with partitioned credits.
+
+    The fabric, routes and ring phases of :class:`TorusTransport`, with
+    every physical link's budget split by a ``CreditPartition`` into one
+    guaranteed slice per tenant plus a shared best-effort pool: a bank of
+    ``(T+1) * K`` slots (slot ``t*K + l`` tenant t's slice of link l,
+    ``T*K + l`` link l's pool) that ``credit_tick`` advances unchanged.
+
+    Admission (kernel F's tenant form, ``kernels.admission.
+    admission_tenants``): a row of tenant t spends reserved-first
+    (``min(count, slice)`` from its slice, the rest from the pool) and
+    crosses a link when slice + pool cover it; rows go in a round robin
+    over (tenant, source) rotated by the epoch; a deferred row blocks only
+    its own tenant's later rows on that egress link; a held credit
+    remembers its split (``FabricState.parked_hold_shared``) and refunds
+    each slot what it took, so ``credits + pending + parked_by_link ==
+    slot limit`` holds for every slot.
+
+    Shapes: ``payload`` (S, T, S, W) and ``counts`` (S, T, S), ``[s, t,
+    d]`` the row shard s offers to shard d for tenant t (the reference's
+    per-shard ``(T, n, W)`` with the shard axis leading).  The result's
+    ``recv_payload[d, t, s]`` is the row shard d received from shard s,
+    per-shard statistics are (S, T); the global tables (transit buffers,
+    ``queue_us``, ``park_wait_us``, ``links_used``) are (T, S, S) [tenant,
+    src, dst].  Fabric-wide statistics with no per-tenant decomposition
+    (hops, forwarded bytes, in-flight peaks; bytes on the wire of an
+    uncredited window) go to tenant 0, so sums over tenants stay physical.
+    On the wire each tenant's sub-row of a bundle is its own frame train.
+    """
+
+    name = "torus_tenant"
+
+    def __init__(self, n_shards: int, dims: tuple[int, ...], *,
+                 partition: fc.CreditPartition, notify_latency: int = 2,
+                 max_row_events: int = 0,
+                 wire_format: str | wire_framing.WireFormat = "extoll",
+                 stall_attribution: bool = False):
+        if partition.limit <= 0:
+            raise ValueError("tenant partitioning needs link_credits > 0 "
+                             "(an unthrottled fabric has nothing to split)")
+        if max_row_events > 0:
+            for t, r in enumerate(partition.reserve):
+                if r + partition.shared < max_row_events:
+                    raise ValueError(
+                        f"tenant {t}: reserve ({r}) + shared "
+                        f"({partition.shared}) < largest bucket row "
+                        f"({max_row_events}): its biggest row could never "
+                        f"be admitted and would head-of-line-block forever")
+        super().__init__(n_shards, dims, link_credits=partition.limit,
+                         notify_latency=notify_latency,
+                         max_row_events=max_row_events,
+                         wire_format=wire_format,
+                         stall_attribution=stall_attribution)
+        self.partition = partition
+        self.n_tenants = partition.n_tenants
+
+    # -- flow-control state ------------------------------------------------
+    def init_state(self, payload_width: int = 0, *,
+                   device=None) -> base.LinkState:
+        """Partitioned bank + (T, S, S) transit tables; ``parked_payload``
+        is (S, T, S, W), shard s's parked rows."""
+        T, n = self.n_tenants, self.n_shards
+        K = n * self.n_links
+        bank = fc.init_partitioned_credits(self.partition, K,
+                                           self.notify_latency,
+                                           device=device)
+        z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
+                                       device=bank.credits.device)
+        return base.FabricState(
+            bank=bank, parked_count=z(T, n, n), parked_hop=z(T, n, n),
+            parked_age=z(T, n, n), parked_by_link=z((T + 1) * K),
+            parked_payload=z(n, T, n, payload_width),
+            parked_hold_shared=z(T, n, n))
+
+    # -- tenant-aware canonical admission ----------------------------------
+    def _admit_tenants(self, state: base.FabricState,
+                       counts_all: torch.Tensor,
+                       link_down: torch.Tensor | None = None
+                       ) -> admission.TenantAdmissionOut:
+        """The replay over the T n² rows of ``counts_all`` (T, S, S): kernel
+        F's tenant form on the card; on the CPU
+        ``admission.admission_tenants_plain``, or under a (K,) dead-link
+        mask ``admission.admission_tenants_faulted_plain``."""
+        return admission.admission_tenants(
+            counts_all.to(torch.int32).contiguous(), state,
+            self._dev(counts_all.device)["routes"], link_down)
+
+    def _by_hop(self, hop: torch.Tensor, weight: torch.Tensor):
+        """(S, T, S) weights -> (S, T, max_hops) hop histograms."""
+        H = self.max_hops
+        return torch.zeros(hop.shape[:-1] + (H,), dtype=torch.int32,
+                           device=hop.device).scatter_add_(
+            -1, torch.clamp(hop, 0, H - 1).long(), weight.to(torch.int32))
+
+    def _fabric_level(self, acc: dict):
+        """Fabric-wide (non-decomposable) stats, (S,) per holder, put on
+        tenant 0 so sums over tenants stay physical -> (S, T) each and
+        (S, T, ndim)."""
+        n, T = self.n_shards, self.n_tenants
+        device = acc["bytes"].device
+
+        def on0(v):
+            out = torch.zeros((n, T) + v.shape[1:], dtype=torch.int32,
+                              device=device)
+            out[:, 0] = v
+            return out
+
+        hops = torch.full((n,), acc["hops"], dtype=torch.int32,
+                          device=device)
+        return (on0(hops), on0(acc["bytes"]), on0(acc["in_flight"]),
+                on0(torch.stack(acc["in_flight_phase"], -1)))
+
+    def _ship(self, row_payload: torch.Tensor, cnt: torch.Tensor,
+              down: torch.Tensor | None = None):
+        """Rotate the (S, T, S) [src, tenant, dst] counts with one count
+        column per tenant and deliver the rows -> (acc, recv_payload
+        (S, T, S, W), recv_counts (S, T, S), delivered (S, T))."""
+        acc, rot = self._rotate(cnt.permute(0, 2, 1), down)
+        recv = base.pack_payload(row_payload, cnt).permute(2, 1, 0, 3)
+        recv_payload, recv_counts = base.unpack_payload(recv.contiguous())
+        return acc, recv_payload, recv_counts, rot.sum(1, dtype=torch.int32)
+
+    # -- the full multi-tenant window --------------------------------------
+    def exchange(self, state: base.LinkState, payload: torch.Tensor,
+                 counts: torch.Tensor, *,
+                 enforce_credits: bool = True) -> base.TransportOut:
+        """Ship one window for every tenant: ``payload`` (S, T, S, W),
+        ``counts`` (S, T, S); see the class docstring for the result."""
+        T, n, H = self.n_tenants, self.n_shards, self.max_hops
+        device = payload.device
+        counts = counts.to(torch.int32)
+        if tuple(payload.shape[:3]) != (n, T, n) or tuple(
+                counts.shape) != (n, T, n):
+            raise ValueError(
+                f"tenant transport wants payload (S={n}, T={T}, S, W) and "
+                f"counts (S, T, S); got {tuple(payload.shape)} / "
+                f"{tuple(counts.shape)}")
+        is_local = self._dev(device)["eye"][:, None, :]      # (S, 1, S)
+        zero_w = torch.zeros((), dtype=payload.dtype, device=device)
+        zero_q = torch.zeros((T, n, n), dtype=torch.float32, device=device)
+        down = state.link_down
+        if down is not None and not enforce_credits:
+            raise ValueError("fault injection (FabricState.link_down) "
+                             "requires credit flow control; "
+                             "enforce_credits=False cannot reroute")
+        # (T, S, S) [tenant, src, dst] -> each source's (S, T, S) rows
+        mine = lambda x: x.transpose(0, 1).contiguous()
+        if enforce_credits:
+            if state.parked_payload.shape != payload.shape:
+                raise ValueError(
+                    f"FabricState payload buffer "
+                    f"{tuple(state.parked_payload.shape)} != offered "
+                    f"payload {tuple(payload.shape)}: initialize with "
+                    f"init_state(payload_width=W)")
+            # the reference all-gathers the (T, n) counts of every shard;
+            # on one card that is a transpose of the stacked counts
+            adm = self._admit_tenants(state, mine(counts), down)
+            fresh_c, fresh_p = mine(adm.fresh_complete), mine(adm.fresh_park)
+            resumed, stall_hop = mine(adm.resumed_complete), mine(
+                adm.stall_hop)
+            pc0 = mine(state.parked_count)
+            ship_fresh = fresh_c | (is_local & (counts > 0))
+            cnt_in = (torch.where(ship_fresh, counts, 0)
+                      + torch.where(resumed, pc0, 0))
+            row_payload = torch.where(
+                resumed[..., None], state.parked_payload,
+                torch.where(ship_fresh[..., None], payload, zero_w))
+            bank = fc.credit_tick(state.bank, adm.spent, notify=adm.notify)
+            state = base.FabricState(
+                bank=bank,
+                parked_count=adm.park_count,
+                parked_hop=adm.park_hop,
+                parked_age=adm.park_age,
+                parked_by_link=adm.parked_by_link,
+                parked_payload=torch.where(fresh_p[..., None], payload,
+                                           state.parked_payload),
+                parked_hold_shared=adm.hold_shared)
+            sent_mask = fresh_c | fresh_p | is_local | (counts == 0)
+            sent_now = fresh_c | is_local | (counts == 0)
+            queue_us = wire_latency.queueing_latency_us(
+                self.wire_fmt, adm.queue_events)
+            park_wait_us = wire_latency.queueing_latency_us(
+                self.wire_fmt, adm.resume_age * self.link_credits)
+        else:
+            fresh_p = resumed = torch.zeros((n, T, n), dtype=torch.bool,
+                                            device=device)
+            pc0 = torch.zeros((n, T, n), dtype=torch.int32, device=device)
+            stall_hop = torch.full((n, T, n), -1, dtype=torch.int32,
+                                   device=device)
+            cnt_in, row_payload = counts, payload
+            state = state._replace(bank=fc.credit_tick(
+                state.bank, torch.zeros_like(state.bank.credits)),
+                link_down=None)
+            sent_mask = sent_now = torch.ones((n, T, n), dtype=torch.bool,
+                                              device=device)
+            queue_us = park_wait_us = zero_q
+
+        acc, recv_payload, recv_counts, delivered = self._ship(
+            row_payload, cnt_in, down)
+        stalled_by_hop = self._by_hop(
+            stall_hop, torch.where(stall_hop >= 0, counts, 0))
+        offered = counts.sum(-1, dtype=torch.int32)
+        zt = torch.zeros((n, T), dtype=torch.int32, device=device)
+        unparked_now = torch.where(resumed, pc0, 0)
+        if enforce_credits:
+            sent = torch.where(sent_now, counts, 0).sum(-1, dtype=torch.int32)
+            parked = torch.where(fresh_p, counts, 0).sum(-1,
+                                                         dtype=torch.int32)
+            unparked = unparked_now.sum(-1, dtype=torch.int32)
+            pk_cnt = mine(state.parked_count)
+            parked_by_hop = self._by_hop(mine(state.parked_hop), pk_cnt)
+            c_row = torch.where(resumed, pc0, counts)
+            owire = (wire_framing.frame_bytes(self.wire_fmt, c_row)
+                     * mine(adm.links_traversed)).sum(-1, dtype=torch.int32)
+            dwell = torch.where(fresh_c | resumed,
+                                mine(queue_us + park_wait_us), 0.0).sum(-1)
+            in_fabric = pk_cnt.sum(-1, dtype=torch.int32)
+            rerouted = mine(adm.rerouted).sum(-1, dtype=torch.int32)
+        else:
+            sent = cnt_in.sum(-1, dtype=torch.int32)
+            parked = unparked = rerouted = zt
+            parked_by_hop = torch.zeros((n, T, H), dtype=torch.int32,
+                                        device=device)
+            owire = zt.clone()
+            owire[:, 0] = acc["owire"]
+            dwell = torch.zeros((n, T), dtype=torch.float32, device=device)
+            in_fabric = mine(state.parked_count).sum(-1, dtype=torch.int32)
+        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(acc)
+        stats = base.LinkStats(
+            offered_events=offered,
+            sent_events=sent,
+            deferred_events=offered - sent - parked,
+            delivered_events=delivered,
+            credit_stalls=(stall_hop >= 0).sum(-1, dtype=torch.int32),
+            hops=hops_f,
+            forwarded_bytes=bytes_f,
+            bytes_on_wire=owire,
+            max_in_flight=inflight_f,
+            stalled_by_hop=stalled_by_hop,
+            max_in_flight_by_phase=inflight_ph,
+            parked_events=parked,
+            unparked_events=unparked,
+            in_fabric_events=in_fabric,
+            parked_by_hop=parked_by_hop,
+            queue_dwell_us=dwell.to(torch.float32),
+            rerouted=rerouted,
+        )
+        return base.TransportOut(
+            state=state,
+            recv_payload=recv_payload,
+            recv_counts=recv_counts,
+            sent_mask=sent_mask,
+            stats=stats,
+            sent_now=sent_now,
+            queue_us=queue_us,
+            unparked_now=unparked_now,
+            park_wait_us=park_wait_us,
+            links_used=adm.links_done if down is not None else None,
+        )
+
+    # -- end-of-run fabric walk --------------------------------------------
+    def drain_fabric(self, state: base.LinkState,
+                     payload_width: int | None = None) -> base.TransportOut:
+        """Every parked row of every tenant resumes from its blocked hop
+        and completes, credits ignored; every held credit (reserved and
+        shared) releases into its slot's delay line, so per-slot
+        ``credits + pending == slot limit`` again and the returned tables
+        are empty."""
+        T, n, H = self.n_tenants, self.n_shards, self.max_hops
+        device = state.parked_count.device
+        mine = lambda x: x.transpose(0, 1).contiguous()
+        pc, ph = mine(state.parked_count), mine(state.parked_hop)
+        row_payload = torch.where((pc > 0)[..., None], state.parked_payload,
+                                  torch.zeros((), dtype=torch.int32,
+                                              device=device))
+        acc, recv_payload, recv_counts, delivered = self._ship(row_payload,
+                                                               pc)
+        bank = fc.credit_tick(state.bank,
+                              torch.zeros_like(state.bank.credits),
+                              notify=state.parked_by_link)
+        z = torch.zeros_like
+        new_state = base.FabricState(
+            bank=bank, parked_count=z(state.parked_count),
+            parked_hop=z(state.parked_hop), parked_age=z(state.parked_age),
+            parked_by_link=z(state.parked_by_link),
+            parked_payload=z(state.parked_payload),
+            parked_hold_shared=z(state.parked_hold_shared))
+        remaining = torch.clamp(self._dev(device)["hops"][:, None, :] - ph,
+                                min=0)
+        owire = (wire_framing.frame_bytes(self.wire_fmt, pc)
+                 * torch.where(pc > 0, remaining, 0)).sum(-1,
+                                                          dtype=torch.int32)
+        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(acc)
+        zt = torch.zeros((n, T), dtype=torch.int32, device=device)
+        zh = torch.zeros((n, T, H), dtype=torch.int32, device=device)
+        stats = base.LinkStats(
+            offered_events=zt, sent_events=zt, deferred_events=zt,
+            delivered_events=delivered, credit_stalls=zt,
+            hops=hops_f, forwarded_bytes=bytes_f, bytes_on_wire=owire,
+            max_in_flight=inflight_f, stalled_by_hop=zh,
+            max_in_flight_by_phase=inflight_ph, parked_events=zt,
+            unparked_events=pc.sum(-1, dtype=torch.int32),
+            in_fabric_events=zt, parked_by_hop=zh,
+            queue_dwell_us=torch.zeros((n, T), dtype=torch.float32,
+                                       device=device),
+            rerouted=zt)
+        zf = torch.zeros((T, n, n), dtype=torch.float32, device=device)
+        full = torch.ones((n, T, n), dtype=torch.bool, device=device)
+        return base.TransportOut(
+            state=new_state, recv_payload=recv_payload,
+            recv_counts=recv_counts, sent_mask=full, stats=stats,
+            sent_now=full, queue_us=zf, unparked_now=pc, park_wait_us=zf)

@@ -725,9 +725,22 @@ def test_torus_guards_and_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         t_tp.create("torus2d", n_shards=8, link_credits=64,
                     stall_attribution=True)
+    # the multi-tenant torus (item 9) is ported: it builds, and refuses an
+    # oversubscribed partition and a row no tenant could ever admit
+    from repro_torch.core import flow_control as t_fc
     from repro_torch.transport import torus as t_tt
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_tt.TenantTorusTransport(8, (2, 4))
+    part = t_fc.make_partition(64, (16, 8))
+    tt = t_tt.TenantTorusTransport(8, (2, 4), partition=part)
+    assert tt.n_tenants == 2 and tt.link_credits == 64
+    assert tt.init_state(4, device="cpu").bank.credits.shape == (3 * 32,)
+    with pytest.raises(ValueError, match="oversubscribed"):
+        t_fc.make_partition(64, (40, 30))
+    with pytest.raises(ValueError, match="head-of-line"):
+        t_tt.TenantTorusTransport(8, (2, 4), partition=t_fc.make_partition(
+            64, (60, 0)), max_row_events=32)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_tt.TenantTorusTransport(8, (2, 4), partition=part,
+                                  stall_attribution=True)
     tr = t_tp.create("torus2d", n_shards=8, link_credits=64)
     state = tr.init_state(4, device="cpu")
     # fault injection (item 8) is ported: the faulted replay and the

@@ -18,8 +18,14 @@ SSD-chunk wrapper runs its plain version):
   would see the hidden's bf16 differences summed over d_model.)
 
 The JAX reference of the model runs once per module (``ref`` fixture).
+Its random weights come from the reference's own initializers with
+per-leaf keys from a stable hash of the parameter path
+(:func:`_stable_init`): ``init_params`` folds in Python's ``hash`` of the
+path, which ``PYTHONHASHSEED`` salts per process, so every test process
+used to draw another model.
 """
 import dataclasses
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +38,7 @@ from repro.configs import get_config as r_get_config, reduced as r_reduced
 from repro.kernels import ops as r_ops, ref as r_ref
 from repro.models import build as r_build, layers as r_layers, ssm as r_ssm
 from repro.models import hybrid as r_hybrid
+from repro.models import modules as r_modules
 from repro.models.modules import param_bytes as r_param_bytes
 from repro.models.modules import param_count as r_param_count
 from repro.serve.engine import Engine as REngine
@@ -269,12 +276,25 @@ def _replay_margins(eng, model, params, reqs, out, scfg):
     return margins
 
 
+def _stable_init(spec_tree, key):
+    """``repro.models.modules.init_params`` with each leaf's key folded
+    from a CRC-32 of its path instead of Python's per-process ``hash``:
+    the reference's initializers, the same weights in every process."""
+    def rec(tree, prefix=()):
+        if r_modules.is_spec(tree):
+            h = zlib.crc32("/".join(map(str, prefix)).encode()) % (2**31 - 1)
+            return r_modules._initializer(tree, jax.random.fold_in(key, h),
+                                          tree.dtype)
+        return {k: rec(v, prefix + (k,)) for k, v in tree.items()}
+    return rec(spec_tree)
+
+
 @pytest.fixture(scope="module")
 def ref():
     """Every reference run of the model tests, once."""
     cfg = r_reduced(r_get_config("mamba2_27b"))
     model = r_build(cfg)
-    params = model.init(jax.random.PRNGKey(0))
+    params = _stable_init(model.specs(), jax.random.PRNGKey(0))
     # at the init's std of 1 the tied embedding of the last token decides
     # every greedy token; at 1/4 the blocks do
     params["embed"] = params["embed"] * EMBED_SCALE

@@ -339,9 +339,14 @@ def test_unported_paths_raise(part):
         16, dtype=torch.bool))
     for a, b in zip(faulted, tr._admit_global(st, counts)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        from repro_torch.transport.torus import TenantTorusTransport
-        TenantTorusTransport(4, (2, 2))
+    # the multi-tenant torus (item 9) is ported: it builds, and refuses an
+    # oversubscribed partition
+    from repro_torch.core.flow_control import make_partition
+    from repro_torch.transport.torus import TenantTorusTransport
+    tt = TenantTorusTransport(4, (2, 2), partition=make_partition(64, (32,)))
+    assert tt.partition.shared == 32
+    with pytest.raises(ValueError, match="oversubscribed"):
+        TenantTorusTransport(4, (2, 2), partition=make_partition(64, (65,)))
     # a fault schedule needs a credited torus; the crossbar refuses it
     with pytest.raises(ValueError, match="credit-throttled"):
         sim.build_sharded_sim(_cfg(p, "ample"), p, spec.bg_rates(),
