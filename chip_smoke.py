@@ -58,11 +58,13 @@ Phases, each raising on failure (exit code != 0, no result line):
    (the admission kernel F once per credited window), ms per window, a
    torch.profiler pass;
 5d. kernel F -- the admission replay (``csrc/admission.cu``) against both
-   plain loops, bit for bit on every field: on the states of 8 more windows
-   of main path 3's binding run (no mask, and an all-false mask against
-   both loops), and on transport runs of 8 windows on torus2d 2x4 and
-   torus3d 2x2x2 under the fault matrix's four schedules and chaos seeds
-   0-4 (credits 24), each also card == CPU; its time, bound and both
+   plain loops, bit for bit on every field and its stall lane
+   (``stall_lane=True``: deferred events per egress link, summing to the
+   window's deferrals): on the states of 8 more windows of main path 3's
+   binding run (no mask, and an all-false mask against both loops), and on
+   transport runs of 8 windows on torus2d 2x4 and torus3d 2x2x2 under the
+   fault matrix's four schedules and chaos seeds 0-4 (credits 24), each
+   also card == CPU; its time without and with the lane, bound and both
    loops' times;
 5e. a small fault run (scale 0.004, torus3d 2x2x2, chaos seed 0) on the
    card against the CPU;
@@ -73,6 +75,17 @@ Phases, each raising on failure (exit code != 0, no result line):
    link; detours where a cable dies; the drain empties the fabric; the
    healthy schedule equals the run without one; ms per window, device
    functions, rerouted / parked / deferred / deadline misses;
+5n. a small recorded torus run under a dead cable and 3 segments of the
+   instrumented engine, card vs CPU: every ring row (global and per
+   shard) equal, traces valid;
+5o. obs-sim -- main path 3's network with the flight recorder (depth 32),
+   healthy and under ``link_fault(0, x+)`` from window 2, each beside the
+   run without it: launches (F, A and C 25 each), every integer
+   ``WindowStats`` field and ``v`` equal off vs on, the ring's counters ==
+   ``LinkStats`` per window and shard, the stall table == the window's
+   deferrals, device functions per credited window off and on, and a run
+   directory (``build/obs/``) whose report names the congested links
+   and the ``link_down`` at window 2;
 5g. a small serve run (the deployment of 5h for 3 segments, solo and
    contended) on the card against the same run on the CPU: every
    ``EngineReport`` integer, every per-window ``WindowServeStats`` integer
@@ -88,10 +101,19 @@ Phases, each raising on failure (exit code != 0, no result line):
    launches per served window (the tenant form of kernel F, B's encode
    and B's decode once each), events/s and ms per window, peak device
    memory, and a torch.profiler pass over one served segment;
+5p. obs-serve -- 5h's contended run with the flight recorder (depth 256)
+   and a tracer, beside a plain contended run in the same call:
+   ``BENCH_serve.json``'s model outputs and QoS factor, launches per
+   window, ring delivered totals == the ledger, a valid trace with spans on
+   ``spike-ingest``, ``spike-device`` and ``device`` and every window
+   instant among the ring's windows, a run directory with parsable
+   metrics and both tenants; ms per served window, events/s and device
+   functions per served window, instrumented and not;
 5i. kernel F's tenant form against both tenant loops, bit for bit on
-   every field, on the states of every 6th window of each of 5h's runs
-   (without a mask also under an all-false mask against both loops);
-   its time (CUDA graph) against its chain bound, and the loops' times;
+   every field and the stall lane, on the states of every 6th window of
+   each of 5h's runs (without a mask also under an all-false mask against
+   both loops); its time (CUDA graph) without and with the lane against
+   its chain bound, and the loops' times;
 6. Mamba-2 slice -- the reduced mamba2 (2 layers; its blocks compute in
    bf16, so the SSD chunk takes the tensor-core kernel) on the card
    against the CPU: hidden states, caches and decode at the model
@@ -107,13 +129,16 @@ Phases, each raising on failure (exit code != 0, no result line):
    64 x the chunks of every wave's prefill, the FMA kernel never, none in
    decode) and finite outputs; prefill + decode
    against the full forward at 2 and 64 layers, with three cache faults
-   planted to show that the check sees them; then torch.profiler passes
-   over one prefill wave and 8 decode steps;
+   planted to show that the check sees them; the same requests served
+   with a tracer (``serve/prefill`` and ``serve/decode`` spans, a valid
+   trace, the same tokens); then torch.profiler passes over one prefill
+   wave and 8 decode steps;
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
    to 0 just before that path: A-C and F from main path 3, F and B also
-   from main path 4's three runs (the per-row placement 0: it is on no
-   path), D from the exchange,
+   from main path 4's three runs, A-C and F from obs-sim's recorded runs
+   and F and B from obs-serve's instrumented run (the per-row placement 0:
+   it is on no path), D from the exchange,
    E's tensor-core kernel from main path 2, E's FMA kernel from the f32
    scan of phase 6) and, last, the device JSON line.
 """
@@ -1034,19 +1059,30 @@ def run_main_path():
     return launches
 
 
-def window_functions(run, state, n_windows: int) -> None:
+def window_functions(run, state, n_windows: int,
+                     reps: int = 3) -> float | None:
     """Profiles of ``n_windows`` windows + drain and of 1 window + drain;
     their difference over ``n_windows - 1`` is the device functions of one
     window with the drain taken out (the first profile's count per
-    "window" divides by ``n_windows + 1``, the drain counted as one)."""
-    many = profile_device(lambda: run(state, n_windows),
-                          f"{n_windows} windows + drain", n_windows + 1,
-                          "window")
-    one = profile_device(lambda: run(state, 1), "1 window + drain", 2,
-                         "window", top=0)
-    if many is not None and one is not None:
-        print(f"device functions per window, the drain taken out: "
-              f"{(many - one) / (n_windows - 1):.1f}")
+    "window" divides by ``n_windows + 1``, the drain counted as one).
+    Each profile is taken ``reps`` times and the largest count kept: the
+    profiler at times drops a launch (one run saw 2 of a 3-window run's 3
+    admission launches), it never invents one."""
+    counts = []
+    for n, what, top in ((n_windows, f"{n_windows} windows + drain", 12),
+                         (1, "1 window + drain", 0)):
+        seen = [profile_device(lambda: run(state, n), what, n + 1,
+                               "window", top=top if r == 0 else 0)
+                for r in range(reps)]
+        if any(c is None for c in seen):
+            return None
+        counts.append(max(seen))
+    many, one = counts
+    if many is None or one is None:
+        return None
+    per = (many - one) / (n_windows - 1)
+    print(f"device functions per window, the drain taken out: {per:.1f}")
+    return per
 
 
 def profile_device(fn, what: str, n_units: int, unit: str,
@@ -1489,14 +1525,14 @@ def capture_admission(fn, wrapper: str = "admission", every: int = 1):
     from repro_torch.kernels import admission
     real, calls, seen = getattr(admission, wrapper), [], [0]
 
-    def spy(counts, state, tables, link_down=None):
+    def spy(counts, state, tables, link_down=None, **kw):
         if seen[0] % every == 0:
             copy = lambda t: None if t is None else t.clone()
             calls.append((seen[0], counts.clone(), type(state)(*(
                 type(x)(*map(copy, x)) if hasattr(x, "_fields") else copy(x)
                 for x in state)), tables, copy(link_down)))
         seen[0] += 1
-        return real(counts, state, tables, link_down)
+        return real(counts, state, tables, link_down, **kw)
 
     setattr(admission, wrapper, spy)
     try:
@@ -1507,26 +1543,38 @@ def capture_admission(fn, wrapper: str = "admission", every: int = 1):
     return calls, out
 
 
+def check_stall_lane(what, got, counts):
+    """The stall lane sums to the window's deferred events."""
+    deferred = int(torch.where(got.stall_hop >= 0, counts, 0).sum())
+    if int(got.stalled_by_link.sum()) != deferred:
+        raise AssertionError(f"{what}: stalled_by_link sums to "
+                             f"{int(got.stalled_by_link.sum())}, the window "
+                             f"deferred {deferred}")
+
+
 def check_admission_case(what, counts, state, tables, down):
-    """Kernel F against the plain loops on one window, every field: with
-    no mask against the healthy loop, and with an all-false mask against
-    both loops; with a mask against the faulted loop."""
+    """Kernel F against the plain loops on one window, every field and the
+    stall lane (``stall_lane=True`` on both): with no mask against the
+    healthy loop, and with an all-false mask against both loops; with a
+    mask against the faulted loop."""
     from repro_torch.kernels import admission as adm
-    got = adm.admission(counts, state, tables, down)
+    got = adm.admission(counts, state, tables, down, stall_lane=True)
+    check_stall_lane(what, got, counts)
     if down is None:
-        plain = adm.admission_plain(counts, state, tables)
+        plain = adm.admission_plain(counts, state, tables, stall_lane=True)
         require_equal(f"{what}: kernel F vs the healthy loop",
                       list(zip(got, plain)))
         off = torch.zeros_like(state.parked_by_link, dtype=torch.bool)
-        masked = adm.admission(counts, state, tables, off)
+        masked = adm.admission(counts, state, tables, off, stall_lane=True)
         for name, want in (("healthy", plain), ("faulted", (
-                adm.admission_faulted_plain(counts, state, tables, off)))):
+                adm.admission_faulted_plain(counts, state, tables, off,
+                                            stall_lane=True)))):
             require_equal(f"{what}: kernel F, all-false mask, vs the "
                           f"{name} loop", list(zip(masked, want)))
         return got
     require_equal(f"{what}: kernel F vs the faulted loop",
                   list(zip(got, adm.admission_faulted_plain(
-                      counts, state, tables, down))))
+                      counts, state, tables, down, stall_lane=True))))
     return got
 
 
@@ -1589,7 +1637,7 @@ def check_admission(captured):
         check_admission_case(f"main path 3 window {i}", counts, state,
                              tables, None)
         cases += 1
-    seen = dict(rerouted=0, hop0=0, parked=0, deferred=0)
+    seen = dict(rerouted=0, hop0=0, parked=0, deferred=0, stalled=0)
     for label, backend, dims in F_TORI:
         scheds = {d: fault_schedules(dims, F_WINDOWS, d, range(5))
                   for d in ("cuda", "cpu")}
@@ -1604,6 +1652,7 @@ def check_admission(captured):
                                      & (got.park_hop == 0)).sum())
                 seen["parked"] += int(got.fresh_park.sum())
                 seen["deferred"] += int((got.stall_hop >= 0).sum())
+                seen["stalled"] += int(got.stalled_by_link.sum())
                 cases += 1
             _, cpu = _fault_transport_run(backend, dims,
                                           scheds["cpu"][name], k, "cpu")
@@ -1615,6 +1664,8 @@ def check_admission(captured):
     _, counts, state, tables, _ = captured[-1]
     n = counts.shape[0]
     ms, eager_ms = time_ms(lambda: adm.admission(counts, state, tables))
+    lane_ms, lane_eager_ms = time_ms(lambda: adm.admission(
+        counts, state, tables, stall_lane=True))
     healthy_ms = time_loop(lambda: adm.admission_plain(counts, state,
                                                        tables))
     off = torch.zeros_like(state.parked_by_link, dtype=torch.bool)
@@ -1627,7 +1678,8 @@ def check_admission(captured):
         state.bank.credits, state.bank.epoch, state.parked_by_link,
         tables.seq_alt[0], tables.len_alt[0]))
         + sum(x.numel() * x.element_size()
-              for x in adm.admission(counts, state, tables)))
+              for x in adm.admission(counts, state, tables)
+              if x is not None))
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     # the chain this input needs: a parked row to resume, or an off-diagonal
     # fresh row with events; every other row (a local one has no links, an
@@ -1646,7 +1698,8 @@ def check_admission(captured):
           f"{steps} dependent steps of {2 * n * n} rows x "
           f"{SHARED_ROUND_TRIP_CYCLES} cycles at "
           f"{SM_CLOCK_HZ / 1e9:.2f} GHz = {t_chain:.6f} ms; {n_bytes} B = "
-          f"{t_bytes:.6f} ms)")
+          f"{t_bytes:.6f} ms); with the stall lane: kernel {lane_ms:.4f} ms "
+          f"(CUDA graph), eager {lane_eager_ms:.4f} ms, in the same call")
     return dict(name="admission", route="cuda",
                 source="src/repro_torch/csrc/admission.cu",
                 replaces="none: no TPU kernel (the reference replays with "
@@ -1655,7 +1708,9 @@ def check_admission(captured):
                 max_abs_err=0.0, ms=ms, plain_ms=healthy_ms, bound_ms=bms,
                 bound_by=by, library_ms=None, eager_ms=eager_ms,
                 plain_eager_ms=healthy_ms, faulted_loop_ms=faulted_ms,
-                parity=f"bit-exact ({cases} windows, both loops)")
+                lane_ms=lane_ms,
+                parity=f"bit-exact ({cases} windows, both loops, the stall "
+                       f"lane included)")
 
 
 def time_loop(fn, calls: int = 5) -> float:
@@ -1870,12 +1925,13 @@ SERVE_FAULT_START = 2              # link_fault(0, x+) from window 2
 SERVE_CAPTURE_EVERY = 6
 
 
-def serve_engine(device, hot: bool, fault: bool = False):
+def serve_engine(device, hot: bool, fault: bool = False, recorder=None,
+                 tracer=None):
     """The bench_serve deployment on ``device``: 8 shards on torus3d
     2x2x2, the quiet tenant (reserve 32, 40 events a window) and the hot
     one (reserve 8, 600 events a window, bursts x3 at p 0.25; rate 0 when
     ``hot`` is False), seed 7; ``fault``: the cable x+ of node 0 dead from
-    window 2."""
+    window 2; ``recorder`` / ``tracer`` as the engine takes them."""
     from repro_torch.fabric import faults
     from repro_torch.serve import loadgen, spike_engine, tenancy
     specs = [tenancy.TenantSpec(n, reserve=r, rate_epw=rate)
@@ -1892,7 +1948,8 @@ def serve_engine(device, hot: bool, fault: bool = False):
                                start=SERVE_FAULT_START, device=device)
              if fault else None)
     return spike_engine.SpikeEngine(SERVE_SHARDS, specs, cfg, src,
-                                    fault_schedule=sched, device=device)
+                                    fault_schedule=sched, recorder=recorder,
+                                    tracer=tracer, device=device)
 
 
 def _report_ints(rep) -> dict:
@@ -2052,7 +2109,7 @@ def run_serve_main_path(smi: str):
     _serve_segment_profile(eng, 4)
     total = {k: sum(v.get(k, 0) for v in launches.values())
              for k in ("admission", "wire_codec")}
-    return total, captured
+    return total, captured, reports
 
 
 def n_links(counts, tables) -> int:
@@ -2068,32 +2125,37 @@ def check_admission_tenants(captured, smi: str):
     faulted loop.  Then F's time per call (CUDA graph) at the last
     contended state against its chain bound, and both loops' times."""
     from repro_torch.kernels import admission as adm
-    seen = dict(hold_shared=0, parked=0, deferred=0, rerouted=0, masked=0)
+    seen = dict(hold_shared=0, parked=0, deferred=0, rerouted=0, masked=0,
+                stalled=0)
     for label, w, counts, state, tables, down in captured:
         what = f"{label} window {w}"
-        got = adm.admission_tenants(counts, state, tables, down)
+        got = adm.admission_tenants(counts, state, tables, down,
+                                    stall_lane=True)
+        check_stall_lane(what, got, counts)
         if down is None:
-            plain = adm.admission_tenants_plain(counts, state, tables)
+            plain = adm.admission_tenants_plain(counts, state, tables,
+                                                stall_lane=True)
             require_equal(f"{what}: tenant F vs the healthy loop",
-                          list(zip(got[:-1], plain[:-1])))
+                          list(zip(got, plain)))
             off = torch.zeros(n_links(counts, tables), dtype=torch.bool,
                               device=counts.device)
-            masked = adm.admission_tenants(counts, state, tables, off)
+            masked = adm.admission_tenants(counts, state, tables, off,
+                                           stall_lane=True)
             for name, want in (("healthy", plain), (
                     "faulted", adm.admission_tenants_faulted_plain(
-                        counts, state, tables, off))):
+                        counts, state, tables, off, stall_lane=True))):
                 require_equal(f"{what}: tenant F, all-false mask, vs the "
-                              f"{name} loop", list(zip(masked[:-1],
-                                                       want[:-1])))
+                              f"{name} loop", list(zip(masked, want)))
         else:
             require_equal(f"{what}: tenant F vs the faulted loop", list(zip(
-                got[:-1], adm.admission_tenants_faulted_plain(
-                    counts, state, tables, down)[:-1])))
+                got, adm.admission_tenants_faulted_plain(
+                    counts, state, tables, down, stall_lane=True))))
             seen["masked"] += 1
         seen["hold_shared"] += int((got.hold_shared > 0).sum())
         seen["parked"] += int(got.fresh_park.sum())
         seen["deferred"] += int((got.stall_hop >= 0).sum())
         seen["rerouted"] += int(got.rerouted.sum())
+        seen["stalled"] += int(got.stalled_by_link.sum())
     if not all(seen.values()):
         raise AssertionError(f"tenant admission cases exercised too "
                              f"little: {seen}")
@@ -2104,6 +2166,8 @@ def check_admission_tenants(captured, smi: str):
     T, n = counts.shape[0], counts.shape[1]
     ms, eager_ms = time_ms(lambda: adm.admission_tenants(counts, state,
                                                          tables))
+    lane_ms, lane_eager_ms = time_ms(lambda: adm.admission_tenants(
+        counts, state, tables, stall_lane=True))
     healthy_ms = time_loop(lambda: adm.admission_tenants_plain(
         counts, state, tables))
     off = torch.zeros(n_links(counts, tables), dtype=torch.bool,
@@ -2131,10 +2195,326 @@ def check_admission_tenants(captured, smi: str):
           f"around 5 calls); bound {bms:.6f} ms ({steps} dependent steps of "
           f"{2 * T * n * n} rows x {SHARED_ROUND_TRIP_CYCLES} cycles at "
           f"{SM_CLOCK_HZ / 1e9:.2f} GHz = {t_chain:.6f} ms; {n_bytes} B = "
-          f"{t_bytes:.6f} ms)")
-    return dict(tenant_ms=ms, tenant_bound_ms=bms, tenant_bound_by=by,
+          f"{t_bytes:.6f} ms); with the stall lane: kernel {lane_ms:.4f} ms "
+          f"(CUDA graph), eager {lane_eager_ms:.4f} ms, in the same call")
+    return dict(tenant_ms=ms, tenant_lane_ms=lane_ms, tenant_bound_ms=bms,
+                tenant_bound_by=by,
                 tenant_healthy_loop_ms=healthy_ms,
                 tenant_faulted_loop_ms=faulted_ms, tenant_steps=steps)
+
+
+# ---------------------------------------------------------------------------
+# Observability: the recorded simulator (obs-sim) and the instrumented
+# spike engine (obs-serve).
+# ---------------------------------------------------------------------------
+
+OBS_SIM_DEPTH, OBS_SERVE_DEPTH = 32, 256
+OBS_DIR = ROOT / "build" / "obs"           # the run directories written
+
+
+def check_obs_slice_small():
+    """Card vs CPU with observability on: the small torus run of
+    ``check_torus_slice_small`` under a dead cable from window 2 with the
+    flight recorder (global and per-shard ring rows equal, stall tables
+    included), and 3 segments of the serve slice's contended engine with
+    the recorder and a tracer (ring rows equal, both traces valid)."""
+    from repro_torch import obs
+    from repro_torch.fabric import faults
+    from repro_torch.obs import spans
+    from repro_torch.snn import microcircuit as mc, network
+    from repro_torch.snn import simulator as sim
+    spec = mc.MicrocircuitSpec(scale=0.004)
+    part = network.build_partition(*spec.weight_matrix(),
+                                   n_shards=TORUS_SHARDS)
+    cfg = sim_config(part, e_max=256, capacity=16, residue=64,
+                     transport="torus3d", torus_nx=2, torus_ny=2, torus_nz=2,
+                     link_credits=16, notify_latency=2)
+    n_win = 8
+    rng = np.random.default_rng(0)
+    drive = torch.from_numpy(rng.poisson(
+        1.3, (n_win, cfg.window, TORUS_SHARDS, cfg.per_shard)).astype(
+            np.float32) * np.float32(87.8))
+    out, stats = {}, {}
+    for device in ("cpu", "cuda"):
+        sched = faults.link_fault((2, 2, 2), n_win, 0, 0, start=2,
+                                  device=device)
+        init, run = sim.build_sharded_sim(cfg, part, spec.bg_rates(),
+                                          fault_schedule=sched,
+                                          recorder=obs.RecorderConfig(16),
+                                          device=device)
+        st = init(0)
+        if device == "cpu":
+            v0 = st.neuron.v
+        st = st._replace(neuron=st.neuron._replace(v=v0.to(device)),
+                         generator=None)
+        _, stats[device], ring = run(st, n_win, drive=drive)
+        out[device] = [obs.global_rows(ring, TORUS_SHARDS)] + [
+            obs.ring_rows(obs.ring_shard(ring, s))
+            for s in range(TORUS_SHARDS)]
+    require_same_outputs("obs slice card vs CPU", stats["cuda"],
+                         stats["cpu"])
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError("obs slice: the ring's rows differ card vs CPU")
+    rows = out["cpu"][0]
+    stalled = sum(sum(r["stalled_by_link"]) for r in rows)
+    if stalled == 0 or sum(r["counters"]["rerouted"] for r in rows) == 0:
+        raise AssertionError("obs slice: no stall or no detour recorded")
+    engines = {}
+    for device in ("cpu", "cuda"):
+        tracer = spans.Tracer()
+        eng = serve_engine(device, True, recorder=obs.RecorderConfig(64),
+                           tracer=tracer)
+        eng.run(SERVE_SMALL_SEGMENTS)
+        if spans.validate_trace(tracer.to_dict()):
+            raise AssertionError(f"obs slice: {device} trace invalid")
+        engines[device] = [eng.recorder_rows()] + [
+            eng.recorder_rows(s) for s in range(SERVE_SHARDS)]
+    if engines["cuda"] != engines["cpu"]:
+        raise AssertionError("obs slice: the engine's ring rows differ card "
+                             "vs CPU")
+    print(f"obs slice: card == CPU on the recorded torus run ({n_win} "
+          f"windows, a dead cable from window 2; {stalled} stalled events "
+          f"in the stall tables) and the instrumented engine "
+          f"({SERVE_SMALL_SEGMENTS} segments, {len(engines['cpu'][0])} "
+          f"windows recorded): global and per-shard ring rows equal, "
+          f"traces valid")
+
+
+def run_obs_sim(part, spec, smi: str):
+    """obs-sim: main path 3's network (scale 0.2, 8 shards, torus3d 2x2x2,
+    binding credits 124, notify latency 4) for 25 windows with the flight
+    recorder (depth 32), healthy and under link_fault(0, x+) from window 2,
+    each beside the same run without it: the launches (F, A, C once a
+    window), the observer effect (every integer WindowStats field and v
+    equal), the ring against LinkStats per window and shard, the stall
+    table against the global deferrals, device functions per window off
+    and on, and a run directory whose report names the congested links
+    and the cable's death at window 2.  -> launches of the recorded
+    runs."""
+    from repro_torch import obs
+    from repro_torch.convert import flatten
+    from repro_torch.fabric import faults
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs import metrics, report
+    from repro_torch.snn import simulator as sim
+    cfg = sim_config(part, **{**dict(e_max=1024, capacity=1024, residue=256),
+                              **TORUS_RUNS["torus3d, binding credits"]})
+    dims, S = (2, 2, 2), TORUS_SHARDS
+    want = {"flush_window": N_WINDOWS, "lif_step": N_WINDOWS,
+            "admission": N_WINDOWS, "wire_codec": N_WINDOWS + 2}
+    total: dict = {}
+    for label, fault in (("healthy", False), ("link_fault(0, x+)", True)):
+        sched = (faults.link_fault(dims, N_WINDOWS, 0, 0, start=2,
+                                   device="cuda") if fault else None)
+        runs, walls = {}, {False: [], True: []}
+        # off, on, on, off: the host clock drifts within a call
+        for on in (False, True, True, False):
+            init, run = sim.build_sharded_sim(
+                cfg, part, spec.bg_rates(), fault_schedule=sched,
+                recorder=obs.RecorderConfig(depth=OBS_SIM_DEPTH) if on
+                else None, device="cuda")
+            state = init(seed=0)
+            torch.cuda.synchronize()
+            dispatch.reset_launches()
+            t1 = time.perf_counter()
+            res = run(state, N_WINDOWS)
+            torch.cuda.synchronize()
+            walls[on].append((time.perf_counter() - t1) * 1e3 / N_WINDOWS)
+            launches = dict(dispatch.LAUNCHES)
+            if launches != want:
+                raise AssertionError(f"obs-sim {label}, recorder {on}: "
+                                     f"launches {launches} != {want}")
+            runs.setdefault(on, (res, run, state))
+        for k, v in launches.items():       # the last on-run's launches
+            total[k] = total.get(k, 0) + v
+        (st_off, stats_off), run_off, state0 = runs[False]
+        (st_on, stats_on, ring), run_on, _ = runs[True]
+        a, b = flatten(stats_off), flatten(stats_on)
+        if set(b) - set(a) != {"link.stalled_by_link"} or set(a) - set(b):
+            raise AssertionError(f"obs-sim {label}: stats fields "
+                                 f"{set(a) ^ set(b)}")
+        for key in a:
+            if a[key].dtype.kind != "f" and not np.array_equal(a[key],
+                                                               b[key]):
+                raise AssertionError(f"obs-sim {label}: the recorder "
+                                     f"changed {key}")
+        floats_equal = all(np.array_equal(a[k], b[k]) for k in a
+                           if a[k].dtype.kind == "f")
+        if not torch.equal(st_off.neuron.v, st_on.neuron.v):
+            raise AssertionError(f"obs-sim {label}: the recorder changed v")
+        for s in range(S):
+            for w, row in enumerate(obs.ring_rows(obs.ring_shard(ring, s))):
+                for f in obs.COUNTER_FIELDS:
+                    if row["counters"][f] != int(b["link." + f][s, w]):
+                        raise AssertionError(
+                            f"obs-sim {label}: ring shard {s} window {w} "
+                            f"{f} {row['counters'][f]} != LinkStats "
+                            f"{int(b['link.' + f][s, w])}")
+        rows = obs.global_rows(ring, S)
+        if [r["window"] for r in rows] != list(range(-1, N_WINDOWS - 1)):
+            raise AssertionError(f"obs-sim {label}: ring windows "
+                                 f"{[r['window'] for r in rows]}")
+        deferred = b["link.deferred_events"].sum(0)
+        for w, row in enumerate(rows):
+            if sum(row["stalled_by_link"]) != int(deferred[w]) or \
+                    row["stalled_by_link"] != \
+                    b["link.stalled_by_link"][0, w].tolist():
+                raise AssertionError(f"obs-sim {label}: window {w} stall "
+                                     f"table != the deferred events")
+        fmt = lambda xs: " / ".join(f"{x:.3f}" for x in xs)
+        print(f"obs-sim {label} [{smi}]: ms per window, in the order off, "
+              f"on, on, off: recorder off {fmt(walls[False])}, on "
+              f"{fmt(walls[True])} (host clock, 25 windows); launches "
+              f"{launches} in every run; every integer "
+              f"WindowStats field and v equal off vs on (float fields "
+              f"{'equal too' if floats_equal else 'NOT all equal'}); ring "
+              f"== LinkStats on {len(obs.COUNTER_FIELDS)} counters x "
+              f"{N_WINDOWS} windows x {S} shards; stall table == deferred "
+              f"({int(deferred.sum())} events) in every window")
+        per_off = window_functions(run_off, state0, 3)
+        per_on = window_functions(run_on, state0, 3)
+        print(f"obs-sim {label}: device functions per credited window, "
+              f"recorder off {per_off}, on {per_on}")
+        reg = metrics.Registry()
+        metrics.export_link_stats(reg, stats_on.link, backend="torus3d")
+        run_dir = report.write_run_dir(
+            str(OBS_DIR / ("sim_fault" if fault else "sim_healthy")),
+            meta={"kind": "sim", "dims": list(dims), "n_shards": S,
+                  "windows": N_WINDOWS,
+                  "window_us": cfg.window * cfg.step_us,
+                  "link_credits": cfg.link_credits,
+                  "notify_latency": cfg.notify_latency},
+            recorder_rows=rows,
+            fault_events=faults.transitions(sched) if fault else None,
+            registry=reg)
+        built = report.build_report(run_dir)
+        metrics.parse_prometheus((Path(run_dir) / "metrics.prom")
+                                 .read_text())
+        if not built["top_links"]:
+            raise AssertionError(f"obs-sim {label}: no congested link")
+        if fault:
+            down = [e for e in built["faults"] if e["event"] == "link_down"]
+            at2 = [e for e in built["timeline"] if e["window"] == 2][0]
+            if not down or down[0]["window"] != 2 or not at2["events"]:
+                raise AssertionError(f"obs-sim {label}: the link_down "
+                                     f"transition is not at window 2")
+        print(f"obs-sim {label}: run directory {run_dir}; top congested "
+              f"links " + ", ".join(f"{l['label']} {l['stalled_events']}"
+                                    for l in built["top_links"][:4])
+              + (f"; link_down {down[0]['links']} at window "
+                 f"{down[0]['window']}" if fault else ""))
+    return total
+
+
+def run_obs_serve(smi: str, solo):
+    """obs-serve: main path 4's contended run (192 windows) with the flight
+    recorder (depth 256) and a tracer, beside a plain contended run in the
+    same call: BENCH_serve.json's model outputs and QoS factor (against
+    main path 4's solo run), the launches per window, the ring's
+    delivered totals against the ledger, a valid trace with spans on all
+    three tracks and every window instant among the ring's windows, a run
+    directory with parsable metrics and both tenants, and ms per served
+    window, events/s and device functions per served window, instrumented
+    and not.  -> launches of the instrumented run."""
+    from repro_torch import obs
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs import metrics, report, spans
+    bench = {r["op"]: r for r in json.loads(
+        (ROOT / "BENCH_serve.json").read_text())}
+    runs = {}
+    for label, instrumented in (("plain", False), ("instrumented", True)):
+        tracer = spans.Tracer() if instrumented else None
+        eng = serve_engine("cuda", True, recorder=obs.RecorderConfig(
+            depth=OBS_SERVE_DEPTH) if instrumented else None, tracer=tracer)
+        eng.warmup()
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        rep = eng.run(SERVE_SEGMENTS, timeout=900)
+        launches = dict(dispatch.LAUNCHES)
+        entries = dict(dispatch.ENTRY_LAUNCHES)
+        n_win = rep.windows + rep.drain_windows
+        want = {"repro_admission_tenants": n_win,
+                "repro_wire_encode": n_win + 1,
+                "repro_wire_decode": n_win + 2}
+        if entries != want:
+            raise AssertionError(f"obs-serve {label}: launches by entry "
+                                 f"point {entries} != {want}")
+        runs[label] = (eng, rep, launches)
+        print(f"obs-serve {label} [{smi}]: {rep.events_per_s:.0f} events/s, "
+              f"{rep.wall_s * 1e3 / rep.windows:.3f} ms per served window "
+              f"(host clock), {rep.windows} + {rep.drain_windows} drain "
+              f"windows; launches per window: admission, encode, decode 1 "
+              f"each ({entries})")
+    eng, rep, launches = runs["instrumented"]
+    plain = runs["plain"][1]
+    for t, d in enumerate(rep.tenants):
+        b = bench[f"tenant/{d.name}"]
+        got = [int(rep.injected[t]), int(rep.delivered[t]),
+               int(rep.shed[t]), int(rep.clipped[t])]
+        if got != [b["injected"], b["delivered"], b["shed"], b["clipped"]]:
+            raise AssertionError(f"obs-serve: {d.name} {got} != "
+                                 f"BENCH_serve.json")
+        if not (np.array_equal(d.hist, plain.tenants[t].hist)
+                and got[:3] == [int(plain.injected[t]),
+                                int(plain.delivered[t]),
+                                int(plain.shed[t])]):
+            raise AssertionError(f"obs-serve: {d.name} differs from the "
+                                 f"plain run")
+    factor = rep.tenants[0].p99_us / max(solo.tenants[0].p99_us, 1e-9)
+    if factor != bench["qos/quiet_p99"]["factor"]:
+        raise AssertionError(f"obs-serve: QoS factor {factor}")
+    rows = eng.recorder_rows()
+    totals = obs.counter_totals(rows)
+    if not (np.array_equal(totals["delivered_events"], rep.delivered)
+            and np.array_equal(rep.delivered, eng.ledger.delivered)):
+        raise AssertionError(f"obs-serve: ring delivered "
+                             f"{totals['delivered_events']} != ledger "
+                             f"{rep.delivered}")
+    for row in rows:
+        if sum(row["stalled_by_link"]) != sum(
+                row["counters"]["deferred_events"]):
+            raise AssertionError(f"obs-serve: window {row['window']} stall "
+                                 f"table != its deferred events")
+    trace = eng.tracer.to_dict()
+    problems = spans.validate_trace(trace)
+    if problems:
+        raise AssertionError(f"obs-serve: trace problems {problems[:5]}")
+    names = spans.thread_names(trace)
+    tracks = {names[e["tid"]] for e in trace["traceEvents"]
+              if e["ph"] == "X"}
+    if not {"spike-ingest", "spike-device", "device"} <= tracks:
+        raise AssertionError(f"obs-serve: spans on tracks {tracks}")
+    windows = [e["args"]["window"] for e in trace["traceEvents"]
+               if e["name"] == "window"]
+    if not set(windows) <= {r["window"] for r in rows} or \
+            len(windows) != rep.windows + rep.drain_windows:
+        raise AssertionError("obs-serve: window instants do not match the "
+                             "ring")
+    run_dir = report.write_engine_run(str(OBS_DIR / "serve"), eng, rep)
+    metrics.parse_prometheus((OBS_DIR / "serve" / "metrics.prom")
+                             .read_text())
+    built = report.build_report(run_dir)
+    if {t["tenant"] for t in built["tenants"]} != {"quiet", "hot"}:
+        raise AssertionError("obs-serve: the report lacks a tenant")
+    print(f"obs-serve: BENCH_serve.json's outputs from the instrumented "
+          f"engine (quiet {rep.injected[0]} / {rep.delivered[0]} / "
+          f"{rep.shed[0]} / {rep.clipped[0]}, hot {rep.injected[1]} / "
+          f"{rep.delivered[1]} / {rep.shed[1]} / {rep.clipped[1]}, QoS "
+          f"factor {factor:.3f}); ring delivered == ledger "
+          f"{rep.delivered.tolist()} over {len(rows)} windows; trace valid, "
+          f"{len(trace['traceEvents'])} events on {sorted(tracks)}, "
+          f"{len(windows)} window instants; run directory {run_dir}; top "
+          f"links " + ", ".join(f"{l['label']} {l['stalled_events']}"
+                                for l in built["top_links"][:4]))
+    print(f"[{smi}] device functions per served window, plain then "
+          f"instrumented:")
+    for label, instrumented in (("plain", False), ("instrumented", True)):
+        e = serve_engine("cuda", True, recorder=obs.RecorderConfig(
+            depth=OBS_SERVE_DEPTH) if instrumented else None,
+            tracer=spans.Tracer() if instrumented else None)
+        e.warmup()
+        _serve_segment_profile(e, 4)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2421,6 +2801,26 @@ def run_mamba_main_path():
     print(f"launches on the serving path: {launches} = {cfg.n_layers} "
           f"layers x {sum(chunks)} chunks")
 
+    # the same requests with a tracer: the serve spans, the same tokens
+    from repro_torch.obs import spans
+    tracer = spans.Tracer()
+    traced = Engine(model, ServeConfig(slots=MAMBA_SLOTS, max_len=1024,
+                                       max_new_tokens=MAMBA_NEW),
+                    tracer=tracer).generate_batch(params, reqs)
+    trace = tracer.to_dict()
+    names = [e["name"] for e in trace["traceEvents"] if e["ph"] == "X"]
+    if spans.validate_trace(trace) or names != ["serve/prefill",
+                                                "serve/decode"] * len(
+                                                    eng.waves):
+        raise AssertionError(f"traced serving: spans {names}, problems "
+                             f"{spans.validate_trace(trace)}")
+    if any(not np.array_equal(traced[r.rid], out[r.rid]) for r in reqs):
+        raise AssertionError("traced serving gave other tokens")
+    print(f"traced serving: {names.count('serve/prefill')} serve/prefill "
+          f"and {names.count('serve/decode')} serve/decode spans on track "
+          f"{sorted(spans.thread_names(trace).values())}, trace valid, "
+          f"tokens equal the untraced run's")
+
     wave = reqs[:MAMBA_SLOTS]
     S = eng.waves[0].prompt_len
     toks = np.zeros((len(wave), S), np.int64)
@@ -2564,6 +2964,12 @@ def main() -> int:
 
     banner("the fault matrix at main path 3's width")
     run_fault_matrix(part3, spec3)
+
+    banner("observability slice, card vs CPU")
+    check_obs_slice_small()
+
+    banner("obs-sim: the flight recorder on main path 3's network")
+    obs_launches = run_obs_sim(part3, spec3, smi.splitlines()[0])
     del part3, captured
 
     banner("serve slice, card vs CPU")
@@ -2571,7 +2977,14 @@ def main() -> int:
 
     banner("main path 4: multi-tenant spike serving, bench_serve's "
            "deployment")
-    serve_launches, captured4 = run_serve_main_path(smi.splitlines()[0])
+    serve_launches, captured4, serve_reports = run_serve_main_path(
+        smi.splitlines()[0])
+
+    banner("obs-serve: the instrumented spike engine, main path 4's "
+           "contended run")
+    obs_serve = run_obs_serve(smi.splitlines()[0], serve_reports["solo"])
+    for name, count in obs_serve.items():
+        obs_launches[name] = obs_launches.get(name, 0) + count
 
     banner("kernel F's tenant form against both tenant loops")
     f_record = next(r for r in records if r["name"] == "admission")
@@ -2593,10 +3006,15 @@ def main() -> int:
                 "bucket_scatter": paths["exchange"]["bucket_scatter"],
                 "ssd_chunk": paths["serving"]["ssd_chunk"],
                 "ssd_chunk_f32": paths["f32 SSD scan"]["ssd_chunk_f32"]}
-    # F and B also run on main path 4 (its three runs)
-    for name, count in serve_launches.items():
-        launches[name] = launches.get(name, 0) + count
+    # F and B also run on main path 4 (its three runs), and A, B, C and F
+    # on the observability phases (obs-sim's recorded runs, obs-serve's
+    # instrumented run)
+    for counts in (serve_launches, obs_launches):
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
     paths["spike serving (3 runs)"] = serve_launches
+    paths["observability (obs-sim recorded, obs-serve instrumented)"] = \
+        obs_launches
     for path, counts in paths.items():
         print(f"launches on {path}: {counts}")
 

@@ -5,8 +5,10 @@ module for module, so each file names its reference by path.  Ported so
 far: the windowed microcircuit simulator, from the LIF steps through
 aggregation, the wire codec and the exchange to delivery, on the crossbar
 (``alltoall``) and on the credited Extoll torus (``torus2d`` /
-``torus3d``); the one-window exchange API (``core.exchange``); and
-Mamba-2 serving (``serve``).
+``torus3d``); the one-window exchange API (``core.exchange``); fault
+injection (``fabric``); the multi-tenant spike serving engine and Mamba-2
+serving (``serve``); and observability (``obs``: the flight recorder,
+span tracing, metrics and the run-directory report).
 
 Conventions shared by every module:
 

@@ -52,6 +52,16 @@
 // refunds each slot what it took.  Head-of-line blocking is per (tenant,
 // egress link).  The design is the single-tenant one; it stays a separate
 // kernel so that the single-tenant replay is untouched.
+//
+// The stall lane (both kernels, when out_stall is not null): the deferred
+// events of the window per physical egress link, the flight recorder's
+// per-link congestion table (reference _stall_attr, torus.py:338).  A
+// deferred row's count is blamed on the first hop of its healthy route
+// (combo 0), also under a mask, and a local row adds nothing; in the tenant
+// form every tenant's row of a pair blames the same physical link.  Lane 0
+// adds the count to a shared (K,) table with an integer atomicAdd (exact,
+// so the table does not depend on the order), and the warp writes it out
+// after phase B: the same launch, no pass after it.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -100,7 +110,8 @@ admission_kernel(const int32_t* __restrict__ counts,
                  const int32_t* __restrict__ seg,
                  const bool* __restrict__ down, int32_t* __restrict__ out,
                  bool* __restrict__ out_bool, int32_t* __restrict__ out_links,
-                 int n, int ndim, int H2, int Hs) {
+                 int32_t* __restrict__ out_stall, int n, int ndim, int H2,
+                 int Hs) {
   extern __shared__ int32_t sm[];
   const int R = n * n;
   const int K = n * 2 * ndim;
@@ -112,12 +123,14 @@ admission_kernel(const int32_t* __restrict__ counts,
   int32_t* s_trav = s_flag + R;    // phase A's per-row terms, summed by B
   int32_t* s_rer = s_trav + R;
   int32_t* s_done = s_rer + R;
+  int32_t* s_stall = out_stall != nullptr ? s_done + R : nullptr;  // (K,)
 
   for (int l = threadIdx.x; l < K; l += kThreads) {
     s_rem[l] = credits[l];
     s_notify[l] = 0;
     s_pbl[l] = pbl0[l];
     s_blocked[l] = 0;
+    if (s_stall != nullptr) s_stall[l] = 0;
   }
   // everything without a chain: reroute, eviction, queue snapshot
   for (int r = threadIdx.x; r < R; r += kThreads) {
@@ -258,6 +271,13 @@ admission_kernel(const int32_t* __restrict__ counts,
     if (lane == 0) {
       // an unroutable row never reaches its egress FIFO: it blocks nothing
       if (defer && routable) s_blocked[first] = 1;
+      if (defer && s_stall != nullptr) {
+        // blame the healthy route's first hop (the row's own first hop
+        // unless it detours: no load on the chain)
+        const int32_t f0 =
+            detour ? seq_alt[static_cast<int64_t>(r) * H2] : fl;
+        if (f0 >= 0) atomicAdd(s_stall + f0, c);
+      }
       out_bool[kFreshComplete * R + r] = admit_c;
       out_bool[kFreshPark * R + r] = admit_p;
       out[kStallHop * R + r] = defer ? 0 : -1;
@@ -276,6 +296,7 @@ admission_kernel(const int32_t* __restrict__ counts,
     out_links[kSpent * K + k] = credits[k] - s_rem[k];
     out_links[kNotify * K + k] = s_notify[k];
     out_links[kParkedByLink * K + k] = s_pbl[k];
+    if (s_stall != nullptr) out_stall[k] = s_stall[k];
   }
 }
 
@@ -316,7 +337,8 @@ admission_tenants_kernel(const int32_t* __restrict__ counts,
                          const bool* __restrict__ down,
                          int32_t* __restrict__ out,
                          bool* __restrict__ out_bool,
-                         int32_t* __restrict__ out_links, int n, int T,
+                         int32_t* __restrict__ out_links,
+                         int32_t* __restrict__ out_stall, int n, int T,
                          int ndim, int H2, int Hs) {
   extern __shared__ int32_t sm[];
   const int R = n * n;               // (src, dst) pairs
@@ -331,6 +353,7 @@ admission_tenants_kernel(const int32_t* __restrict__ counts,
   int32_t* s_trav = s_flag + TR;     // phase A's per-row terms, summed by B
   int32_t* s_rer = s_trav + TR;
   int32_t* s_done = s_rer + TR;
+  int32_t* s_stall = out_stall != nullptr ? s_done + TR : nullptr;  // (K,)
 
   for (int k = threadIdx.x; k < S; k += kThreads) {
     s_rem[k] = credits[k];
@@ -338,6 +361,8 @@ admission_tenants_kernel(const int32_t* __restrict__ counts,
     s_pbl[k] = pbl0[k];
   }
   for (int k = threadIdx.x; k < T * K; k += kThreads) s_blocked[k] = 0;
+  if (s_stall != nullptr)
+    for (int k = threadIdx.x; k < K; k += kThreads) s_stall[k] = 0;
   // everything without a chain: the per-pair reroute (the mask is physical,
   // shared by every tenant), the per-row eviction set and queue snapshot
   for (int r = threadIdx.x; r < TR; r += kThreads) {
@@ -505,6 +530,13 @@ admission_tenants_kernel(const int32_t* __restrict__ counts,
     if (lane == 0) {
       // an unroutable row never reaches its egress FIFO: it blocks nothing
       if (defer && routable) s_blocked[bl] = 1;
+      if (defer && s_stall != nullptr) {
+        // blame the healthy route's first physical hop (the row's own
+        // first hop unless it detours: no load on the chain)
+        const int32_t f0 =
+            detour ? seq_alt[static_cast<int64_t>(pair) * H2] : fl;
+        if (f0 >= 0) atomicAdd(s_stall + f0, c);
+      }
       out_bool[kFreshComplete * TR + r] = admit_c;
       out_bool[kFreshPark * TR + r] = admit_p;
       out[kTStallHop * TR + r] = defer ? 0 : -1;
@@ -525,6 +557,8 @@ admission_tenants_kernel(const int32_t* __restrict__ counts,
     out_links[kNotify * S + k] = s_notify[k];
     out_links[kParkedByLink * S + k] = s_pbl[k];
   }
+  if (s_stall != nullptr)
+    for (int k = lane; k < K; k += 32) out_stall[k] = s_stall[k];
 }
 
 }  // namespace
@@ -535,14 +569,15 @@ extern "C" int repro_admission(const void* counts, const void* pc0,
                                const void* epoch, const void* seq_alt,
                                const void* len_alt, const void* seg,
                                const void* down, void* out, void* out_bool,
-                               void* out_links, int n, int ndim, int H2,
-                               int Hs, void* stream) {
+                               void* out_links, void* out_stall, int n,
+                               int ndim, int H2, int Hs, void* stream) {
   if (n <= 0) return 0;
   if (H2 < 1 || H2 > 32 || ndim < 1 || ndim > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const int R = n * n;
   const int K = n * 2 * ndim;
-  const size_t smem = sizeof(int32_t) * (4 * static_cast<size_t>(K)
+  const size_t smem = sizeof(int32_t) * ((out_stall != nullptr ? 5 : 4)
+                                             * static_cast<size_t>(K)
                                          + 4 * static_cast<size_t>(R));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -558,8 +593,8 @@ extern "C" int repro_admission(const void* counts, const void* pc0,
       static_cast<const int32_t*>(seq_alt),
       static_cast<const int32_t*>(len_alt), static_cast<const int32_t*>(seg),
       static_cast<const bool*>(down), static_cast<int32_t*>(out),
-      static_cast<bool*>(out_bool), static_cast<int32_t*>(out_links), n, ndim,
-      H2, Hs);
+      static_cast<bool*>(out_bool), static_cast<int32_t*>(out_links),
+      static_cast<int32_t*>(out_stall), n, ndim, H2, Hs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -567,14 +602,15 @@ extern "C" int repro_admission_tenants(
     const void* counts, const void* pc0, const void* ph0, const void* pa0,
     const void* hs0, const void* credits, const void* pbl0, const void* epoch,
     const void* seq_alt, const void* len_alt, const void* seg,
-    const void* down, void* out, void* out_bool, void* out_links, int n,
-    int T, int ndim, int H2, int Hs, void* stream) {
+    const void* down, void* out, void* out_bool, void* out_links,
+    void* out_stall, int n, int T, int ndim, int H2, int Hs, void* stream) {
   if (n <= 0 || T <= 0) return 0;
   if (H2 < 1 || H2 > 32 || ndim < 1 || ndim > 3)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t R = static_cast<size_t>(n) * n;
   const size_t K = static_cast<size_t>(n) * 2 * ndim;
-  const size_t smem = sizeof(int32_t) * (3 * (T + 1) * K + T * K + 4 * T * R);
+  const size_t smem = sizeof(int32_t) * (3 * (T + 1) * K + T * K + 4 * T * R
+                                         + (out_stall != nullptr ? K : 0));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         admission_tenants_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -590,7 +626,7 @@ extern "C" int repro_admission_tenants(
       static_cast<const int32_t*>(seq_alt),
       static_cast<const int32_t*>(len_alt), static_cast<const int32_t*>(seg),
       static_cast<const bool*>(down), static_cast<int32_t*>(out),
-      static_cast<bool*>(out_bool), static_cast<int32_t*>(out_links), n, T,
-      ndim, H2, Hs);
+      static_cast<bool*>(out_bool), static_cast<int32_t*>(out_links),
+      static_cast<int32_t*>(out_stall), n, T, ndim, H2, Hs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,9 +46,9 @@ SIGNATURES = {
     "repro_ssd_chunk_tc": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _P),
     "repro_admission": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _I, _I, _I, _I, _P),
+                        _P, _P, _I, _I, _I, _I, _P),
     "repro_admission_tenants": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                                _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -25,6 +25,13 @@ source's tenant kernel, one launch per window, and runs
 :func:`admission_tenants_plain` or :func:`admission_tenants_faulted_plain`
 on CPU tensors.  The single-tenant kernel and its loops are untouched by
 it.
+
+With ``stall_lane=True`` both forms also return ``stalled_by_link``, the
+window's deferred events per physical egress link (reference
+``_stall_attr``): a deferred row's count is blamed on the first hop of
+its healthy route, also under a mask, and a local row adds nothing.  The
+kernels write it in the same launch; the plain versions compute it from
+the replay's ``stall_hop`` (:func:`stall_table`).
 """
 from __future__ import annotations
 
@@ -57,6 +64,9 @@ class AdmissionOut(NamedTuple):
     rerouted: torch.Tensor          # int32 events delivered via a detour
     links_done: torch.Tensor        # int32 route length (detours included)
                                     #   of rows delivered this window, else 0
+    stalled_by_link: torch.Tensor | None = None   # (K,) int32 deferred
+                                    #   events per first egress link of the
+                                    #   healthy route (``stall_lane``)
 
 
 class RouteTables(NamedTuple):
@@ -85,20 +95,36 @@ def _unrot(rows: torch.Tensor, xs) -> torch.Tensor:
     return out
 
 
-def _finish(n, rows, flat, res, offer, run, credits, queue_events):
-    """Merge the two phases' per-row lists into an :class:`AdmissionOut`."""
+def stall_table(stall_hop, counts, first_hop, n_links: int) -> torch.Tensor:
+    """(K,) int32 deferred events per physical egress link: each row with
+    ``stall_hop >= 0`` adds its count to the first hop of its pair's
+    healthy route (``first_hop``, (n²,), -1 for a local pair); rows beyond
+    n² (the tenant replay's T n²) map to pair ``row % n²``."""
+    stall_hop, counts = stall_hop.reshape(-1), counts.reshape(-1)
+    fl = first_hop.repeat(stall_hop.shape[0] // first_hop.shape[0])
+    add = torch.where((stall_hop >= 0) & (fl >= 0), counts, 0)
+    return torch.zeros(n_links, dtype=torch.int32,
+                       device=counts.device).index_add_(
+        0, torch.clamp(fl, min=0).long(), add.to(torch.int32))
+
+
+def _finish(n, rows, flat, res, offer, run, credits, queue_events,
+            first_hop=None):
+    """Merge the two phases' per-row lists into an :class:`AdmissionOut`
+    (with the stall lane when ``first_hop`` is given)."""
     res_c, pc_a, ph_a, age_res, age_a, trav_a, rer_a, done_a = res
     adm_c, adm_p, stall, hp_b, trav_b, rer_b, done_b = offer
     fresh_park = _unrot(rows, adm_p)
     sq = lambda x: x.reshape(n, n)
     i32 = lambda xs: _unrot(rows, xs).to(torch.int32)
+    stall_hop = i32(stall)
     # a freshly parked row enters at age 1
     return AdmissionOut(
         fresh_complete=sq(_unrot(rows, adm_c)),
         fresh_park=sq(fresh_park),
         resumed_complete=sq(_unrot(rows, res_c)),
         resume_age=sq(i32(age_res)),
-        stall_hop=sq(i32(stall)),
+        stall_hop=sq(stall_hop),
         park_count=sq(torch.where(fresh_park, flat, i32(pc_a))),
         park_hop=sq(torch.where(fresh_park, i32(hp_b), i32(ph_a))),
         park_age=sq(torch.where(fresh_park, 1, i32(age_a)).to(torch.int32)),
@@ -108,10 +134,13 @@ def _finish(n, rows, flat, res, offer, run, credits, queue_events):
         notify=run[1].clone(),
         queue_events=queue_events.to(torch.int32).reshape(n, n),
         rerouted=sq(i32(rer_a) + i32(rer_b)),
-        links_done=sq(i32(done_a) + i32(done_b)))
+        links_done=sq(i32(done_a) + i32(done_b)),
+        stalled_by_link=None if first_hop is None else stall_table(
+            stall_hop, flat, first_hop, credits.shape[0]))
 
 
-def admission_plain(counts, state, tables: RouteTables) -> AdmissionOut:
+def admission_plain(counts, state, tables: RouteTables, *,
+                    stall_lane: bool = False) -> AdmissionOut:
     """The healthy replay, plain PyTorch (the reference's
     ``_admit_global``).
 
@@ -130,7 +159,7 @@ def admission_plain(counts, state, tables: RouteTables) -> AdmissionOut:
 
     Each phase is a loop over the rows whose body is tensor operations over
     the hops, the running credits, notifies and holds one (3, K) tensor
-    updated in place.
+    updated in place.  ``stall_lane`` adds ``stalled_by_link``.
     """
     n = counts.shape[0]
     seq = tables.seq_alt[0]                          # the default routes
@@ -219,11 +248,12 @@ def admission_plain(counts, state, tables: RouteTables) -> AdmissionOut:
                 torch.where(admit_c, L, zero))):
             out.append(x)
     return _finish(n, rows, flat, res, offer, run, state.bank.credits,
-                   queue_events)
+                   queue_events, seq[:, 0] if stall_lane else None)
 
 
 def admission_faulted_plain(counts, state, tables: RouteTables,
-                            link_down: torch.Tensor) -> AdmissionOut:
+                            link_down: torch.Tensor, *,
+                            stall_lane: bool = False) -> AdmissionOut:
     """The replay under a (K,) bool dead-link mask, plain PyTorch (the
     reference's ``_admit_global_faulted``).  The healthy replay with three
     rules on top:
@@ -239,6 +269,8 @@ def admission_faulted_plain(counts, state, tables: RouteTables,
       leaves it parked at hop 0 holding nothing.
     * **All-or-nothing detours**: a row on a detour (combo != 0) completes
       or stays put; only rows on the default route park mid-route.
+
+    ``stall_lane`` adds ``stalled_by_link``, blamed on the healthy route.
     """
     n = counts.shape[0]
     device = counts.device
@@ -380,7 +412,7 @@ def admission_faulted_plain(counts, state, tables: RouteTables,
                 torch.where(admit_c, L, zero))):
             out.append(x)
     return _finish(n, rows, flat, res, offer, run, state.bank.credits,
-                   queue_events)
+                   queue_events, seq0[:, 0] if stall_lane else None)
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +440,8 @@ class TenantAdmissionOut(NamedTuple):
     queue_events: torch.Tensor      # (T, S, S) parked events queued ahead
     rerouted: torch.Tensor          # (T, S, S) events delivered via detour
     links_done: torch.Tensor        # (T, S, S) delivered-route link counts
-    stalled_by_link: torch.Tensor | None = None   # item 10 (observability)
+    stalled_by_link: torch.Tensor | None = None   # (K,) physical links
+                                    #   (``stall_lane``)
 
 
 def _tenant_rows(n: int, T: int, epoch: torch.Tensor, device):
@@ -419,19 +452,22 @@ def _tenant_rows(n: int, T: int, epoch: torch.Tensor, device):
 
 
 def _finish_tenants(T, n, rows, flat, res, offer, run, credits,
-                    queue_events) -> TenantAdmissionOut:
-    """Merge the two phases' per-row lists into a TenantAdmissionOut."""
+                    queue_events, first_hop=None) -> TenantAdmissionOut:
+    """Merge the two phases' per-row lists into a TenantAdmissionOut
+    (with the stall lane over the physical links when ``first_hop`` is
+    given)."""
     res_c, pc_a, ph_a, age_res, age_a, trav_a, hs_a, rer_a, done_a = res
     adm_c, adm_p, stall, hp_b, trav_b, hs_b, rer_b, done_b = offer
     fresh_park = _unrot(rows, adm_p)
     sq = lambda x: x.reshape(T, n, n)
     i32 = lambda xs: _unrot(rows, xs).to(torch.int32)
+    stall_hop = i32(stall)
     return TenantAdmissionOut(
         fresh_complete=sq(_unrot(rows, adm_c)),
         fresh_park=sq(fresh_park),
         resumed_complete=sq(_unrot(rows, res_c)),
         resume_age=sq(i32(age_res)),
-        stall_hop=sq(i32(stall)),
+        stall_hop=sq(stall_hop),
         park_count=sq(torch.where(fresh_park, flat, i32(pc_a))),
         park_hop=sq(torch.where(fresh_park, i32(hp_b), i32(ph_a))),
         park_age=sq(torch.where(fresh_park, 1, i32(age_a)).to(torch.int32)),
@@ -442,7 +478,9 @@ def _finish_tenants(T, n, rows, flat, res, offer, run, credits,
         notify=run[1].clone(),
         queue_events=queue_events.to(torch.int32).reshape(T, n, n),
         rerouted=sq(i32(rer_a) + i32(rer_b)),
-        links_done=sq(i32(done_a) + i32(done_b)))
+        links_done=sq(i32(done_a) + i32(done_b)),
+        stalled_by_link=None if first_hop is None else stall_table(
+            stall_hop, flat, first_hop, credits.shape[0] // (T + 1)))
 
 
 def _split(run, slot_r, slot_s, trav, c, zero):
@@ -459,8 +497,8 @@ def _tenant_operands(counts, state, T, n):
             state.parked_hold_shared.reshape(-1))
 
 
-def admission_tenants_plain(counts, state,
-                            tables: RouteTables) -> TenantAdmissionOut:
+def admission_tenants_plain(counts, state, tables: RouteTables, *,
+                            stall_lane: bool = False) -> TenantAdmissionOut:
     """The healthy tenant replay, plain PyTorch (the reference's
     ``_admit_tenants``).
 
@@ -473,6 +511,7 @@ def admission_tenants_plain(counts, state,
     row, ``hold_shared``, and refunded to the slot that funded it); the
     head-of-line block is per (tenant, egress link).  The queue snapshot
     reads the held units of the physical links (all slots of a link).
+    ``stall_lane`` adds ``stalled_by_link`` over the physical links.
     """
     T, n = counts.shape[0], counts.shape[1]
     R = n * n
@@ -576,18 +615,21 @@ def admission_tenants_plain(counts, state,
                 torch.where(admit_c, L, zero))):
             out.append(x)
     return _finish_tenants(T, n, rows, flat, res, offer, run,
-                           state.bank.credits, queue_events)
+                           state.bank.credits, queue_events,
+                           seq[:, 0] if stall_lane else None)
 
 
 def admission_tenants_faulted_plain(counts, state, tables: RouteTables,
-                                    link_down: torch.Tensor
+                                    link_down: torch.Tensor, *,
+                                    stall_lane: bool = False
                                     ) -> TenantAdmissionOut:
     """The tenant replay under a (K,) bool dead-link mask, plain PyTorch
     (the reference's ``_admit_tenants_faulted``): the fault rules of
     :func:`admission_faulted_plain` (per-pair reroute shared by every
     tenant, eviction back to hop 0, all-or-nothing detours) with the
     reserved-first spending and split hold refunds of
-    :func:`admission_tenants_plain`."""
+    :func:`admission_tenants_plain`; ``stall_lane`` adds
+    ``stalled_by_link``, blamed on the healthy route."""
     T, n = counts.shape[0], counts.shape[1]
     R = n * n
     K = state.bank.credits.shape[0] // (T + 1)
@@ -748,7 +790,8 @@ def admission_tenants_faulted_plain(counts, state, tables: RouteTables,
                 torch.where(admit_c, L, zero))):
             out.append(x)
     return _finish_tenants(T, n, rows, flat, res, offer, run,
-                           state.bank.credits, queue_events)
+                           state.bank.credits, queue_events,
+                           seq0[:, 0] if stall_lane else None)
 
 
 # rows of the kernel's int32 output block, then its bool block, in order
@@ -762,17 +805,19 @@ _LINK_FIELDS = ("spent", "notify", "parked_by_link")
 _TENANT_I32_FIELDS = _I32_FIELDS + ("hold_shared",)
 
 
-def shared_bytes(n_rows: int, n_links: int, n_tenants: int = 0) -> int:
+def shared_bytes(n_rows: int, n_links: int, n_tenants: int = 0, *,
+                 stall_lane: bool = False) -> int:
     """Shared memory of one launch (``csrc/admission.cu``) for ``n_rows``
     (src, dst) pairs and ``n_links`` physical links.  Single-tenant
     (``n_tenants`` 0): four per-link and four per-row int32 arrays.  The
     tenant form: three per-slot arrays over ``(T+1) * n_links`` slots, the
     per-(tenant, link) block flags and four arrays over the ``T * n_rows``
-    rows."""
+    rows.  The stall lane adds one per-link array."""
+    lane = n_links if stall_lane else 0
     if n_tenants <= 0:
-        return 4 * (4 * n_links + 4 * n_rows)
+        return 4 * (4 * n_links + 4 * n_rows + lane)
     T = n_tenants
-    return 4 * (3 * (T + 1) * n_links + T * n_links + 4 * T * n_rows)
+    return 4 * (3 * (T + 1) * n_links + T * n_links + 4 * T * n_rows + lane)
 
 
 def _check(name, t, shape, dtype, contiguous):
@@ -786,7 +831,8 @@ def _check(name, t, shape, dtype, contiguous):
 
 
 def admission(counts, state, tables: RouteTables,
-              link_down: torch.Tensor | None = None) -> AdmissionOut:
+              link_down: torch.Tensor | None = None, *,
+              stall_lane: bool = False) -> AdmissionOut:
     """Kernel F on CUDA tensors, one launch; on CPU tensors the plain
     replay, healthy (:func:`admission_plain`) or under the mask
     (:func:`admission_faulted_plain`).
@@ -794,8 +840,9 @@ def admission(counts, state, tables: RouteTables,
     ``counts`` (S, S) int32 rows offered this window; ``state`` the
     window's ``FabricState`` (its bank's credits and epoch, the transit
     tables); ``tables`` the transport's :class:`RouteTables`;
-    ``link_down`` None or the (K,) bool dead-link mask.  Operands of
-    another type or shape are refused on both paths.
+    ``link_down`` None or the (K,) bool dead-link mask; ``stall_lane``
+    adds ``stalled_by_link`` (in the same launch on the card).  Operands
+    of another type or shape are refused on both paths.
     """
     operands = [counts, state.parked_count, state.parked_hop,
                 state.parked_age, state.bank.credits, state.bank.epoch,
@@ -828,18 +875,22 @@ def admission(counts, state, tables: RouteTables,
             f"shard and at most {MAX_HOPS} hops")
     if not cuda:
         if link_down is None:
-            return admission_plain(counts, state, tables)
-        return admission_faulted_plain(counts, state, tables, link_down)
-    if shared_bytes(R, K) > MAX_SHARED:
-        raise ValueError(f"admission: {n} shards need "
-                         f"{shared_bytes(R, K)} bytes of shared memory, "
-                         f"the kernel has {MAX_SHARED}")
+            return admission_plain(counts, state, tables,
+                                   stall_lane=stall_lane)
+        return admission_faulted_plain(counts, state, tables, link_down,
+                                       stall_lane=stall_lane)
+    smem = shared_bytes(R, K, stall_lane=stall_lane)
+    if smem > MAX_SHARED:
+        raise ValueError(f"admission: {n} shards need {smem} bytes of "
+                         f"shared memory, the kernel has {MAX_SHARED}")
     out_i32 = torch.empty((len(_I32_FIELDS), n, n), dtype=torch.int32,
                           device=counts.device)
     out_bool = torch.empty((len(_BOOL_FIELDS), n, n), dtype=torch.bool,
                            device=counts.device)
     out_links = torch.empty((len(_LINK_FIELDS), K), dtype=torch.int32,
                             device=counts.device)
+    out_stall = (torch.empty((K,), dtype=torch.int32, device=counts.device)
+                 if stall_lane else None)
     dispatch.launch(
         "admission", "repro_admission", counts.data_ptr(),
         state.parked_count.data_ptr(), state.parked_hop.data_ptr(),
@@ -849,16 +900,16 @@ def admission(counts, state, tables: RouteTables,
         tables.seg.data_ptr(),
         None if link_down is None else link_down.data_ptr(),
         out_i32.data_ptr(), out_bool.data_ptr(), out_links.data_ptr(),
-        n, ndim, H2, Hs)
+        None if out_stall is None else out_stall.data_ptr(), n, ndim, H2, Hs)
     fields = dict(zip(_I32_FIELDS, out_i32))
     fields.update(zip(_BOOL_FIELDS, out_bool))
     fields.update(zip(_LINK_FIELDS, out_links))
-    return AdmissionOut(**fields)
+    return AdmissionOut(**fields, stalled_by_link=out_stall)
 
 
 def admission_tenants(counts, state, tables: RouteTables,
-                      link_down: torch.Tensor | None = None
-                      ) -> TenantAdmissionOut:
+                      link_down: torch.Tensor | None = None, *,
+                      stall_lane: bool = False) -> TenantAdmissionOut:
     """Kernel F's tenant form on CUDA tensors, one launch; on CPU tensors
     the plain replay, healthy (:func:`admission_tenants_plain`) or under
     the mask (:func:`admission_tenants_faulted_plain`).
@@ -867,8 +918,9 @@ def admission_tenants(counts, state, tables: RouteTables,
     ((T, S, S) transit tables with ``parked_hold_shared``, ``(T+1)*K``
     bank slots and ``parked_by_link``); ``tables`` the transport's
     :class:`RouteTables`; ``link_down`` None or the (K,) bool mask of the
-    physical links.  Operands of another type or shape are refused on
-    both paths.
+    physical links; ``stall_lane`` adds ``stalled_by_link`` over the K
+    physical links (in the same launch on the card).  Operands of another
+    type or shape are refused on both paths.
     """
     operands = [counts, state.parked_count, state.parked_hop,
                 state.parked_age, state.parked_hold_shared,
@@ -907,19 +959,24 @@ def admission_tenants(counts, state, tables: RouteTables,
             f"{MAX_HOPS} hops")
     if not cuda:
         if link_down is None:
-            return admission_tenants_plain(counts, state, tables)
+            return admission_tenants_plain(counts, state, tables,
+                                           stall_lane=stall_lane)
         return admission_tenants_faulted_plain(counts, state, tables,
-                                               link_down)
-    if shared_bytes(R, K, T) > MAX_SHARED:
+                                               link_down,
+                                               stall_lane=stall_lane)
+    smem = shared_bytes(R, K, T, stall_lane=stall_lane)
+    if smem > MAX_SHARED:
         raise ValueError(f"admission_tenants: {n} shards and {T} tenants "
-                         f"need {shared_bytes(R, K, T)} bytes of shared "
-                         f"memory, the kernel has {MAX_SHARED}")
+                         f"need {smem} bytes of shared memory, the kernel "
+                         f"has {MAX_SHARED}")
     out_i32 = torch.empty((len(_TENANT_I32_FIELDS), T, n, n),
                           dtype=torch.int32, device=counts.device)
     out_bool = torch.empty((len(_BOOL_FIELDS), T, n, n), dtype=torch.bool,
                            device=counts.device)
     out_links = torch.empty((len(_LINK_FIELDS), (T + 1) * K),
                             dtype=torch.int32, device=counts.device)
+    out_stall = (torch.empty((K,), dtype=torch.int32, device=counts.device)
+                 if stall_lane else None)
     dispatch.launch(
         "admission", "repro_admission_tenants", counts.data_ptr(),
         state.parked_count.data_ptr(), state.parked_hop.data_ptr(),
@@ -929,8 +986,9 @@ def admission_tenants(counts, state, tables: RouteTables,
         tables.len_alt.data_ptr(), tables.seg.data_ptr(),
         None if link_down is None else link_down.data_ptr(),
         out_i32.data_ptr(), out_bool.data_ptr(), out_links.data_ptr(),
-        n, T, ndim, H2, Hs)
+        None if out_stall is None else out_stall.data_ptr(), n, T, ndim, H2,
+        Hs)
     fields = dict(zip(_TENANT_I32_FIELDS, out_i32))
     fields.update(zip(_BOOL_FIELDS, out_bool))
     fields.update(zip(_LINK_FIELDS, out_links))
-    return TenantAdmissionOut(**fields)
+    return TenantAdmissionOut(**fields, stalled_by_link=out_stall)

@@ -26,7 +26,10 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; raises without one)")
+    from repro_torch.obs import log as obs_log
+    obs_log.add_log_args(ap)
     args = ap.parse_args(argv)
+    obs_log.setup_logging("INFO", quiet=args.quiet, verbose=args.verbose)
 
     import numpy as np
     import torch

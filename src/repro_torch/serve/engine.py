@@ -11,21 +11,22 @@ Differences from the reference:
 * ``temperature > 0`` samples from a ``torch.Generator`` seeded with
   ``seed``; it cannot reproduce ``jax.random``.  Greedy decoding is
   deterministic and is what the parity tests use.
-* The ``tracer`` (Perfetto spans) waits for the observability slice
-  (ROADMAP queue 1, item 10); instead each wave's host-clock timings are
-  kept in :attr:`Engine.waves`.  Both end points of each timing are
-  already host synchronisations (the sampled token is copied to the host
-  for the EOS check), so no synchronisation is added for them.
+* Each wave's host-clock timings are also kept in :attr:`Engine.waves`.
+  They are the ``serve/prefill`` and ``serve/decode`` spans, which a
+  ``tracer`` (``obs.Tracer``) records and the shared disabled tracer only
+  times.  Both end points of each span are already host synchronisations
+  (the sampled token is copied to the host for the EOS check), so no
+  synchronisation is added for them.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.obs import spans as obs_spans
 
 
 @dataclasses.dataclass
@@ -55,12 +56,9 @@ class WaveStats:
 
 class Engine:
     def __init__(self, model: Model, cfg: ServeConfig, seed: int = 0,
-                 tracer=None):
-        if tracer is not None:
-            raise NotImplementedError(
-                "serve spans come with observability (ROADMAP queue 1, "
-                "item 10)")
+                 tracer: obs_spans.Tracer | None = None):
         self.model = model
+        self.tracer = tracer if tracer is not None else obs_spans.NULL
         self.cfg = cfg
         self.seed = seed
         self.waves: list[WaveStats] = []
@@ -95,26 +93,28 @@ class Engine:
             for j, r in enumerate(wave):
                 toks[j, S - len(r.prompt):] = r.prompt    # left-pad
             tokens = torch.from_numpy(toks).to(device)
-            t0 = time.perf_counter()
-            caches = self.model.init_caches(B, self.cfg.max_len,
-                                            device=device)
-            h, caches = self.model.prefill(params, {"tokens": tokens},
-                                           caches)
-            tok = self._sample(self.model.logits(params, h[:, -1:, :]))
-            gen = [tok.cpu().numpy()]
-            t1 = time.perf_counter()
+            with self.tracer.span("serve/prefill", track="serve", batch=B,
+                                  prompt_len=S) as pre:
+                caches = self.model.init_caches(B, self.cfg.max_len,
+                                                device=device)
+                h, caches = self.model.prefill(params, {"tokens": tokens},
+                                               caches)
+                tok = self._sample(self.model.logits(params, h[:, -1:, :]))
+                gen = [tok.cpu().numpy()]
             done = np.zeros((B,), bool)
-            for _ in range(self.cfg.max_new_tokens - 1):
-                logits, caches = self.model.decode(params, caches,
-                                                   tok[:, None])
-                tok = self._sample(logits)
-                gen.append(tok.cpu().numpy())
-                done |= gen[-1] == self.cfg.eos_id
-                if done.all():
-                    break
-            t2 = time.perf_counter()
-            self.waves.append(WaveStats(B, S, t1 - t0, len(gen) - 1,
-                                        t2 - t1))
+            with self.tracer.span("serve/decode", track="serve",
+                                  batch=B) as dec:
+                for _ in range(self.cfg.max_new_tokens - 1):
+                    logits, caches = self.model.decode(params, caches,
+                                                       tok[:, None])
+                    tok = self._sample(logits)
+                    gen.append(tok.cpu().numpy())
+                    done |= gen[-1] == self.cfg.eos_id
+                    if done.all():
+                        break
+                dec.args["tokens"] = len(gen)
+            self.waves.append(WaveStats(B, S, pre.dur_s, len(gen) - 1,
+                                        dec.dur_s))
             g = np.stack(gen, axis=1).astype(np.int32)
             for j, r in enumerate(wave):
                 seq = g[j]

@@ -28,11 +28,20 @@ are empty, then one final walk (an uncredited flush plus
 tenant.  Latency is attributed on the receiver from the injection window
 each event carries in its wire word's meta lane.
 
+Observability is opt-in.  ``recorder`` (an ``obs.RecorderConfig``) puts a
+``TelemetryRing`` in the carry as a fifth element: every served window,
+drain segments included, records its per-tenant counters, credit slots,
+kernel F's per-link stall table and latency histogram
+(:meth:`SpikeEngine.recorder_rows`).  ``tracer`` (an ``obs.Tracer``)
+records the ingest and device threads' spans and, per segment, a
+``device/segment`` span over the host's wait for the stats copy plus one
+``window`` instant per window; no span waits on the device beyond what
+the engine already waits for.
+
 Differences from the reference: the shard axis is a tensor dimension (no
 mesh; ``n_shards`` and ``device`` instead), event words are int32 bit
 patterns, and a segment is a Python loop of windows (the reference scans
-them in one jit).  The flight recorder and the span tracer are ROADMAP
-queue 1, item 10.
+them in one jit).
 """
 from __future__ import annotations
 
@@ -47,14 +56,11 @@ import torch
 
 from repro_torch.fabric import faults as fabric_faults
 from repro_torch.kernels import dispatch
+from repro_torch.obs import recorder as obs_recorder
+from repro_torch.obs import spans as obs_spans
 from repro_torch.serve import tenancy
 from repro_torch.wire import codec
 from repro_torch.wire import latency as wire_latency
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"item 10: observability)")
 
 
 class EngineConfig(NamedTuple):
@@ -144,12 +150,11 @@ class SpikeEngine:
     def __init__(self, n_shards: int, tenants: Sequence[tenancy.TenantSpec],
                  cfg: EngineConfig, source,
                  fault_schedule: fabric_faults.FaultSchedule | None = None,
-                 recorder=None, tracer=None, *, device=None):
-        if recorder is not None:
-            raise _not_ported("the serve engine's flight recorder")
-        if tracer is not None:
-            raise _not_ported("the serve engine's span tracer")
+                 recorder: obs_recorder.RecorderConfig | None = None,
+                 tracer: obs_spans.Tracer | None = None, *, device=None):
         self.device = dispatch.resolve_device(device)
+        self.recorder = recorder
+        self.tracer = tracer if tracer is not None else obs_spans.NULL
         self.tenants = tuple(tenants)
         self.cfg = cfg
         self.source = source
@@ -166,7 +171,8 @@ class SpikeEngine:
             S, self.tenants, link_credits=cfg.link_credits,
             notify_latency=cfg.notify_latency, nx=cfg.nx, ny=cfg.ny,
             nz=cfg.nz, max_row_events=cfg.capacity,
-            wire_format=cfg.wire_format)
+            wire_format=cfg.wire_format,
+            stall_attribution=recorder is not None)
         self.fault_schedule = None if fault_schedule is None else \
             fabric_faults.FaultSchedule(fault_schedule.link_down.to(
                 self.device))
@@ -212,8 +218,9 @@ class SpikeEngine:
     def _window(self, carry, fw_w, fc_w, win_abs: int):
         """One flush window: FIFO merge (the backlog row first, fresh
         arrivals behind it, overflow beyond C shed), encode, exchange,
-        attribution -> (carry, WindowServeStats)."""
-        state, bw, bm, bc = carry
+        attribution (and the flight recorder's record) -> (carry,
+        WindowServeStats)."""
+        state, bw, bm, bc = carry[:4]
         C, pos = self.cfg.capacity, self._pos
         b = bc[..., None]
         sel_b = pos < b
@@ -231,11 +238,15 @@ class SpikeEngine:
                 self.fault_schedule, win_abs))
         out = self.transport.exchange(state, payload, cnt)
         keep = ~out.sent_mask
+        ring = carry[4:]
         carry = (out.state, torch.where(keep[..., None], words, 0),
                  torch.where(keep[..., None], meta, 0),
                  torch.where(keep, cnt, 0))
         summary, delivered = self._attribute(out, win_abs)
         st = out.stats
+        if ring:
+            carry += (obs_recorder.record(ring[0], win_abs, st, out.state,
+                                          summary.hist),)
         return carry, WindowServeStats(
             offered=st.offered_events, sent=st.sent_events,
             deferred=st.deferred_events, parked=st.parked_events,
@@ -274,7 +285,7 @@ class SpikeEngine:
         """Final walk: one uncredited flush of the backlog plus the
         transit-buffer drain (``drain_fabric``), so nothing the fabric
         still holds is lost across engine stop."""
-        state, bw, bm, bc = carry
+        state, bw, bm, bc = carry[:4]
         payload = codec.encode_planar(bw.contiguous(), bm.contiguous())
         out1 = self.transport.exchange(state, payload, bc,
                                        enforce_credits=False)
@@ -289,8 +300,15 @@ class SpikeEngine:
         nw, depth = self.cfg.seg_windows, self.cfg.queue_depth
         z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                        device=self.device)
-        self._carry = (self.transport.init_state(2 * C, device=self.device),
-                       z(S, T, S, C), z(S, T, S, C), z(S, T, S))
+        state0 = self.transport.init_state(2 * C, device=self.device)
+        self._carry = (state0, z(S, T, S, C), z(S, T, S, C), z(S, T, S))
+        if self.recorder is not None:
+            # the credit lanes hold the (T+1)*K partition slots, the stall
+            # lane the K physical links
+            self._carry += (obs_recorder.ring_init(
+                self.recorder.depth, state0, (T,),
+                (T, wire_latency.N_LATENCY_BINS),
+                S * self.transport.n_links, n_shards=S),)
         # the staging slots: filled in place by the ingest thread, pinned
         # for the card so a copy can run on the side stream
         pin = self.device.type == "cuda"
@@ -321,13 +339,15 @@ class SpikeEngine:
         cbuf = self._counts_buf[slot].numpy()
         inj = np.zeros((self.n_tenants,), np.int64)
         clip = np.zeros((self.n_tenants,), np.int64)
-        for i in range(nw):
-            tr = self.source.next_window(seg * nw + i)
-            # shard s offers rows (tenant, dst) = traffic[:, s, :]
-            cbuf[i] = tr.counts.transpose(1, 0, 2)
-            wbuf[i] = tr.words.transpose(1, 0, 2, 3)
-            inj += tr.counts.astype(np.int64).sum((1, 2))
-            clip += tr.clipped
+        with self.tracer.span("ingest/fill", track="spike-ingest",
+                              seg=seg, win0=seg * nw):
+            for i in range(nw):
+                tr = self.source.next_window(seg * nw + i)
+                # shard s offers rows (tenant, dst) = traffic[:, s, :]
+                cbuf[i] = tr.counts.transpose(1, 0, 2)
+                wbuf[i] = tr.words.transpose(1, 0, 2, 3)
+                inj += tr.counts.astype(np.int64).sum((1, 2))
+                clip += tr.clipped
         return inj, clip
 
     def _ingest_loop(self):
@@ -337,10 +357,15 @@ class SpikeEngine:
                 if (self._max_segments is not None
                         and seg >= self._max_segments):
                     break
+                t0 = self.tracer.now_us()
                 try:
                     slot = self._free_q.get(timeout=0.05)
                 except queue.Empty:
                     continue
+                self.tracer.complete("ingest/slot_wait", t0,
+                                     self.tracer.now_us() - t0,
+                                     track="spike-ingest", cat="host",
+                                     slot=slot)
                 inj, clip = self._fill_segment(slot, seg)
                 self._staged_q.put((slot, inj, clip))
                 seg += 1
@@ -370,14 +395,20 @@ class SpikeEngine:
         try:
             with self._on_stream():
                 while True:
-                    item = self._staged_q.get()
+                    with self.tracer.span("device/staged_wait",
+                                          track="spike-device"):
+                        item = self._staged_q.get()
                     if item is None:
                         break
                     slot, inj, clip = item
-                    fw, fc_, copied = self._stage(slot)
+                    with self.tracer.span("device/h2d", track="spike-device",
+                                          slot=slot):
+                        fw, fc_, copied = self._stage(slot)
                     win0 = self._win
-                    self._carry, ws = self._segment(self._carry, fw, fc_,
-                                                    win0)
+                    with self.tracer.span("device/dispatch",
+                                          track="spike-device", win0=win0):
+                        self._carry, ws = self._segment(self._carry, fw,
+                                                        fc_, win0)
                     if copied is not None:
                         copied.synchronize()
                     self._free_q.put(slot)    # the copy is done: reusable
@@ -385,10 +416,10 @@ class SpikeEngine:
                     self._windows += self.cfg.seg_windows
                     self.ledger.add_injected(inj, clip)
                     if prev is not None:      # absorb k-1 while k runs
-                        self._absorb(prev)
-                    prev = ws
+                        self._absorb(*prev)
+                    prev = (ws, win0)
                 if prev is not None:
-                    self._absorb(prev)
+                    self._absorb(*prev)
         except BaseException as exc:         # re-raised by stop()
             self._device_error = exc
             self._stop_evt.set()
@@ -399,11 +430,26 @@ class SpikeEngine:
                     break
         self._t1 = time.perf_counter()
 
-    def _absorb(self, item):
+    def _absorb(self, item, win0: int):
+        t0 = self.tracer.now_us()
         ws = _tree_map(lambda x: x.numpy(), self._ready(item))
         self.window_stats.append(ws)
         self.ledger.add_windows(ws.delivered, ws.shed, ws.latency.hist,
                                 ws.latency.max_us, ws.latency.mean_us)
+        if self.tracer.enabled:
+            # the wait for the segment's stats copy is where the host sees
+            # the segment finish: it stands for the device segment, and
+            # the window instants carry the absolute indices the wire
+            # words' meta lane and the recorder's rows are stamped with
+            nw = self.cfg.seg_windows
+            self.tracer.complete("device/segment", t0,
+                                 self.tracer.now_us() - t0, track="device",
+                                 win0=win0, windows=nw)
+            delivered = ws.delivered.sum(axis=(1, 2))      # (nw,)
+            for i in range(nw):
+                self.tracer.instant("window", track="device", cat="device",
+                                    window=win0 + i,
+                                    delivered=int(delivered[i]))
 
     # -- lifecycle ---------------------------------------------------------
     def start(self, max_segments: int | None = None):
@@ -425,8 +471,9 @@ class SpikeEngine:
         results discarded (engine state is not changed): builds the kernel
         library and warms the allocator, so a timed run excludes them."""
         with self._on_stream():
-            _, ws = self._segment(self._carry, self._zero_fw, self._zero_fc,
-                                  0)
+            carry = self._carry[:4] + tuple(
+                obs_recorder.ring_clone(r) for r in self._carry[4:])
+            _, ws = self._segment(carry, self._zero_fw, self._zero_fc, 0)
             self._ready(ws)
             _, walk = self._drain_walk(self._carry, 0)
             self._ready(walk)
@@ -440,7 +487,19 @@ class SpikeEngine:
             return int(self._carry[0].parked_count.sum())
 
     def recorder_rows(self, shard: int | None = None) -> list[dict]:
-        raise _not_ported("the serve engine's flight recorder")
+        """Decode the flight recorder's ring (needs ``recorder=``):
+        ``shard=None`` gives the global per-window rows (counter and
+        histogram lanes summed over the shards), an int that shard's
+        view."""
+        if self.recorder is None:
+            raise RuntimeError("engine was built without a flight "
+                               "recorder (pass recorder=RecorderConfig())")
+        ring = self._carry[4]
+        with self._on_stream():          # behind the windows that wrote it
+            if shard is None:
+                return obs_recorder.global_rows(ring, self.n_shards)
+            return obs_recorder.ring_rows(obs_recorder.ring_shard(ring,
+                                                                  shard))
 
     def _drain(self):
         """Quiesce: zero-traffic segments until backlog and fabric are
@@ -451,21 +510,27 @@ class SpikeEngine:
                 if (self.backlog_events() == 0
                         and self.in_fabric_events() == 0):
                     break
+                win0 = self._win
                 self._carry, ws = self._segment(self._carry, self._zero_fw,
-                                                self._zero_fc, self._win)
+                                                self._zero_fc, win0)
                 self._win += nw
                 self._drain_windows += nw
-                self._absorb(ws)
-            state, walk = self._drain_walk(self._carry, self._win)
-            s1, d1, s2, d2 = self._ready(walk)
-            zero = np.zeros(tuple(d1.shape), np.int64)
-            for s, d in ((s1, d1), (s2, d2)):
-                self.ledger.add_windows(d.numpy(), zero, s.hist.numpy(),
-                                        s.max_us.numpy(), s.mean_us.numpy())
+                self._absorb(ws, win0)
+            with self.tracer.span("drain/walk", track="spike-device",
+                                  win0=self._win):
+                state, walk = self._drain_walk(self._carry, self._win)
+                s1, d1, s2, d2 = self._ready(walk)
+                zero = np.zeros(tuple(d1.shape), np.int64)
+                for s, d in ((s1, d1), (s2, d2)):
+                    self.ledger.add_windows(d.numpy(), zero, s.hist.numpy(),
+                                            s.max_us.numpy(),
+                                            s.mean_us.numpy())
             S, T, C = self.n_shards, self.n_tenants, self.cfg.capacity
             z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                            device=self.device)
-            self._carry = (state, z(S, T, S, C), z(S, T, S, C), z(S, T, S))
+            # the ring (carry[4:]) survives, so the rows cover the run
+            self._carry = (state, z(S, T, S, C), z(S, T, S, C),
+                           z(S, T, S)) + self._carry[4:]
             if self._stream is not None:
                 self._stream.synchronize()
 

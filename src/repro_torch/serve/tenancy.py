@@ -68,8 +68,9 @@ def build_fabric(n_shards: int, tenants: Sequence[TenantSpec], *,
     """The shared 3-D torus with per-tenant credit partitioning.
 
     Dimensions default to the most-cubic factorization of ``n_shards``.
-    ``stall_attribution`` (the flight recorder's per-link table) is not
-    ported yet: ROADMAP queue 1, item 10.
+    ``stall_attribution`` adds the per-link table of deferred events
+    (``LinkStats.stalled_by_link``, kernel F's stall lane) to every
+    credited window: the flight recorder's congestion lane.
     """
     dims = (nx, ny, nz)
     if not all(dims):
@@ -167,9 +168,22 @@ class TenantLedger:
         return out
 
     def export_metrics(self, registry) -> None:
-        raise NotImplementedError(
-            "TenantLedger.export_metrics is not ported yet (ROADMAP queue 1, "
-            "item 10: observability)")
+        """Feed the run-level per-tenant ledger into an
+        ``obs.metrics.Registry``: delivered, injected and shed counters,
+        the latency histogram and a p99 gauge per tenant."""
+        from repro_torch.obs import metrics as obs_metrics
+        obs_metrics.export_tenant_digests(registry, self.digests())
+        inj = registry.counter(
+            "tenant_injected_events_total",
+            "Events staged to the device, per tenant.",
+            labels=("tenant",))
+        shed = registry.counter(
+            "tenant_shed_events_total",
+            "Fresh events dropped beyond the backlog bound, per tenant.",
+            labels=("tenant",))
+        for t, name in enumerate(self.names):
+            inj.inc(int(self.injected[t]), tenant=name)
+            shed.inc(int(self.shed[t]), tenant=name)
 
 
 def tenant_rows(specs: Sequence[TenantSpec], ledger: TenantLedger,

@@ -28,6 +28,13 @@ pipelined as in the reference: iteration k
 One ``drain`` after the last window walks the fabric's transit buffers
 empty and then flushes the last window's buckets, credits bypassed.
 
+``recorder`` (an ``obs.RecorderConfig``) turns on the flight recorder: the
+carry gains a ``TelemetryRing`` and every window records its exchange's
+counters, credit occupancy, the per-link stall table (kernel F's stall
+lane: a credited torus is built with ``stall_attribution=True``) and its
+latency histogram.  Without it the window runs exactly what it ran before
+the recorder existed.
+
 Differences from the reference, all of form:
 
 * The shard axis is the leading tensor dimension ``S``; one call of each
@@ -63,6 +70,7 @@ from repro_torch.fabric import faults as fabric_faults
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import fused_route_bucket as frb
 from repro_torch.kernels.lif_step import lif_window
+from repro_torch.obs import recorder as obs_recorder
 from repro_torch.snn import lif, network
 
 
@@ -128,16 +136,20 @@ class WindowStats(NamedTuple):
 
 
 class SimCarry(NamedTuple):
-    """Resumable between-segment state of a sharded simulation."""
+    """Resumable between-segment state of a sharded simulation; ``ring``
+    is the flight recorder's ring (only with ``recorder=``)."""
 
     state: ShardState
     pending: PendingWindow
     link: tp.LinkState
+    ring: obs_recorder.TelemetryRing | None = None
 
 
 def _stack(rows):
     """Stack per-window (S,)-leaved NamedTuples into (S, n_windows, ...)."""
     first = rows[0]
+    if first is None:
+        return None
     if hasattr(first, "_fields"):
         return type(first)(*(_stack([r[i] for r in rows])
                              for i in range(len(first))))
@@ -150,7 +162,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
 
     ``fault_schedule`` (a ``fabric.faults.FaultSchedule``; credited torus
     only) stamps window ``t // window``'s dead-link mask on the fabric
-    state before each exchange.
+    state before each exchange.  ``recorder`` (an ``obs.RecorderConfig``)
+    makes ``body`` carry a ``TelemetryRing`` as a fourth element and record
+    every window into it, stamped with the exchanged window's index
+    (``t // window - 1``: row 0 is the empty bootstrap exchange, -1).
 
     Returns ``(init_pending, init_link, body, drain)``:
       init_pending()  -> empty PendingWindow
@@ -165,9 +180,6 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                          fabric's parked rows, then the pending buckets
                          (updates the state's rings in place)
     """
-    if recorder is not None:
-        raise NotImplementedError("the flight recorder is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
     device = dispatch.resolve_device(device)
     S, C, L = cfg.n_shards, cfg.capacity, cfg.ring_len
     opts = {"wire_format": cfg.wire_format}
@@ -178,6 +190,8 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                     max_row_events=C)                 # livelock guard
         if cfg.transport == "torus3d":
             opts["nz"] = cfg.torus_nz
+        if recorder is not None and cfg.link_credits > 0:
+            opts["stall_attribution"] = True
     backend = tp.create(cfg.transport, n_shards=S, **opts)
     # can the transport ever refuse a row?  (the deferred re-offer runs
     # only where it can)
@@ -292,7 +306,7 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
 
     def body(carry, t: int, tables: RoutingTables, weights_t, inh_src,
              delays, drive):
-        state, pend, lstate = carry
+        state, pend, lstate = carry[:3]
         # 1. exchange + decode window k-1 (state.t == that window's end),
         #    under this window's dead-link mask when faults are injected
         #    (the exchange returns a state without it)
@@ -340,6 +354,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                            state.t + cfg.window, state.generator)
         pend = PendingWindow(b.data, b.guids, b.counts, fw.residue,
                              fw.residue_meta, fw.payload)
+        if recorder is not None:
+            ring = obs_recorder.record(carry[3], t // cfg.window - 1, lstats,
+                                       lstate, latency.hist)
+            return (state, pend, lstate, ring), stats
         return (state, pend, lstate), stats
 
     def drain(state: ShardState, pend: PendingWindow, lstate, t: int,
@@ -384,6 +402,9 @@ def build_sharded_segments(cfg: SimConfig, part: network.Partition,
                                         from the state's generator
       finish(carry)                  -> (ShardState, (S,) deadline misses)
                                         after flushing the pending buckets
+
+    With ``recorder`` the carry holds a ``TelemetryRing`` with a leading
+    shard axis (``SimCarry.ring``), which each segment records into.
     """
     init_pending, init_link, body, drain = make_pipeline_fns(
         cfg, device=device, fault_schedule=fault_schedule, recorder=recorder)
@@ -410,7 +431,11 @@ def build_sharded_segments(cfg: SimConfig, part: network.Partition,
         state = ShardState(neuron, ring, ring.clone(),
                            torch.zeros((S,), dtype=torch.int32,
                                        device=device), gen)
-        return SimCarry(state, init_pending(), init_link())
+        link = init_link()
+        telemetry = None if recorder is None else obs_recorder.ring_init(
+            recorder.depth, link, (), (wire.N_LATENCY_BINS,),
+            link.bank.credits.shape[0], n_shards=S)
+        return SimCarry(state, init_pending(), link, telemetry)
 
     def _own_rings(state: ShardState) -> ShardState:
         return state._replace(ring_exc=state.ring_exc.clone(),
@@ -428,19 +453,20 @@ def build_sharded_segments(cfg: SimConfig, part: network.Partition,
                                  f", got {tuple(drive.shape)}")
             drive = drive.to(device=device, dtype=torch.float32)
         state = _own_rings(carry.state)
-        pend, lstate = carry.pending, carry.link
+        loop = (state, carry.pending, carry.link)
+        if recorder is not None:
+            loop += (obs_recorder.ring_clone(carry.ring),)
         t = int(state.t[0])               # all shards share the step count
         rows = []
         for k in range(n_windows):
             d = (drive[k] if drive is not None else lif.poisson_input(
                 bg.expand(drive_shape), bg_weight, cfg.params.dt,
-                generator=state.generator))
-            (state, pend, lstate), stats = body(
-                (state, pend, lstate), t, tables, weights_t, inh_src, delays,
-                d)
+                generator=loop[0].generator))
+            loop, stats = body(loop, t, tables, weights_t, inh_src, delays,
+                               d)
             rows.append(stats)
             t += cfg.window
-        return SimCarry(state, pend, lstate), _stack(rows)
+        return SimCarry(*loop), _stack(rows)
 
     def finish(carry: SimCarry):
         state = _own_rings(carry.state)
@@ -474,7 +500,10 @@ def build_sharded_sim(cfg: SimConfig, part: network.Partition,
 
     Returns ``(init(seed) -> ShardState, run(state, n_windows, drive=None)
     -> (ShardState, WindowStats stacked to (S, n_windows)))``; the final
-    flush's deadline misses land on the last window.
+    flush's deadline misses land on the last window.  With ``recorder``
+    ``run`` returns ``(state, stats, ring)``, the ring with a leading shard
+    axis (decode with ``obs.global_rows`` or ``ring_shard`` +
+    ``ring_rows``).
     """
     seg_init, run_segment, finish = build_sharded_segments(
         cfg, part, bg_rates, bg_weight, fault_schedule, recorder,
@@ -486,10 +515,14 @@ def build_sharded_sim(cfg: SimConfig, part: network.Partition,
 
     def run(state: ShardState, n_windows: int, drive=None):
         carry, stats = run_segment(
-            SimCarry(state, fresh.pending, fresh.link), n_windows, drive)
+            SimCarry(state, fresh.pending, fresh.link, fresh.ring),
+            n_windows, drive)
         state, miss_d = finish(carry)
         miss = stats.deadline_miss.clone()
         miss[:, -1] += miss_d
-        return state, stats._replace(deadline_miss=miss)
+        stats = stats._replace(deadline_miss=miss)
+        if recorder is not None:
+            return state, stats, carry.ring
+        return state, stats
 
     return init, run

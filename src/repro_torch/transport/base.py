@@ -80,6 +80,7 @@ class LinkStats(NamedTuple):
     Per shard and window ``offered == sent + deferred + parked``; summed
     over shards ``sum(sent) + sum(unparked) == sum(delivered)``.  The
     array fields have a trailing backend-static length (0 for alltoall).
+    ``stalled_by_link`` sums to the global deferred total of the window.
     """
 
     offered_events: torch.Tensor
@@ -99,6 +100,11 @@ class LinkStats(NamedTuple):
     parked_by_hop: torch.Tensor       # (..., max_hops)
     queue_dwell_us: torch.Tensor      # f32
     rerouted: torch.Tensor
+    stalled_by_link: torch.Tensor | None = None   # (..., K) deferred events
+                                      #   per physical egress link, one
+                                      #   global table copied to every
+                                      #   shard (kernel F's stall lane);
+                                      #   only with stall_attribution=True
 
 
 def zero_link_stats(batch: tuple = (), max_hops: int = 0, ndim: int = 0, *,

@@ -44,8 +44,11 @@ its rows carry a tenant axis, its admission is kernel F's tenant form, and
 each bundle of the rotation carries T count columns, one frame train per
 tenant.
 
-Not ported here: per-link stall attribution for the flight recorder
-(``_stall_attr``; ROADMAP queue 1, item 10).
+``stall_attribution=True`` (the flight recorder's per-link congestion
+table, reference ``_stall_attr``) has kernel F write one more output, the
+window's deferred events per physical egress link, in the same launch;
+a credited window's ``LinkStats.stalled_by_link`` carries it, the same
+(K,) table on every shard.  Without it the field is None.
 """
 from __future__ import annotations
 
@@ -85,11 +88,6 @@ def default_shape3d(n_shards: int) -> tuple[int, int, int]:
     return best
 
 
-def _not_ported(what: str, item: int, topic: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"item {item}: {topic})")
-
-
 class TorusTransport(base.Transport):
     """Dimension-ordered torus exchange with hop-by-hop per-link credits.
 
@@ -100,6 +98,8 @@ class TorusTransport(base.Transport):
     so ``link_credits`` must be at least the largest row the caller can
     offer (``max_row_events``): a larger row could never be admitted and
     would block its route forever, and construction refuses it.
+    ``stall_attribution`` adds ``LinkStats.stalled_by_link`` to credited
+    windows.
     """
 
     name = "torus"
@@ -110,9 +110,7 @@ class TorusTransport(base.Transport):
                  wire_format: str | wire_framing.WireFormat = "extoll",
                  stall_attribution: bool = False):
         super().__init__(n_shards, wire_format=wire_format)
-        if stall_attribution:
-            raise _not_ported("per-link stall attribution", 10,
-                              "observability")
+        self.stall_attribution = bool(stall_attribution)
         if 0 < link_credits < max_row_events:
             raise ValueError(
                 f"link_credits ({link_credits}) must be >= the largest "
@@ -216,9 +214,6 @@ class TorusTransport(base.Transport):
         return base.init_fabric_state(bank, self.n_shards, self.n_shards,
                                       payload_width)
 
-    def _stall_attr(self, stall_hop, counts):
-        raise _not_ported("per-link stall attribution", 10, "observability")
-
     # -- canonical hop-by-hop admission with transit buffers ---------------
     def _admit_global(self, state: base.FabricState,
                       counts_all: torch.Tensor,
@@ -231,10 +226,12 @@ class TorusTransport(base.Transport):
         their route, source-major with the sources rotated by
         ``bank.epoch``.  Under a mask rows reroute around dead arcs, parked
         rows whose remaining route or held link died are evicted, and
-        detours are all-or-nothing."""
+        detours are all-or-nothing.  With ``stall_attribution`` the result
+        carries ``stalled_by_link``."""
         return admission.admission(
             counts_all.to(torch.int32), state,
-            self._dev(counts_all.device)["routes"], link_down)
+            self._dev(counts_all.device)["routes"], link_down,
+            stall_lane=self.stall_attribution)
 
     # the reference's name for the replay under a mask
     _admit_global_faulted = _admit_global
@@ -502,6 +499,7 @@ class TorusTransport(base.Transport):
             parked_by_hop=parked_by_hop,
             queue_dwell_us=dwell.to(torch.float32),
             rerouted=rerouted,
+            stalled_by_link=self._stall_rows(adm if throttled else None),
         )
         return base.TransportOut(
             state=state,
@@ -515,6 +513,13 @@ class TorusTransport(base.Transport):
             park_wait_us=park_wait_us,
             links_used=adm.links_done if down is not None else None,
         )
+
+    def _stall_rows(self, adm):
+        """The admission's (K,) stall table as every shard's copy (a view),
+        or None: attribution off, or no credited admission ran."""
+        if adm is None or adm.stalled_by_link is None:
+            return None
+        return adm.stalled_by_link.expand(self.n_shards, -1)
 
     # -- end-of-run fabric walk --------------------------------------------
     def drain_fabric(self, state: base.LinkState,
@@ -721,10 +726,13 @@ class TenantTorusTransport(TorusTransport):
         """The replay over the T n² rows of ``counts_all`` (T, S, S): kernel
         F's tenant form on the card; on the CPU
         ``admission.admission_tenants_plain``, or under a (K,) dead-link
-        mask ``admission.admission_tenants_faulted_plain``."""
+        mask ``admission.admission_tenants_faulted_plain``; with
+        ``stall_attribution`` it carries ``stalled_by_link`` over the
+        physical links."""
         return admission.admission_tenants(
             counts_all.to(torch.int32).contiguous(), state,
-            self._dev(counts_all.device)["routes"], link_down)
+            self._dev(counts_all.device)["routes"], link_down,
+            stall_lane=self.stall_attribution)
 
     def _by_hop(self, hop: torch.Tensor, weight: torch.Tensor):
         """(S, T, S) weights -> (S, T, max_hops) hop histograms."""
@@ -885,6 +893,8 @@ class TenantTorusTransport(TorusTransport):
             parked_by_hop=parked_by_hop,
             queue_dwell_us=dwell.to(torch.float32),
             rerouted=rerouted,
+            stalled_by_link=self._stall_rows(adm if enforce_credits
+                                             else None),
         )
         return base.TransportOut(
             state=state,

@@ -426,9 +426,11 @@ def _ref_state(state, width):
 def test_admission_replay_matches_reference(backend, opts):
     """``_admit_global`` against the reference's on the states of 8
     threaded windows of random traffic under tight credits (parking,
-    resuming and re-parking rows, a rotating epoch)."""
+    resuming and re-parking rows, a rotating epoch), with the stall lane
+    (``stall_attribution``) on both sides."""
     n = int(np.prod(list(opts.values())))
-    kw = dict(link_credits=24, notify_latency=2, max_row_events=24)
+    kw = dict(link_credits=24, notify_latency=2, max_row_events=24,
+              stall_attribution=True)
     t = t_tp.create(backend, n_shards=n, **opts, **kw)
     r = (r_tt.Torus2DTransport if backend == "torus2d"
          else r_tt.Torus3DTransport)(n, **opts, **kw)
@@ -507,7 +509,8 @@ def _study(tables, words, backend, opts):
                               transport=tb, link_state=state)
         state = out.link_state
         rows.append((out.link, out.latency))
-    stack = lambda xs: type(xs[0])(*(torch.stack(f, 1) for f in zip(*xs)))
+    stack = lambda xs: type(xs[0])(*(None if f[0] is None else
+                                     torch.stack(f, 1) for f in zip(*xs)))
     return (stack([r[0] for r in rows]), stack([r[1] for r in rows]), state,
             tb)
 
@@ -722,9 +725,9 @@ def test_torus_guards_and_unported_paths_raise():
                     max_row_events=32)
     with pytest.raises(ValueError, match="n_shards"):
         t_tp.create("torus3d", n_shards=8, nx=3, ny=2, nz=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_tp.create("torus2d", n_shards=8, link_credits=64,
-                    stall_attribution=True)
+    # per-link stall attribution (item 10) is ported: it builds
+    assert t_tp.create("torus2d", n_shards=8, link_credits=64,
+                       stall_attribution=True).stall_attribution
     # the multi-tenant torus (item 9) is ported: it builds, and refuses an
     # oversubscribed partition and a row no tenant could ever admit
     from repro_torch.core import flow_control as t_fc
@@ -738,10 +741,10 @@ def test_torus_guards_and_unported_paths_raise():
     with pytest.raises(ValueError, match="head-of-line"):
         t_tt.TenantTorusTransport(8, (2, 4), partition=t_fc.make_partition(
             64, (60, 0)), max_row_events=32)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_tt.TenantTorusTransport(8, (2, 4), partition=part,
-                                  stall_attribution=True)
-    tr = t_tp.create("torus2d", n_shards=8, link_credits=64)
+    assert t_tt.TenantTorusTransport(8, (2, 4), partition=part,
+                                     stall_attribution=True).stall_attribution
+    tr = t_tp.create("torus2d", n_shards=8, link_credits=64,
+                     stall_attribution=True)
     state = tr.init_state(4, device="cpu")
     # fault injection (item 8) is ported: the faulted replay and the
     # detours run

@@ -387,9 +387,10 @@ def _evicted(t, state, down):
 def test_faulted_admission_matches_reference(backend, opts):
     """``_admit_global_faulted`` against the reference's on the states of
     12 windows threaded under chaos masks (tight credits: parks, resumes,
-    evictions, hop-0 parks, detours, unroutable rows)."""
+    evictions, hop-0 parks, detours, unroutable rows), both built with
+    ``stall_attribution`` so that kernel F's stall lane is compared too."""
     n, t, r = _pair(backend, opts, link_credits=24, notify_latency=2,
-                    max_row_events=24)
+                    max_row_events=24, stall_attribution=True)
     r_admit = jax.jit(r._admit_global_faulted)
     dims = tuple(opts.values())
     masks = _np(t_faults.chaos(dims, 12, n, revive_p=0.1,
@@ -431,9 +432,10 @@ def test_faulted_admission_matches_reference(backend, opts):
 @pytest.mark.parametrize("backend,opts", TORI)
 def test_all_false_mask_is_the_healthy_replay(backend, opts):
     """On states a healthy run reaches, the faulted replay under an
-    all-false mask equals ``_admit_global`` field for field."""
+    all-false mask equals ``_admit_global`` field for field (the stall
+    lane included)."""
     n, t, _ = _pair(backend, opts, link_credits=24, notify_latency=2,
-                    max_row_events=24)
+                    max_row_events=24, stall_attribution=True)
     state = t.init_state(4, device="cpu")
     rng = np.random.default_rng(n + 1)
     down = torch.zeros(n * t.n_links, dtype=torch.bool)
@@ -635,8 +637,9 @@ def test_fault_guards(sim_part):
     counts = torch.full((8, 8), 5, dtype=torch.int32)
     down = torch.zeros(32, dtype=torch.bool)
     down[[0, 9]] = True
-    got = admission.admission(counts, st, routes, down)
-    want = admission.admission_faulted_plain(counts, st, routes, down)
+    got = admission.admission(counts, st, routes, down, stall_lane=True)
+    want = admission.admission_faulted_plain(counts, st, routes, down,
+                                             stall_lane=True)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     for bad in (counts.to(torch.int64), counts[:4], counts.reshape(4, 16)):
         with pytest.raises(ValueError, match="admission: counts"):

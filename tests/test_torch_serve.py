@@ -339,9 +339,10 @@ def test_one_tenant_with_no_reserve_is_the_single_tenant_torus():
     a mask; its spends and holds all land on the shared slots."""
     n, dims = 8, (2, 4)
     single = t_tt.TorusTransport(n, dims, link_credits=16, notify_latency=2,
-                                 max_row_events=16)
+                                 max_row_events=16, stall_attribution=True)
     tenant = t_tt.TenantTorusTransport(n, dims, partition=t_fc.make_partition(
-        16, (0,)), notify_latency=2, max_row_events=16)
+        16, (0,)), notify_latency=2, max_row_events=16,
+        stall_attribution=True)
     K = n * single.n_links
     masks = t_faults.chaos(dims, 10, 1, device="cpu").link_down
     rng = np.random.default_rng(5)
@@ -357,7 +358,7 @@ def test_one_tenant_with_no_reserve_is_the_single_tenant_torus():
             if field in ("spent", "notify", "parked_by_link"):
                 assert not y[:K].any(), (w, field)
                 y = y[K:]
-            else:
+            elif field != "stalled_by_link":      # physical in both forms
                 y = y[0]
             assert torch.equal(x, y), (w, field)
         # every hold is shared; a row parked at hop 0 holds nothing
@@ -638,16 +639,21 @@ def test_serve_guards():
     src = t_lg.PoissonLoadGen(0, [t_lg.TenantProfile("a", 1.0)], 1, 8)
     cfg = t_se.EngineConfig(capacity=8, link_credits=16, nx=1, ny=1, nz=1)
     specs = [t_ten.TenantSpec("a", 8)]
-    for kw in (dict(recorder=object()), dict(tracer=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            t_se.SpikeEngine(1, specs, cfg, src, device="cpu", **kw)
+    # the flight recorder and the tracer (item 10) are ported: an engine
+    # takes them, and one built without a recorder has no rows to give
+    from repro_torch import obs
+    eng = t_se.SpikeEngine(1, specs, cfg, src, device="cpu",
+                           recorder=obs.RecorderConfig(4),
+                           tracer=obs.Tracer())
+    assert len(eng._carry) == 5 and eng.transport.stall_attribution
     eng = t_se.SpikeEngine(1, specs, cfg, src, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(RuntimeError, match="without a flight recorder"):
         eng.recorder_rows()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_ten.TenantLedger(["a"]).export_metrics(None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_ten.build_fabric(8, specs, link_credits=16, stall_attribution=True)
+    reg = obs.Registry()
+    t_ten.TenantLedger(["a"]).export_metrics(reg)
+    assert "tenant_injected_events_total" in obs.prometheus_text(reg)
+    assert t_ten.build_fabric(8, specs, link_credits=16,
+                              stall_attribution=True).stall_attribution
     with pytest.raises(ValueError, match="oversubscribed"):
         t_ten.build_fabric(8, specs * 3, link_credits=16)
     with pytest.raises(ValueError, match="head-of-line"):

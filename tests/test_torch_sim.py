@@ -324,15 +324,18 @@ def test_unported_paths_raise(part):
     with pytest.raises(NotImplementedError, match="item 12"):
         build(dataclasses.replace(lm_cfg, family="dense"))
     lm = build(lm_cfg)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Engine(lm, ServeConfig(), tracer=object())
+    # the span tracer (item 10) is ported
+    from repro_torch.obs import Tracer
+    tracer = Tracer()
+    assert Engine(lm, ServeConfig(), tracer=tracer).tracer is tracer
     params = lm.init(torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 12"):
         Engine(lm, ServeConfig()).generate_batch(params, [Request(
             0, np.arange(3, 7, dtype=np.int32), extras={"enc_frames": 0})])
     # fault injection (item 8) is ported: the faulted replay runs, and
     # under an all-false mask it is the healthy one
-    tr = transport.create("torus2d", n_shards=4, link_credits=64)
+    tr = transport.create("torus2d", n_shards=4, link_credits=64,
+                          stall_attribution=True)
     st = tr.init_state(4, device="cpu")
     counts = torch.full((4, 4), 9, dtype=torch.int32)
     faulted = tr._admit_global_faulted(st, counts, torch.zeros(
@@ -351,6 +354,9 @@ def test_unported_paths_raise(part):
     with pytest.raises(ValueError, match="credit-throttled"):
         sim.build_sharded_sim(_cfg(p, "ample"), p, spec.bg_rates(),
                               fault_schedule=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sim.build_sharded_sim(_cfg(p, "ample"), p, spec.bg_rates(),
-                              recorder=object(), device="cpu")
+    # the flight recorder (item 10) is ported: the carry holds a ring
+    from repro_torch.obs import RecorderConfig
+    init, _, _ = sim.build_sharded_segments(
+        _cfg(p, "ample"), p, spec.bg_rates(), recorder=RecorderConfig(4),
+        device="cpu")
+    assert init(0).ring.depth == 4
