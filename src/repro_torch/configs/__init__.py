@@ -1,7 +1,8 @@
 """System and model configurations (port of ``src/repro/configs``).
 
 ``get_config(name)`` resolves a model architecture by the reference's
-names and aliases.  Only ``mamba2_27b`` is ported; every other
+names and aliases.  Ported: ``mamba2_27b`` and the dense transformers
+(``qwen3_32b``, ``qwen15_4b``, ``gemma2_9b``, ``minicpm_2b``); every other
 architecture of the reference raises ``NotImplementedError`` until the
 LM stack's later slices (ROADMAP queue 1, item 12).
 """
@@ -25,12 +26,25 @@ ARCHS = (
     "qwen2_vl_7b",
     "whisper_large_v3",
 )
-PORTED = ("mamba2_27b",)
+PORTED = ("qwen3_32b", "qwen15_4b", "gemma2_9b", "minicpm_2b", "mamba2_27b")
+
+_ALIAS = {a.replace("_", "-"): a for a in ARCHS}
+_ALIAS.update({
+    "qwen3-32b": "qwen3_32b",
+    "qwen1.5-4b": "qwen15_4b",
+    "gemma2-9b": "gemma2_9b",
+    "minicpm-2b": "minicpm_2b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "arctic-480b": "arctic_480b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-2.7b": "mamba2_27b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-large-v3": "whisper_large_v3",
+})
 
 
 def get_config(name: str) -> ModelConfig:
-    # "mamba2-2.7b" -> "mamba2_27b", "qwen1.5-4b" -> "qwen15_4b"
-    arch = name.replace("-", "_").replace(".", "")
+    arch = _ALIAS.get(name, name).replace("-", "_").replace(".", "")
     if arch not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     if arch not in PORTED:

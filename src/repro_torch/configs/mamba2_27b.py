@@ -5,8 +5,9 @@ from repro_torch.configs.base import ModelConfig, SSMConfig
 
 CONFIG = ModelConfig(
     name="mamba2-2.7b", family="ssm",
-    n_layers=64, d_model=2560, vocab=50280,
-    rms_eps=1e-5, tie_embeddings=True,
+    n_layers=64, d_model=2560, n_heads=80, n_kv_heads=0, head_dim=64,
+    d_ff=0, vocab=50280,
+    rms_eps=1e-5, act="silu", tie_embeddings=True,
     ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64,
                   n_groups=1, chunk=256),
 )

@@ -21,7 +21,10 @@ Layouts:
 * LM parameters: the same nested dicts, block parameters stacked along a
   leading layer axis in both; ``bfloat16`` numpy arrays (``ml_dtypes``)
   become ``torch.bfloat16`` bit for bit;
-* Mamba-2 caches: the same ``(n_layers, B, ...)`` ``conv`` and ``state``.
+* LM caches: Mamba-2's ``(n_layers, B, ...)`` ``conv`` and ``state``, and
+  the dense family's ``{"blocks": KVCache}`` with ``k`` / ``v``
+  ``(n_layers, B, T, Hkv, D)`` and ``length`` ``(n_layers,)``, the same in
+  both.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from repro_torch import wire
 from repro_torch.core.routing import RoutingTables
 from repro_torch.kernels import dispatch
+from repro_torch.models.attention import KVCache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.snn import lif, network
 from repro_torch.snn.simulator import PendingWindow, ShardState, SimCarry
@@ -150,9 +154,14 @@ def params_from_reference(tree, device=None) -> dict:
     return _t(tree, device)
 
 
-def caches_from_reference(cache, device=None) -> SSMCache:
-    """The port's Mamba-2 caches from a reference ``SSMCache`` (or a
-    ``(conv, state)`` pair) of numpy arrays stacked over layers."""
+def caches_from_reference(cache, device=None):
+    """The port's LM caches from the reference's, numpy arrays stacked over
+    layers: a dense family's dict of ``KVCache`` ``(k, v, length)`` gives
+    the same dict of :class:`KVCache`; a Mamba-2 ``SSMCache`` (or a
+    ``(conv, state)`` pair) gives an :class:`SSMCache`."""
     device = dispatch.resolve_device(device)
+    if isinstance(cache, dict):
+        return {name: KVCache(*(_t(x, device) for x in c))
+                for name, c in cache.items()}
     conv, state = cache
     return SSMCache(_t(conv, device), _t(state, device))

@@ -49,6 +49,9 @@ SIGNATURES = {
                         _P, _P, _I, _I, _I, _I, _P),
     "repro_admission_tenants": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_bucket_trace": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_ring_run": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

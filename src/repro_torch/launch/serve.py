@@ -1,12 +1,15 @@
 """Serving launcher CLI: batched generation through the engine (port of
 ``src/repro/launch/serve.py``).
 
-Parameters are random, drawn from seed 0 and materialised in bf16, the
-dtype every block computes in; prompts are 4-11 random tokens from seed
-0, as in the reference.  Examples:
+Architectures: the dense transformers (``qwen3-32b``, ``qwen1.5-4b``,
+``gemma2-9b``, ``minicpm-2b``) and ``mamba2-2.7b``.  Parameters are
+random, drawn from seed 0 and materialised in bf16, the dtype every block
+computes in; prompts are 4-11 random tokens from seed 0, as in the
+reference.  Examples:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_27b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
       --reduced --device cpu --requests 8 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
 """
 from __future__ import annotations
@@ -55,7 +58,8 @@ def main(argv=None) -> int:
         for i in range(args.requests)]
     out = eng.generate_batch(params, reqs)
     for rid in sorted(out):
-        print(f"req {rid}: {len(out[rid])} tokens -> {list(out[rid][:10])}")
+        print(f"req {rid}: {len(out[rid])} tokens -> "
+              f"{out[rid][:10].tolist()}")
     for i, w in enumerate(eng.waves):
         print(f"wave {i}: {w.batch} requests, prompt {w.prompt_len}, "
               f"prefill {w.prefill_s * 1e3:.1f} ms, {w.decode_steps} decode "

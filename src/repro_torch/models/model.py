@@ -11,8 +11,10 @@ One object per architecture family exposing the same surface:
   prefill(params, batch, caches)       fill caches, return the hidden
   decode(params, caches, tokens)       one-token step -> (logits, caches)
 
-``batch`` is a dict holding ``tokens``.  Only the ``ssm`` family
-(Mamba-2) is ported; the others raise until ROADMAP queue 1, item 12.
+``batch`` is a dict holding ``tokens``.  Ported: the ``ssm`` family
+(Mamba-2) and the ``dense`` transformers; ``moe``, ``vlm``, ``hybrid``
+(RecurrentGemma) and ``audio`` (Whisper) raise until ROADMAP queue 1,
+item 12.
 """
 from __future__ import annotations
 
@@ -65,9 +67,35 @@ def _build_mamba2(cfg: ModelConfig) -> Model:
                  prefill=prefill)
 
 
+def _build_transformer(cfg: ModelConfig) -> Model:
+    """The dense family (reference ``_build_transformer`` with its
+    ``prefill_with_cache``)."""
+    def hidden(params, batch):
+        return T.forward(params, batch["tokens"], cfg)
+
+    def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):
+        return T.init_caches(cfg, batch, max_len, dtype, device)
+
+    def prefill_with_cache(params, batch, caches):
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        x = T.embed_tokens(params, tokens, cfg)
+        return T.cached_layers(params, x, caches, cfg, positions)
+
+    def decode(params, caches, tokens):
+        return T.decode_step(params, caches, tokens, cfg)
+
+    return Model(cfg=cfg, specs=lambda: T.param_specs(cfg), hidden=hidden,
+                 init_caches=init_caches, decode=decode,
+                 prefill=prefill_with_cache)
+
+
 def build(cfg: ModelConfig) -> Model:
     if cfg.family == "ssm":
         return _build_mamba2(cfg)
+    if cfg.family == "dense":
+        return _build_transformer(cfg)
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-        f"item 12); ported: 'ssm'")
+        f"item 12); ported: 'ssm', 'dense'")

@@ -2,8 +2,9 @@
 ``src/repro/serve/engine.py``).
 
 Requests are grouped into waves of ``slots``, left-padded to the wave's
-longest prompt (pad token 0, which the SSM reads like any token, as in the
-reference); each wave prefills once and decodes greedily (or samples)
+longest prompt (pad token 0, which the models read like any token and
+count in the positions, as in the reference); each wave prefills once and
+decodes greedily (or samples)
 until every member has emitted EOS or ``max_new_tokens`` are out.
 
 Differences from the reference:

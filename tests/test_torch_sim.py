@@ -317,12 +317,16 @@ def test_unported_paths_raise(part):
     from repro_torch.models import build
     from repro_torch.serve.engine import Engine, Request, ServeConfig
     spec, p = part
-    for arch in ("qwen3_32b", "gemma2-9b", "whisper_large_v3"):
+    for arch in ("deepseek_moe_16b", "recurrentgemma_9b",
+                 "whisper_large_v3"):
         with pytest.raises(NotImplementedError, match="item 12"):
             get_config(arch)
     lm_cfg = reduced(get_config("mamba2-2.7b"))
     with pytest.raises(NotImplementedError, match="item 12"):
-        build(dataclasses.replace(lm_cfg, family="dense"))
+        build(dataclasses.replace(lm_cfg, family="moe"))
+    # the dense family (item 12, first part) is ported
+    for arch in ("qwen3_32b", "gemma2-9b", "qwen1.5-4b", "minicpm-2b"):
+        assert build(reduced(get_config(arch))).cfg.family == "dense"
     lm = build(lm_cfg)
     # the span tracer (item 10) is ported
     from repro_torch.obs import Tracer
