@@ -1,17 +1,14 @@
 """System and model configurations (port of ``src/repro/configs``).
 
 ``get_config(name)`` resolves a model architecture by the reference's
-names and aliases.  Ported: ``mamba2_27b`` and the dense transformers
-(``qwen3_32b``, ``qwen15_4b``, ``gemma2_9b``, ``minicpm_2b``); every other
-architecture of the reference raises ``NotImplementedError`` until the
-LM stack's later slices (ROADMAP queue 1, item 12).
+names and aliases: all ten of the reference's architectures are ported.
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, SSMConfig, reduced,
+    ModelConfig, MoEConfig, RecurrentConfig, SSMConfig, reduced,
 )
 
 ARCHS = (
@@ -26,7 +23,6 @@ ARCHS = (
     "qwen2_vl_7b",
     "whisper_large_v3",
 )
-PORTED = ("qwen3_32b", "qwen15_4b", "gemma2_9b", "minicpm_2b", "mamba2_27b")
 
 _ALIAS = {a.replace("_", "-"): a for a in ARCHS}
 _ALIAS.update({
@@ -47,8 +43,4 @@ def get_config(name: str) -> ModelConfig:
     arch = _ALIAS.get(name, name).replace("-", "_").replace(".", "")
     if arch not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP queue 1, item 12); ported: "
-            f"{PORTED}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG

@@ -1,6 +1,7 @@
 """Mamba2-2.7B [arXiv:2405.21060; unverified] -- attention-free SSD
 (port of ``src/repro/configs/mamba2_27b.py``).
-d_inner = 2*d_model = 5120, 80 heads x 64, d_state 128."""
+d_inner = 2*d_model = 5120, 80 heads x 64, d_state 128.
+Sub-quadratic: runs the long_500k cell."""
 from repro_torch.configs.base import ModelConfig, SSMConfig
 
 CONFIG = ModelConfig(
@@ -10,4 +11,5 @@ CONFIG = ModelConfig(
     rms_eps=1e-5, act="silu", tie_embeddings=True,
     ssm=SSMConfig(d_state=128, d_conv=4, expand=2, head_dim=64,
                   n_groups=1, chunk=256),
+    subquadratic=True,
 )

@@ -21,10 +21,13 @@ Layouts:
 * LM parameters: the same nested dicts, block parameters stacked along a
   leading layer axis in both; ``bfloat16`` numpy arrays (``ml_dtypes``)
   become ``torch.bfloat16`` bit for bit;
-* LM caches: Mamba-2's ``(n_layers, B, ...)`` ``conv`` and ``state``, and
-  the dense family's ``{"blocks": KVCache}`` with ``k`` / ``v``
-  ``(n_layers, B, T, Hkv, D)`` and ``length`` ``(n_layers,)``, the same in
-  both.
+* LM caches: the same NamedTuples with the same fields and layouts in
+  both, stacked over layers: the transformers' ``{"blocks": KVCache}``
+  (and deepseek's ``"dense"``) with ``k`` / ``v`` ``(n_layers, B, T, Hkv,
+  D)`` and ``length`` ``(n_layers,)``; Mamba-2's ``SSMCache``;
+  RecurrentGemma's ``RGCaches`` (``RGLRUCache`` per recurrent stack, the
+  ring ``KVCache``, a tuple of tail ``RGLRUCache``); Whisper's
+  ``WhisperCaches``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,9 @@ from repro_torch import wire
 from repro_torch.core.routing import RoutingTables
 from repro_torch.kernels import dispatch
 from repro_torch.models.attention import KVCache
+from repro_torch.models.encdec import WhisperCaches
+from repro_torch.models.hybrid import RGCaches
+from repro_torch.models.rglru import RGLRUCache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.snn import lif, network
 from repro_torch.snn.simulator import PendingWindow, ShardState, SimCarry
@@ -154,14 +160,28 @@ def params_from_reference(tree, device=None) -> dict:
     return _t(tree, device)
 
 
+_CACHES = {c._fields: c for c in (KVCache, SSMCache, RGLRUCache, RGCaches,
+                                   WhisperCaches)}
+
+
 def caches_from_reference(cache, device=None):
-    """The port's LM caches from the reference's, numpy arrays stacked over
-    layers: a dense family's dict of ``KVCache`` ``(k, v, length)`` gives
-    the same dict of :class:`KVCache`; a Mamba-2 ``SSMCache`` (or a
-    ``(conv, state)`` pair) gives an :class:`SSMCache`."""
+    """The port's LM caches from the reference's (numpy or JAX arrays):
+    each cache NamedTuple becomes the port's type of the same fields
+    (``KVCache``, ``SSMCache``, ``RGLRUCache``, ``RGCaches``,
+    ``WhisperCaches``), dicts and tuples keep their structure."""
     device = dispatch.resolve_device(device)
-    if isinstance(cache, dict):
-        return {name: KVCache(*(_t(x, device) for x in c))
-                for name, c in cache.items()}
-    conv, state = cache
-    return SSMCache(_t(conv, device), _t(state, device))
+
+    def rec(tree):
+        if isinstance(tree, dict):
+            return {name: rec(c) for name, c in tree.items()}
+        fields = getattr(tree, "_fields", None)
+        if fields is not None:
+            if fields not in _CACHES:
+                raise TypeError(f"no port cache with the fields {fields} "
+                                f"of {type(tree).__name__}")
+            return _CACHES[fields](*(rec(getattr(tree, f)) for f in fields))
+        if isinstance(tree, (tuple, list)):
+            return tuple(rec(c) for c in tree)
+        return _t(tree, device)
+
+    return rec(cache)

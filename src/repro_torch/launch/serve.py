@@ -1,16 +1,20 @@
 """Serving launcher CLI: batched generation through the engine (port of
 ``src/repro/launch/serve.py``).
 
-Architectures: the dense transformers (``qwen3-32b``, ``qwen1.5-4b``,
-``gemma2-9b``, ``minicpm-2b``) and ``mamba2-2.7b``.  Parameters are
-random, drawn from seed 0 and materialised in bf16, the dtype every block
-computes in; prompts are 4-11 random tokens from seed 0, as in the
-reference.  Examples:
+Architectures: all ten of ``repro_torch.configs.ARCHS`` (dense, MoE,
+vision, Mamba-2, RecurrentGemma, Whisper).  Parameters are random, drawn
+from seed 0 and materialised in bf16, the dtype every block computes in;
+prompts are 4-11 random tokens from seed 0, and each Whisper request
+carries its own (1, enc_ctx, d_model) ``enc_frames``, as in the reference
+(so Whisper serves at ``--slots 1``: a wider wave refuses batch-1 extras).
+Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
       --reduced --device cpu --requests 8 --max-new 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch whisper-large-v3 --slots 1
 """
 from __future__ import annotations
 
@@ -53,9 +57,15 @@ def main(argv=None) -> int:
                                     max_new_tokens=args.max_new,
                                     temperature=args.temperature))
     rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(
-        3, cfg.vocab, size=int(rng.integers(4, 12))).astype(np.int32))
-        for i in range(args.requests)]
+    reqs = []
+    for i in range(args.requests):
+        extras = {}
+        if cfg.family == "audio":
+            extras["enc_frames"] = rng.normal(
+                size=(1, cfg.enc_ctx, cfg.d_model)).astype(np.float32)
+        reqs.append(Request(rid=i, prompt=rng.integers(
+            3, cfg.vocab, size=int(rng.integers(4, 12))).astype(np.int32),
+            extras=extras or None))
     out = eng.generate_batch(params, reqs)
     for rid in sorted(out):
         print(f"req {rid}: {len(out[rid])} tokens -> "

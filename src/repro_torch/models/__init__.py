@@ -1,3 +1,3 @@
-"""LM stack (port of ``src/repro/models``): so far the Mamba-2 family and
-the dense transformers."""
+"""LM stack (port of ``src/repro/models``): every family of the
+reference's model zoo."""
 from repro_torch.models.model import Model, build  # noqa: F401

@@ -1,7 +1,7 @@
-"""Shared building blocks of the LM stack (port of the parts of
-``src/repro/models/layers.py`` that the ported families read; M-RoPE,
-``layer_norm``, ``mlp`` and the sinusoidal table come with the vision and
-audio families)."""
+"""Shared building blocks of the LM stack (port of
+``src/repro/models/layers.py``): the norms, activations, rotary embeddings
+(standard and Qwen2-VL's M-RoPE), Whisper's sinusoidal table, the MLPs and
+the causal depthwise conv."""
 from __future__ import annotations
 
 import numpy as np
@@ -20,6 +20,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     return (x * ((1.0 + w) if unit_offset else w)).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (population variance), cast back to ``x``'s
+    dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dtype)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return x
@@ -34,7 +45,7 @@ def act_fn(name: str):
 
 
 # --------------------------------------------------------------------------
-# Rotary embeddings (standard; M-RoPE comes with the vision family)
+# Rotary embeddings (standard + M-RoPE)
 # --------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
@@ -49,6 +60,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = torch.tensor(rope_freqs(d, theta), dtype=torch.float32,
                        device=x.device)                          # (D/2,)
     ang = positions[..., None].float() * inv                     # (B,S,D/2)
+    return _rotate(x, ang)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the two halves of the head dim of x (B, S, H, D) by the
+    angles ang (B, S, D/2), in f32."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -56,13 +73,49 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  positions3: (3, B, S) temporal / height /
+    width position ids; sections: each axis's share of the D/2 frequency
+    slots (summing to D/2).  Slot j rotates by the position id of the axis
+    that owns it."""
+    d = x.shape[-1]
+    inv = torch.tensor(rope_freqs(d, theta), dtype=torch.float32,
+                       device=x.device)                          # (D/2,)
+    owner = torch.from_numpy(np.repeat(np.arange(len(sections)),
+                                       np.asarray(sections))).to(x.device)
+    pos = positions3.index_select(0, owner)                      # (D/2,B,S)
+    return _rotate(x, pos.permute(1, 2, 0).float() * inv)
+
+
+def sinusoidal_positions(n: int, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal table (n, d), f32 on the CPU (computed
+    in float64 with numpy, as the reference does)."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (dim / max(d // 2 - 1, 1)))
+    return torch.from_numpy(
+        np.concatenate([np.sin(ang), np.cos(ang)], -1).astype(np.float32))
+
+
 # --------------------------------------------------------------------------
-# GLU MLP
+# MLPs
 # --------------------------------------------------------------------------
 
 def glu_mlp(x, wg, wu, wd, act: str = "silu"):
     h = act_fn(act)(x @ wg) * (x @ wu)
     return h @ wd
+
+
+def mlp(x, w1, w2, b1=None, b2=None, act: str = "gelu"):
+    h = x @ w1
+    if b1 is not None:
+        h = h + b1
+    h = act_fn(act)(h)
+    h = h @ w2
+    if b2 is not None:
+        h = h + b2
+    return h
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,

@@ -11,10 +11,11 @@ One object per architecture family exposing the same surface:
   prefill(params, batch, caches)       fill caches, return the hidden
   decode(params, caches, tokens)       one-token step -> (logits, caches)
 
-``batch`` is a dict holding ``tokens``.  Ported: the ``ssm`` family
-(Mamba-2) and the ``dense`` transformers; ``moe``, ``vlm``, ``hybrid``
-(RecurrentGemma) and ``audio`` (Whisper) raise until ROADMAP queue 1,
-item 12.
+``batch`` is a dict: ``tokens``, and per family the extras
+``positions3`` and ``vision_embeds`` (vlm) or ``enc_frames`` (audio).
+Every family of the reference is ported: ``dense``, ``moe`` and ``vlm``
+(the transformer), ``ssm`` (Mamba-2), ``hybrid`` (RecurrentGemma) and
+``audio`` (Whisper).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as E
 from repro_torch.models import hybrid as H
 from repro_torch.models import transformer as T
 from repro_torch.models.modules import init_params
@@ -68,10 +70,12 @@ def _build_mamba2(cfg: ModelConfig) -> Model:
 
 
 def _build_transformer(cfg: ModelConfig) -> Model:
-    """The dense family (reference ``_build_transformer`` with its
-    ``prefill_with_cache``)."""
+    """The dense, MoE and vision families (reference
+    ``_build_transformer`` with its ``prefill_with_cache``)."""
     def hidden(params, batch):
-        return T.forward(params, batch["tokens"], cfg)
+        return T.forward(params, batch["tokens"], cfg,
+                         positions3=batch.get("positions3"),
+                         vision_embeds=batch.get("vision_embeds"))
 
     def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):
         return T.init_caches(cfg, batch, max_len, dtype, device)
@@ -80,22 +84,66 @@ def _build_transformer(cfg: ModelConfig) -> Model:
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-        x = T.embed_tokens(params, tokens, cfg)
-        return T.cached_layers(params, x, caches, cfg, positions)
+        x = T.embed_tokens(params, tokens, cfg, batch.get("vision_embeds"))
+        return T.cached_layers(params, x, caches, cfg, positions,
+                               batch.get("positions3"))
 
-    def decode(params, caches, tokens):
-        return T.decode_step(params, caches, tokens, cfg)
+    def decode(params, caches, tokens, positions3=None):
+        return T.decode_step(params, caches, tokens, cfg, positions3)
 
     return Model(cfg=cfg, specs=lambda: T.param_specs(cfg), hidden=hidden,
                  init_caches=init_caches, decode=decode,
                  prefill=prefill_with_cache)
 
 
+def _build_recurrentgemma(cfg: ModelConfig) -> Model:
+    def hidden(params, batch):
+        h, aux, _ = H.rg_forward(params, batch["tokens"], cfg)
+        return h, aux
+
+    def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):
+        return H.rg_init_caches(cfg, batch, dtype, device)
+
+    def prefill(params, batch, caches):
+        h, _, new = H.rg_forward(params, batch["tokens"], cfg, caches)
+        return h, new
+
+    def decode(params, caches, tokens):
+        h, _, new = H.rg_forward(params, tokens, cfg, caches)
+        return T.logits_fn(params, h, cfg), new
+
+    return Model(cfg=cfg, specs=lambda: H.rg_param_specs(cfg), hidden=hidden,
+                 init_caches=init_caches, decode=decode, prefill=prefill)
+
+
+def _build_whisper(cfg: ModelConfig) -> Model:
+    def hidden(params, batch):
+        enc = E.encode(params, batch["enc_frames"], cfg)
+        h, _ = E.decode(params, batch["tokens"], enc, cfg)
+        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):
+        return E.whisper_init_caches(cfg, batch, max_len, dtype, device)
+
+    def prefill(params, batch, caches):
+        enc = E.encode(params, batch["enc_frames"], cfg)
+        caches = E.fill_cross_cache(params, enc, caches, cfg)
+        return E.decode(params, batch["tokens"], None, cfg, caches)
+
+    def decode(params, caches, tokens):
+        h, new = E.decode(params, tokens, None, cfg, caches)
+        return T.logits_fn(params, h, cfg), new
+
+    return Model(cfg=cfg, specs=lambda: E.whisper_param_specs(cfg),
+                 hidden=hidden, init_caches=init_caches, decode=decode,
+                 prefill=prefill)
+
+
 def build(cfg: ModelConfig) -> Model:
     if cfg.family == "ssm":
         return _build_mamba2(cfg)
-    if cfg.family == "dense":
-        return _build_transformer(cfg)
-    raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-        f"item 12); ported: 'ssm', 'dense'")
+    if cfg.family == "hybrid":
+        return _build_recurrentgemma(cfg)
+    if cfg.family == "audio":
+        return _build_whisper(cfg)
+    return _build_transformer(cfg)     # dense | moe | vlm

@@ -1,15 +1,20 @@
-"""Decoder-only transformer, the dense family (port of the dense parts of
-``src/repro/models/transformer.py``): parameter specs, the attention and
-FFN blocks, the full-sequence forward, the LM head, and decoding against
-stacked KV caches.  The Mamba-2 family reads ``embed_tokens``,
-``logits_fn`` and ``cast_params`` from here too.
+"""Decoder-only transformer for the dense, MoE and vision families (port
+of ``src/repro/models/transformer.py``): parameter specs, the attention,
+FFN and MoE blocks, the full-sequence forward, the LM head, and decoding
+against stacked KV caches.  The other families read ``embed_tokens``,
+``logits_fn``, ``cast_params`` and the blocks from here too.
 
 Block parameters are stacked along a leading layer axis, as in the
 reference; layer ``l`` is their ``[l]`` views, applied in a Python loop
-(the reference's ``lax.scan``).  The reference's ``Runtime`` (mesh
-sharding hooks, the context-parallel attention branch, the MoE dispatch)
-has no counterpart on one card; it returns with the distributed and MoE
-slices (ROADMAP queue 1, item 12), as do M-RoPE and the vision embeds.
+(the reference's ``lax.scan``).  deepseek's leading dense layers are a
+stack of their own (``dense_blocks``, caches ``"dense"``) before the MoE
+stack (``blocks``).  Qwen2-VL's M-RoPE positions (``positions3``) and
+vision embeddings (``vision_embeds``) are threaded through the forward,
+prefill and decode.  The reference's ``Runtime`` (mesh sharding hooks,
+the context-parallel attention branch, the sharded MoE dispatch
+``_moe_bucket_sharded``) has no counterpart on one card; it returns with
+the distributed slice (ROADMAP queue 1, item 12 part 7).  ``moe_block``
+runs ``moe_layer_local``, as the reference does without a mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.modules import ParamSpec
 
 ATTN_CHUNK = 1024          # KV chunk of prefill attention (Runtime.attn_chunk)
@@ -58,6 +64,26 @@ def _mlp_specs(cfg: ModelConfig, n: int, ff: int, prefix: str = "") -> dict:
     }
 
 
+def _moe_specs(cfg: ModelConfig, n: int) -> dict:
+    m = cfg.moe
+    d, f = cfg.d_model, m.expert_ff
+    s = {
+        "router": ParamSpec((n, d, m.n_experts), ("layers", "embed", None),
+                            init="small"),
+        "w_gate": ParamSpec((n, m.n_experts, d, f),
+                            ("layers", "expert", "embed", "mlp")),
+        "w_up": ParamSpec((n, m.n_experts, d, f),
+                          ("layers", "expert", "embed", "mlp")),
+        "w_down": ParamSpec((n, m.n_experts, f, d),
+                            ("layers", "expert", "mlp", "embed")),
+    }
+    if m.n_shared:
+        s.update(_mlp_specs(cfg, n, m.n_shared * f, prefix="sh_"))
+    if m.parallel_dense_ff:
+        s.update(_mlp_specs(cfg, n, m.parallel_dense_ff, prefix="pd_"))
+    return s
+
+
 def _norm_specs(cfg: ModelConfig, n: int) -> dict:
     d = cfg.d_model
     init = "zeros" if cfg.post_norm else "ones"   # gemma stores w-1
@@ -72,19 +98,33 @@ def _norm_specs(cfg: ModelConfig, n: int) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """The dense family's parameter tree (MoE comes with its slice)."""
+    """The parameter tree: the embedding, the final norm, the LM head
+    unless tied, and the stacked blocks (for MoE: ``first_dense`` dense
+    ``dense_blocks``, then the MoE ``blocks``)."""
     nl = cfg.n_layers
     specs: dict = {
         "embed": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                            init="embed"),
         "final_norm": ParamSpec((cfg.d_model,), ("embed",),
                                 init="zeros" if cfg.post_norm else "ones"),
-        "blocks": {**_attn_specs(cfg, nl), **_mlp_specs(cfg, nl, cfg.d_ff),
-                   **_norm_specs(cfg, nl)},
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab),
                                      ("embed", "vocab"))
+    if cfg.moe:
+        n_dense = cfg.moe.first_dense
+        n_moe = nl - n_dense
+        specs["blocks"] = {**_attn_specs(cfg, n_moe), **_moe_specs(cfg, n_moe),
+                           **_norm_specs(cfg, n_moe)}
+        if n_dense:
+            specs["dense_blocks"] = {
+                **_attn_specs(cfg, n_dense),
+                **_mlp_specs(cfg, n_dense, cfg.moe.dense_ff or cfg.d_ff),
+                **_norm_specs(cfg, n_dense)}
+    else:
+        specs["blocks"] = {**_attn_specs(cfg, nl),
+                           **_mlp_specs(cfg, nl, cfg.d_ff),
+                           **_norm_specs(cfg, nl)}
     return specs
 
 
@@ -116,11 +156,20 @@ def _norm(cfg: ModelConfig):
                                    unit_offset=cfg.post_norm)
 
 
-def _project_qkv(p, h, cfg: ModelConfig):
+def _proj(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) @ (d, H, Dh) -> (B, S, H, Dh) in h's dtype."""
     B, S, d = h.shape
-    proj = lambda w: (h @ w.to(h.dtype).reshape(d, -1)).view(
-        B, S, w.shape[1], w.shape[2])
-    q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+    return (h @ w.to(h.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
+
+
+def _out(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, Dh) @ (H, Dh, d) -> (B, S, d) in o's dtype."""
+    B, S, H, Dh = o.shape
+    return o.reshape(B, S, H * Dh) @ w.to(o.dtype).reshape(H * Dh, -1)
+
+
+def _project_qkv(p, h, cfg: ModelConfig):
+    q, k, v = _proj(h, p["wq"]), _proj(h, p["wk"]), _proj(h, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(h.dtype)
         k = k + p["bk"].to(h.dtype)
@@ -131,19 +180,23 @@ def _project_qkv(p, h, cfg: ModelConfig):
     return q, k, v
 
 
-def _rope(cfg: ModelConfig, x, positions):
+def _rope(cfg: ModelConfig, x, positions, positions3=None):
+    if cfg.mrope_sections and positions3 is not None:
+        return L.apply_mrope(x, positions3, cfg.mrope_sections,
+                             cfg.rope_theta)
     return L.apply_rope(x, positions, cfg.rope_theta)
 
 
 def attn_block(p, x, cfg: ModelConfig, *, window: int, positions,
-               cache: A.KVCache | None = None, ring: bool = False):
+               positions3=None, cache: A.KVCache | None = None,
+               ring: bool = False):
     """Pre/post-norm attention residual.  Returns (x, new_cache)."""
     p = cast_params(p)
     norm = _norm(cfg)
     h = norm(x, p["ln1"])
     q, k, v = _project_qkv(p, h, cfg)
-    q = _rope(cfg, q, positions)
-    k = _rope(cfg, k, positions)
+    q = _rope(cfg, q, positions, positions3)
+    k = _rope(cfg, k, positions, positions3)
     scale = cfg.query_scale if cfg.query_scale else None
     if cache is not None:
         cache = A.cache_update(cache, k, v, ring=ring)
@@ -160,8 +213,7 @@ def attn_block(p, x, cfg: ModelConfig, *, window: int, positions,
         o = A.flash_attention(q, k, v, causal=True, window=window,
                               softcap=cfg.attn_softcap, scale=scale,
                               chunk=ATTN_CHUNK)
-    B, S, H, Dh = o.shape
-    o = o.reshape(B, S, H * Dh) @ p["wo"].to(o.dtype).reshape(H * Dh, -1)
+    o = _out(o, p["wo"])
     if cfg.post_norm:
         o = norm(o, p["ln1b"])
     return x + _scaled(o, cfg), cache
@@ -176,6 +228,35 @@ def ffn_block(p, x, cfg: ModelConfig):
     if cfg.post_norm:
         o = norm(o, p["ln2b"])
     return x + _scaled(o, cfg)
+
+
+def moe_block(p, x, cfg: ModelConfig):
+    """MoE residual (+ the shared experts / the parallel dense MLP).
+    Returns (x, MoEStats)."""
+    p = cast_params(p)
+    h = _norm(cfg)(x, p["ln2"])
+    B, S, d = h.shape
+    o, stats = M.moe_layer_local(
+        h.reshape(-1, d), {k: p[k] for k in ("router", "w_gate", "w_up",
+                                             "w_down")},
+        cfg.moe, act=cfg.act)
+    o = o.view(B, S, d)
+    for prefix, on in (("sh_", cfg.moe.n_shared),
+                       ("pd_", cfg.moe.parallel_dense_ff)):
+        if on:
+            o = o + L.glu_mlp(h, p[prefix + "wg"].to(h.dtype),
+                              p[prefix + "wu"].to(h.dtype),
+                              p[prefix + "wd"].to(h.dtype), cfg.act)
+    return x + _scaled(o, cfg), stats
+
+
+def _ffn(p, x, cfg: ModelConfig):
+    """The block's second residual: MoE where the block has a router,
+    else the FFN.  Returns (x, the MoE's aux loss or None)."""
+    if "router" in p:
+        x, stats = moe_block(p, x, cfg)
+        return x, stats.aux_loss
+    return ffn_block(p, x, cfg), None
 
 
 # ---------------------------------------------------------------------------
@@ -193,15 +274,22 @@ def _layer_windows(cfg: ModelConfig) -> np.ndarray:
     return np.zeros(cfg.n_layers, np.int32)
 
 
-def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
+                 vision_embeds: torch.Tensor | None = None):
     """Embedding rows in bf16, times ``scale_emb`` (minicpm) or, for gemma
-    (post-norms), ``sqrt(d_model)`` rounded to bf16 first."""
+    (post-norms), ``sqrt(d_model)`` rounded to bf16 first.  A vision
+    family's ``vision_embeds`` overwrite the leading block of the result
+    that their shape covers (the reference's ``dynamic_update_slice`` at
+    the origin)."""
     x = params["embed"].to(torch.bfloat16)[tokens]
     if cfg.scale_emb != 1.0:
         x = x * cfg.scale_emb
     elif cfg.post_norm:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
+    if vision_embeds is not None and cfg.vision_tokens:
+        b, n, d = vision_embeds.shape
+        x[:b, :n, :d] = vision_embeds.to(x.dtype)
     return x
 
 
@@ -209,18 +297,35 @@ def _layer(blocks: dict, layer: int) -> dict:
     return {k: v[layer] for k, v in blocks.items()}
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig):
-    """Full-sequence forward -> (final hidden states (B, S, d) bf16, aux
-    loss 0)."""
+def _stacks(cfg: ModelConfig):
+    """(parameter stack, cache name, per-layer windows) of each layer
+    stack, in order: deepseek's leading dense layers, then the rest."""
+    windows = _layer_windows(cfg)
+    nd = cfg.moe.first_dense if cfg.moe else 0
+    if nd:
+        return (("dense_blocks", "dense", windows[:nd]),
+                ("blocks", "blocks", windows[nd:]))
+    return (("blocks", "blocks", windows),)
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            positions3=None, vision_embeds=None):
+    """Full-sequence forward -> (final hidden states (B, S, d) bf16, the
+    MoE layers' summed aux loss (0 without MoE))."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = embed_tokens(params, tokens, cfg)
-    for layer, win in enumerate(_layer_windows(cfg)):
-        p = _layer(params["blocks"], layer)
-        x, _ = attn_block(p, x, cfg, window=int(win), positions=positions)
-        x = ffn_block(p, x, cfg)
+    x = embed_tokens(params, tokens, cfg, vision_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for stack, _, windows in _stacks(cfg):
+        for layer, win in enumerate(windows):
+            p = _layer(params[stack], layer)
+            x, _ = attn_block(p, x, cfg, window=int(win),
+                              positions=positions, positions3=positions3)
+            x, layer_aux = _ffn(p, x, cfg)
+            if layer_aux is not None:
+                aux = aux + layer_aux
     x = _norm(cfg)(x, params["final_norm"])
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def logits_fn(params, hidden: torch.Tensor, cfg: ModelConfig):
@@ -240,48 +345,55 @@ def ring_caches(cfg: ModelConfig) -> bool:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None) -> dict:
-    """Stacked per-layer KV caches (``device=None`` is CUDA): every layer
+    """Stacked per-layer KV caches (``device=None`` is CUDA), one entry per
+    layer stack (``"dense"`` and ``"blocks"`` for deepseek): every layer
     ``max_len`` long, or the window long when every layer is windowed."""
     device = dispatch.resolve_device(device)
     windows = _layer_windows(cfg)
     T = int(windows.max()) if ring_caches(cfg) else max_len
-    shape = (cfg.n_layers, batch, T, cfg.n_kv_heads, cfg.head_dim)
-    return {"blocks": A.KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
-        length=torch.zeros((cfg.n_layers,), dtype=torch.int32,
-                           device=device))}
+
+    def mk(n):
+        shape = (n, batch, T, cfg.n_kv_heads, cfg.head_dim)
+        return A.KVCache(
+            k=torch.zeros(shape, dtype=dtype, device=device),
+            v=torch.zeros(shape, dtype=dtype, device=device),
+            length=torch.zeros((n,), dtype=torch.int32, device=device))
+
+    return {name: mk(len(w)) for _, name, w in _stacks(cfg)}
 
 
 def cached_layers(params, x: torch.Tensor, caches: dict, cfg: ModelConfig,
-                  positions: torch.Tensor):
+                  positions: torch.Tensor, positions3=None):
     """Every block on ``x`` against its cache (prefill for S > 1 tokens,
     decode for one), then the final norm.  Returns (hidden, new caches);
     the old caches are left as they were."""
     ring = ring_caches(cfg)
-    c = caches["blocks"]
-    ks, vs, lens = [], [], []
-    for layer, win in enumerate(_layer_windows(cfg)):
-        p = _layer(params["blocks"], layer)
-        cache = A.KVCache(c.k[layer], c.v[layer], c.length[layer])
-        x, cache = attn_block(p, x, cfg, window=int(win),
-                              positions=positions, cache=cache, ring=ring)
-        x = ffn_block(p, x, cfg)
-        ks.append(cache.k)
-        vs.append(cache.v)
-        lens.append(cache.length)
     new = dict(caches)
-    new["blocks"] = A.KVCache(torch.stack(ks), torch.stack(vs),
+    for stack, name, windows in _stacks(cfg):
+        c = caches[name]
+        ks, vs, lens = [], [], []
+        for layer, win in enumerate(windows):
+            p = _layer(params[stack], layer)
+            cache = A.KVCache(c.k[layer], c.v[layer], c.length[layer])
+            x, cache = attn_block(p, x, cfg, window=int(win),
+                                  positions=positions, positions3=positions3,
+                                  cache=cache, ring=ring)
+            x, _ = _ffn(p, x, cfg)
+            ks.append(cache.k)
+            vs.append(cache.v)
+            lens.append(cache.length)
+        new[name] = A.KVCache(torch.stack(ks), torch.stack(vs),
                               torch.stack(lens))
     return _norm(cfg)(x, params["final_norm"]), new
 
 
 def decode_step(params, caches: dict, tokens: torch.Tensor,
-                cfg: ModelConfig):
+                cfg: ModelConfig, positions3=None):
     """One token for every sequence.  tokens: (B, 1).  Positions are the
-    caches' length (the engine's left padding counts from 0).  Returns
+    ``"blocks"`` caches' length (the engine's left padding counts from
+    0); M-RoPE applies only where ``positions3`` is given.  Returns
     (logits, new caches)."""
     positions = caches["blocks"].length[0].expand(tokens.shape[0], 1)
     x = embed_tokens(params, tokens, cfg)
-    x, new = cached_layers(params, x, caches, cfg, positions)
+    x, new = cached_layers(params, x, caches, cfg, positions, positions3)
     return logits_fn(params, x, cfg), new

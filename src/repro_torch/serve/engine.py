@@ -7,6 +7,15 @@ count in the positions, as in the reference); each wave prefills once and
 decodes greedily (or samples)
 until every member has emitted EOS or ``max_new_tokens`` are out.
 
+A request's ``extras`` (``enc_frames``, ``vision_embeds``, ``positions3``)
+are merged into its wave's prefill batch as the reference merges them:
+one request after another, the last one's value of a key winning.  So
+each extra must cover the whole wave: an extra whose batch axis (axis 1
+of ``positions3``, axis 0 of the others) is not the wave's size raises a
+``ValueError`` naming the shapes.  The reference goes on with it: its
+Whisper raises a ``TypeError`` on such frames, and its vision stub
+writes such embeddings into the rows they cover.
+
 Differences from the reference:
 
 * ``temperature > 0`` samples from a ``torch.Generator`` seeded with
@@ -43,7 +52,29 @@ class ServeConfig:
 class Request:
     rid: int
     prompt: np.ndarray            # (S,) int32
-    extras: dict | None = None    # enc_frames / vision stubs (not ported)
+    extras: dict | None = None    # enc_frames / vision stubs
+
+
+BATCH_AXIS = {"positions3": 1}    # else 0: the batch axis of each extra
+
+
+def _wave_batch(tokens: torch.Tensor, wave: list) -> dict:
+    """The prefill batch of a wave: its tokens and its requests' extras,
+    merged in order, on the tokens' device."""
+    batch = {"tokens": tokens}
+    for r in wave:
+        for key, value in (r.extras or {}).items():
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.asarray(value))
+            axis = BATCH_AXIS.get(key, 0)
+            if value.dim() <= axis or value.shape[axis] != len(wave):
+                raise ValueError(
+                    f"request {r.rid}: extra {key!r} of shape "
+                    f"{tuple(value.shape)} has no batch axis {axis} of the "
+                    f"wave's {len(wave)} requests (tokens "
+                    f"{tuple(tokens.shape)})")
+            batch[key] = value.to(tokens.device)
+    return batch
 
 
 @dataclasses.dataclass
@@ -84,22 +115,17 @@ class Engine:
         slots = self.cfg.slots
         for w0 in range(0, len(requests), slots):
             wave = requests[w0:w0 + slots]
-            if any(r.extras for r in wave):
-                raise NotImplementedError(
-                    "request extras feed the audio and vision families, "
-                    "not ported yet (ROADMAP queue 1, item 12)")
             B = len(wave)
             S = max(len(r.prompt) for r in wave)
             toks = np.zeros((B, S), np.int64)
             for j, r in enumerate(wave):
                 toks[j, S - len(r.prompt):] = r.prompt    # left-pad
-            tokens = torch.from_numpy(toks).to(device)
+            batch = _wave_batch(torch.from_numpy(toks).to(device), wave)
             with self.tracer.span("serve/prefill", track="serve", batch=B,
                                   prompt_len=S) as pre:
                 caches = self.model.init_caches(B, self.cfg.max_len,
                                                 device=device)
-                h, caches = self.model.prefill(params, {"tokens": tokens},
-                                               caches)
+                h, caches = self.model.prefill(params, batch, caches)
                 tok = self._sample(self.model.logits(params, h[:, -1:, :]))
                 gen = [tok.cpu().numpy()]
             done = np.zeros((B,), bool)

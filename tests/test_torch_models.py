@@ -24,8 +24,10 @@ per-leaf keys from a stable hash of the parameter path
 path, which ``PYTHONHASHSEED`` salts per process, so every test process
 used to draw another model.
 """
+import contextlib
 import dataclasses
 import zlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +41,7 @@ from repro.kernels import ops as r_ops, ref as r_ref
 from repro.models import build as r_build, layers as r_layers, ssm as r_ssm
 from repro.models import hybrid as r_hybrid
 from repro.models import modules as r_modules
+from repro.models import transformer as r_transformer
 from repro.models.modules import param_bytes as r_param_bytes
 from repro.models.modules import param_count as r_param_count
 from repro.serve.engine import Engine as REngine
@@ -252,14 +255,17 @@ def _left_pad(prompts):
 
 def _replay_margins(eng, model, params, reqs, out, scfg):
     """Top-2 logit margin of every generated token of the reference
-    engine, replayed through its own jitted prefill / decode."""
+    engine, replayed through its own jitted prefill / decode (the wave's
+    extras merged as the engine merges them)."""
     margins = {}
     for w0 in range(0, len(reqs), scfg.slots):
         wave = reqs[w0:w0 + scfg.slots]
-        toks = _left_pad([r.prompt for r in wave])
+        batch = {"tokens": jnp.asarray(_left_pad([r.prompt for r in wave]))}
+        for r in wave:
+            batch.update({k: jnp.asarray(v)
+                          for k, v in (r.extras or {}).items()})
         caches = model.init_caches(len(wave), scfg.max_len)
-        h, caches = eng._prefill(params, {"tokens": jnp.asarray(toks)},
-                                 caches)
+        h, caches = eng._prefill(params, batch, caches)
         steps = [np.asarray(model.logits(params, h[:, -1:, :])[:, -1])]
         n = max(len(out[r.rid]) for r in wave)
         for t in range(1, n):
@@ -287,6 +293,157 @@ def _stable_init(spec_tree, key):
                                           tree.dtype)
         return {k: rec(v, prefix + (k,)) for k, v in tree.items()}
     return rec(spec_tree)
+
+
+def _np32(t) -> np.ndarray:
+    """A reference array as numpy, bf16 as f32."""
+    return np.asarray(t.astype(jnp.float32)) if t.dtype == jnp.bfloat16 \
+        else np.asarray(t)
+
+
+@contextlib.contextmanager
+def head_inputs(module):
+    """The hidden states that ``module.logits_fn`` (the LM head every
+    family's decode ends in) is called with, collected into a list."""
+    seen = []
+    head = module.logits_fn
+
+    def spy(params, hidden, *args, **kw):
+        seen.append(hidden)
+        return head(params, hidden, *args, **kw)
+
+    with mock.patch.object(module, "logits_fn", spy):
+        yield seen
+
+
+def reference_reduced(arch: str, extras=None, *, S: int = 24,
+                      max_len: int = 40, embed_scale: float = EMBED_SCALE,
+                      cfg_edit=None) -> dict:
+    """One reduced reference model's runs on 2 sequences of ``S`` random
+    tokens (seed 1): its parameters (``_stable_init``, the embedding
+    scaled so that the blocks, not the embedding, pick tokens) as numpy,
+    the tokens, the next tokens, the extras (``extras(cfg, rng, B, S)`` ->
+    dict of numpy arrays), the hidden states, aux and logits of the full
+    forward, the prefill's hidden states and caches (``max_len``), and one
+    decode step's hidden states, logits and caches."""
+    cfg = r_reduced(r_get_config(arch))
+    if cfg_edit is not None:
+        cfg = cfg_edit(cfg)
+    model = r_build(cfg)
+    params = _stable_init(model.specs(), jax.random.PRNGKey(0))
+    params["embed"] = params["embed"] * embed_scale
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab, (2, S)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+    ext = extras(cfg, rng, 2, S) if extras else {}
+    batch = {"tokens": jnp.asarray(tokens),
+             **{k: jnp.asarray(v) for k, v in ext.items()}}
+    h, aux = model.hidden(params, batch)
+    caches = model.init_caches(2, max_len)
+    hp, caches = model.prefill(params, batch, caches)
+    with head_inputs(r_transformer) as seen:
+        logits_d, dcaches = model.decode(params, caches, jnp.asarray(nxt))
+    to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
+    return dict(params=to_np(params), tokens=tokens, nxt=nxt, extras=ext,
+                hidden=_np32(h), aux=float(aux),
+                logits=_np32(model.logits(params, h)), prefill_h=_np32(hp),
+                caches=to_np(caches), decode_h=_np32(seen[0]),
+                decode_logits=_np32(logits_d), decode_caches=to_np(dcaches),
+                cfg=cfg)
+
+
+def assert_caches_close(got, want, tol, path="caches"):
+    """Every field of a port cache tree against the reference's (numpy
+    leaves; integer fields exactly)."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            assert_caches_close(got[k], want[k], tol, f"{path}.{k}")
+        return
+    if isinstance(want, tuple):
+        fields = getattr(want, "_fields", None) or range(len(want))
+        assert len(got) == len(want), path
+        for i, f in enumerate(fields):
+            assert_caches_close(got[i], want[i], tol, f"{path}.{f}")
+        return
+    g = got.float().numpy() if got.dtype == torch.bfloat16 else got.numpy()
+    w = np.asarray(want, np.float32) if want.dtype.kind == "V" or \
+        want.dtype.name == "bfloat16" else np.asarray(want)
+    assert g.shape == w.shape, (path, g.shape, w.shape)
+    if w.dtype.kind in "iu":
+        np.testing.assert_array_equal(g, w, err_msg=path)
+    else:
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=path)
+
+
+def port_batch(ref) -> dict:
+    return {"tokens": torch.from_numpy(ref["tokens"]),
+            **{k: torch.from_numpy(v) for k, v in ref["extras"].items()}}
+
+
+def assert_port_matches_reduced(ref, model, tol=TOL):
+    """The port on the reference's parameters and inputs: the full
+    forward's hidden states and aux, the prefill's hidden states and every
+    cache field, and one decode step's hidden states (the LM head's input)
+    and caches (from the port's prefill caches and from the reference's
+    own), at ``tol``.  Logits are the LM head on the reference's own hidden
+    states, to one bf16 rounding (held on the port's hidden states, they
+    would see the hidden's bf16 differences summed over d_model, as in the
+    Mamba-2 tests above).  Returns the port's prefill caches."""
+    params = convert.params_from_reference(ref["params"], device="cpu")
+    batch = port_batch(ref)
+    h, aux = model.hidden(params, batch)
+    assert h.dtype == torch.bfloat16
+    _close(h.float(), ref["hidden"], tol)
+    _close(aux, ref["aux"], tol)
+    _close(model.logits(params, torch.tensor(ref["hidden"]).bfloat16()),
+           ref["logits"], 1e-2)
+    caches = model.init_caches(2, 40, device="cpu")
+    hp, caches = model.prefill(params, batch, caches)
+    _close(hp.float(), ref["prefill_h"], tol)
+    assert_caches_close(caches, ref["caches"], tol)
+    _close(model.logits(params, torch.tensor(ref["decode_h"]).bfloat16()),
+           ref["decode_logits"], 1e-2)
+    nxt = torch.from_numpy(ref["nxt"])
+    for start in (caches, convert.caches_from_reference(ref["caches"],
+                                                        device="cpu")):
+        with head_inputs(t_tr) as seen:
+            logits, dcaches = model.decode(params, start, nxt)
+        assert logits.shape == ref["decode_logits"].shape
+        _close(seen[0].float(), ref["decode_h"], tol)
+        assert_caches_close(dcaches, ref["decode_caches"], tol,
+                            "decode caches")
+    return caches
+
+
+def reference_engine(ref, reqs, scfg) -> tuple[dict, dict]:
+    """The reference engine's greedy tokens for ``reqs`` on the reduced
+    model of ``reference_reduced``'s result, and every token's top-2 logit
+    margin (replayed)."""
+    model = r_build(ref["cfg"])
+    params = jax.tree_util.tree_map(jnp.asarray, ref["params"])
+    eng = REngine(model, scfg)
+    out = eng.generate_batch(params, reqs)
+    return out, _replay_margins(eng, model, params, reqs, out, scfg)
+
+
+def assert_greedy_matches(out, want, margins, min_checked, tol=TOL):
+    """Port tokens equal the reference's wherever the reference's top-2
+    margin exceeds ``tol``, up to the first near-tie that went the other
+    way; at least ``min_checked`` tokens compared."""
+    assert sorted(out) == sorted(want)
+    checked = 0
+    for rid, w in want.items():
+        got, margin = out[rid], margins[rid]
+        for t in range(min(len(got), len(w))):
+            if margin[t] > tol:
+                assert got[t] == w[t], (rid, t, margin[t])
+                checked += 1
+            elif got[t] != w[t]:
+                break           # a near-tie went the other way: stop here
+        else:
+            assert len(got) == len(w), rid
+    assert checked >= min_checked, "too few decisive tokens compared"
 
 
 @pytest.fixture(scope="module")
@@ -381,21 +538,9 @@ def test_engine_greedy_matches_reference(ref, port):
     eng = Engine(model, ServeConfig(slots=2, max_len=64,
                                     max_new_tokens=MAX_NEW))
     out = eng.generate_batch(params, _requests(Request, 256))
-    assert sorted(out) == sorted(ref["out"])
     assert [(w.batch, w.prompt_len) for w in eng.waves] == [(2, 20), (1, 33)]
-    checked = 0
-    for rid, want in ref["out"].items():
-        got, margin = out[rid], ref["margins"][rid]
-        assert got.dtype == np.int32
-        for t in range(min(len(got), len(want))):
-            if margin[t] > TOL:
-                assert got[t] == want[t], (rid, t, margin[t])
-                checked += 1
-            elif got[t] != want[t]:
-                break           # a near-tie went the other way: stop here
-        else:
-            assert len(got) == len(want), rid
-    assert checked >= len(PROMPTS) * 2, "too few decisive tokens compared"
+    assert all(got.dtype == np.int32 for got in out.values())
+    assert_greedy_matches(out, ref["out"], ref["margins"], len(PROMPTS) * 2)
 
 
 def test_engine_samples_reproducibly_at_temperature(port):

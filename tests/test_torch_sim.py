@@ -312,28 +312,27 @@ def test_default_device_is_cuda_and_raises_without_it(ref, part):
 
 
 def test_unported_paths_raise(part):
-    import dataclasses
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import ARCHS, get_config, reduced
     from repro_torch.models import build
     from repro_torch.serve.engine import Engine, Request, ServeConfig
     spec, p = part
-    for arch in ("deepseek_moe_16b", "recurrentgemma_9b",
-                 "whisper_large_v3"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            get_config(arch)
+    # every architecture (item 12, parts 1-4 with the dense family and
+    # Mamba-2) resolves and builds, each family its own
+    families = {}
+    for arch in ARCHS:
+        families[arch] = build(reduced(get_config(arch))).cfg.family
+        assert build(get_config(arch)).cfg.name == get_config(arch).name
+    assert set(families.values()) == {"dense", "moe", "vlm", "ssm",
+                                      "hybrid", "audio"}
     lm_cfg = reduced(get_config("mamba2-2.7b"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build(dataclasses.replace(lm_cfg, family="moe"))
-    # the dense family (item 12, first part) is ported
-    for arch in ("qwen3_32b", "gemma2-9b", "qwen1.5-4b", "minicpm-2b"):
-        assert build(reduced(get_config(arch))).cfg.family == "dense"
     lm = build(lm_cfg)
     # the span tracer (item 10) is ported
     from repro_torch.obs import Tracer
     tracer = Tracer()
     assert Engine(lm, ServeConfig(), tracer=tracer).tracer is tracer
     params = lm.init(torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # request extras are merged; one that does not cover the wave raises
+    with pytest.raises(ValueError, match="no batch axis 0"):
         Engine(lm, ServeConfig()).generate_batch(params, [Request(
             0, np.arange(3, 7, dtype=np.int32), extras={"enc_frames": 0})])
     # fault injection (item 8) is ported: the faulted replay runs, and
