@@ -25,7 +25,11 @@ Phases, each raising on failure (exit code != 0, no result line):
    epilogue, one LIF window kernel against the 8-step sequence it
    replaced, and for the SSD chunk the tensor-core kernel, the FMA kernel
    on the same bf16 inputs and the plain version; bucket_scatter beside
-   the parent's times;
+   the parent's times; then kernel E under autograd
+   (``ssd_chunk_grad``) at main path 12's shape, 8 chunks chained
+   through the state: outputs and the six inputs' gradients against
+   autograd of the plain loop at 2e-4 (bf16 gradients + one bf16 ulp),
+   8 launches, all in the forward;
 4. slice   -- a small microcircuit (scale 0.004, 4 shards, 8 windows) on
    the card against the same run of the plain versions on the CPU, with
    the same initial potentials and background drive;
@@ -197,15 +201,41 @@ Phases, each raising on failure (exit code != 0, no result line):
    and 8 decode steps, checked; 4 requests served at 1 slot, each with
    its own frames (the only width at which the reference's engine serves
    its launcher's requests);
+7h. train-small -- one train step of each of the ten reduced
+   architectures, card against CPU on the same f32 parameters and
+   ``synthetic_batch`` (2 x 32 tokens): loss, nll, z, aux and grad_norm
+   at 1e-2 relative, each gradient leaf's RMS difference within 5e-2 of
+   its RMS (MoE experts allowing one routing flip), the reduced Mamba-2's
+   gradients reaching in_proj, conv and A_log through kernel E (8
+   launches: 2 layers x 2 chunks, forward and recompute); the optimizer
+   on the CPU's gradients card vs CPU at 1e-6 (arctic: Adafactor with a
+   bf16 momentum, within one ulp); reduced minicpm-2b with per-layer
+   remat on against off; the reference's trainer test on the card (20
+   steps, the loss falls, checkpoints every 10 under
+   ``build/train_ckpt``, the step-20 checkpoint == the state bit for bit,
+   a crash injected at 25, the restart resumes at 20 and ends at 40);
+7i. main path 11 -- minicpm-2b trained at full width (40 layers,
+   d_model 2304, vocab 122,753; 2.725 B f32 parameters, AdamW, the WSD
+   schedule at lr 1e-3 with warmup 1), built as ``launch/train.py``
+   builds it: ``synthetic_batch`` through the prefetcher, 2 x 4,096
+   tokens a step (MiniCPM's context), 8 steps, no checkpoint: every
+   step's loss and grad_norm finite, the last loss below the first, lr
+   == the schedule's formula at 1e-6, 0 launches; ms a step (median of
+   steps 3-8, synchronised), tokens/s, peak memory and a torch.profiler
+   pass over one more step;
+7j. main path 12 -- mamba2-2.7b trained at full width the same way, 2 x
+   2,048 tokens a step (Mamba-2's pretraining context), 4 steps: kernel
+   E's tensor-core route launched 64 layers x 8 chunks x 2 (the forward
+   and the per-layer recompute) a step, the FMA route never;
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
    to 0 just before that path: A-C and F from main path 3, F and B also
    from main path 4's three runs, A-C and F from obs-sim's recorded runs
    and F and B from obs-serve's instrumented run (the per-row placement 0:
    it is on no path), D from the exchange,
-   E's tensor-core kernel from main path 2, E's FMA kernel from the f32
-   scan of phase 6, G's two forms from main path 5) and, last, the device
-   JSON line.
+   E's tensor-core kernel from main paths 2 and 12, E's FMA kernel from
+   the f32 scan of phase 6, G's two forms from main path 5) and, last,
+   the device JSON line.
 """
 from __future__ import annotations
 
@@ -234,8 +264,14 @@ N_SHARDS = 4
 N_WINDOWS = 25
 
 
+T_START = time.perf_counter()
+
+
 def banner(title: str) -> None:
-    print(f"\n== {title}", flush=True)
+    """A phase's title, with the seconds since the script started (so a
+    later slice can see which phase to cut to stay in half the limit)."""
+    print(f"\n== {title} (at {time.perf_counter() - T_START:.0f} s)",
+          flush=True)
 
 
 def time_ms(fn, calls: int = 10, reps: int = 20) -> tuple[float, float]:
@@ -4180,6 +4216,448 @@ def run_whisper_main_path(smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The training path (item 12 parts 5-6): kernel E under autograd, the
+# reduced zoo trained card vs CPU, the trainer's crash and restart on the
+# card, minicpm-2b and mamba2-2.7b trained at their published widths.
+# ---------------------------------------------------------------------------
+
+E_GRAD_CHUNKS = 8                 # main path 12's chunks per sequence
+TOL_TRAIN_METRIC = 1e-2           # loss, nll, z, aux, grad_norm, relative
+TOL_GRAD = 5e-2                   # rms(card - CPU) per leaf / rms(CPU)
+TOL_REMAT = 1e-6                  # remat on vs off, where atomics reorder
+TOL_OPT = 1e-6                    # the optimizer on the same gradients
+MOE_LEAVES = ("router", "w_gate", "w_up", "w_down")
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+MINICPM_ARCH = "minicpm-2b"
+# sequences, tokens each, steps, peak lr: MiniCPM's 4,096-token context
+# (arXiv:2404.06395) at the launcher's lr; Mamba-2's 2,048-token
+# pretraining context (arXiv:2405.21060) at 1e-4: its tied embedding at
+# the reference's init (std 1, no input scale) gives logits of std
+# sqrt(2560) ~ 51 (loss ~300 at step 1), and at 1e-3 the third step
+# overshot (a probe on the H100 read 314, 263, 491, 384)
+MINICPM_TRAIN = (2, 4096, 8, 1e-3)
+MAMBA_TRAIN = (2, 2048, 4, 1e-4)
+
+
+def check_ssd_chunk_grad(gen, bh, chunk, head_dim, d_state, bg):
+    """Kernel E under autograd (``ssd_chunk_grad``) at main path 12's shape:
+    ``E_GRAD_CHUNKS`` chunks of bh pairs chained through s_prev, bf16 x, B
+    and C, the loss sum(y_i * w_i) + sum(s * w_s) backwards, against
+    autograd of the plain loop on the same inputs on the card: the outputs
+    and the gradients of all six inputs at E's rtol/atol 2e-4 (the bf16
+    gradients of x, B and C plus one bf16 rounding: a chunk's s_prev
+    differs by the forward's 2e-4 and moves the C, dt and A gradients of
+    the next).  The forward launches the tensor-core kernel once a chunk,
+    the backward none.  Returns (launches, max abs err, ms, plain ms)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ssd_chunk as ssd
+    chunks = [_ssd_inputs(gen, bh, chunk, head_dim, d_state, torch.bfloat16,
+                          bg) for _ in range(E_GRAD_CHUNKS)]
+    A, s0 = chunks[0][2], chunks[0][5]
+    w_y = [torch.randn((bh, chunk, head_dim), generator=gen, device="cuda")
+           for _ in chunks]
+    w_s = torch.randn((bh, head_dim, d_state), generator=gen, device="cuda")
+
+    def run(fn):
+        leaves = [[t.clone().requires_grad_() for t in (x, dt, B, C)]
+                  for x, dt, _, B, C, _ in chunks]
+        a, s_in = A.clone().requires_grad_(), s0.clone().requires_grad_()
+        s, loss, ys = s_in, 0.0, []
+        for (x, dt, B, C), w in zip(leaves, w_y):
+            y, s = fn(x, dt, a, B, C, s)
+            ys.append(y.detach())
+            loss = loss + (y * w).sum()
+        (loss + (s * w_s).sum()).backward()
+        grads = {f"{n} {i}": t.grad for i, lv in enumerate(leaves)
+                 for n, t in zip(("x", "dt", "B", "C"), lv)}
+        grads.update(A=a.grad, s_prev=s_in.grad)
+        return ys + [s.detach()], grads
+
+    dispatch.reset_launches()
+    out, grads = run(ssd.ssd_chunk_grad)
+    launches = dict(dispatch.LAUNCHES)
+    if launches != {"ssd_chunk": E_GRAD_CHUNKS}:
+        raise AssertionError(f"E under autograd: launches {launches}, want "
+                             f"{E_GRAD_CHUNKS} of ssd_chunk")
+    want_out, want_grads = run(ssd.ssd_chunk_plain)
+    for i, (a, b) in enumerate(zip(out, want_out)):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4,
+                                   msg=lambda m: f"E grad: output {i}: {m}")
+    err = max_abs_err(zip(out, want_out))
+    for name, g in grads.items():
+        w = want_grads[name]
+        if g is None or g.dtype != w.dtype or not bool(
+                torch.isfinite(g).all()) or not bool(g.abs().max() > 0):
+            raise AssertionError(f"E grad: d{name} is missing, not finite "
+                                 f"or 0")
+        a, b = g.float(), w.float()
+        limit = 2e-4 + 2e-4 * b.abs()
+        if g.dtype == torch.bfloat16:           # + one bf16 ulp
+            limit = limit + torch.exp2(torch.floor(torch.log2(
+                torch.maximum(a.abs(), b.abs()).clamp(min=1e-30))) - 7)
+        if bool(((a - b).abs() > limit).any()):
+            raise AssertionError(f"E grad: d{name} differs from the plain "
+                                 f"loop's by up to {max_abs_err([(a, b)])}")
+        err = max(err, max_abs_err([(a, b)]))
+
+    def timed(fn):
+        times = []
+        for _ in range(3):
+            times.append(timed_s(lambda: run(fn))[1] * 1e3)
+        return statistics.median(times)
+
+    ms, plain_ms = timed(ssd.ssd_chunk_grad), timed(ssd.ssd_chunk_plain)
+    print(f"ssd_chunk_grad ({E_GRAD_CHUNKS} chunks of {bh} pairs x {chunk} "
+          f"x {head_dim} x {d_state}, bf16, chained): outputs and the 6 "
+          f"inputs' gradients == autograd of the plain loop within 2e-4 "
+          f"(bf16 gradients + one bf16 ulp), max abs err {err:.3e}; "
+          f"launches {launches} (forward only: the backward is the plain "
+          f"version's vjp); forward + backward {ms:.2f} ms, plain loop "
+          f"{plain_ms:.2f} ms (host clock, synchronised)")
+    return launches["ssd_chunk"], err, ms, plain_ms
+
+
+def rms(t: torch.Tensor) -> float:
+    return float(t.double().pow(2).mean().sqrt())
+
+
+def train_leaves(tree) -> list:
+    """The tensors of a tree of dicts (sorted keys), lists and (named)
+    tuples, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in train_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in train_leaves(v)]
+    return [tree]
+
+
+def _flipped(got: torch.Tensor, want: torch.Tensor, leaf: str) -> set:
+    """(layer, expert) of an MoE leaf whose gradient misses TOL_GRAD; the
+    router (L, d, E) is read per expert column."""
+    if leaf == "router":
+        got, want = got.movedim(-1, 1), want.movedim(-1, 1)
+    return {(i, e) for i in range(want.shape[0])
+            for e in range(want.shape[1])
+            if rms(got[i, e] - want[i, e]) > TOL_GRAD * rms(want[i, e])}
+
+
+def close_grads(got: dict, want: dict, what: str) -> float:
+    """Every gradient leaf of the card (``got``) against the CPU's: the RMS
+    of the difference within TOL_GRAD of the CPU leaf's RMS; MoE expert
+    leaves expert by expert, allowing one routing flip (a top-k margin
+    inside the bf16 noise sends a token to another expert: at most 2
+    experts of a layer, the same in every expert leaf).  Returns the worst
+    relative RMS over the leaves held whole."""
+    worst, flips = 0.0, {}
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            worst = max(worst, close_grads(g, w, f"{what}/{k}"))
+            continue
+        g = g.cpu().float()
+        w = w.float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}/{k}: gradient not finite")
+        if k in MOE_LEAVES and "router" in want:
+            flips[k] = _flipped(g, w, k)
+            continue
+        rel = rms(g - w) / max(rms(w), 1e-30)
+        if rel > TOL_GRAD:
+            raise AssertionError(f"{what}/{k}: rms(card - CPU) / rms(CPU) "
+                                 f"{rel:.3e} > {TOL_GRAD}")
+        worst = max(worst, rel)
+    if flips:
+        per_layer = {}
+        for layer, e in set().union(*flips.values()):
+            per_layer.setdefault(layer, set()).add(e)
+        if any(len(v) > 2 for v in per_layer.values()) or any(
+                flips[k] != flips["w_gate"] for k in ("w_up", "w_down")):
+            raise AssertionError(f"{what}: expert gradients differ beyond "
+                                 f"one routing flip: {flips}")
+        if flips["w_gate"]:
+            print(f"{what}: one routing flip moved experts "
+                  f"{sorted(flips['w_gate'])}")
+    return worst
+
+
+def _train_batch(cfg, B: int, S: int, step: int, device) -> dict:
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    batch = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                       global_batch=B), step)
+    batch.update(zoo_extras(cfg, B, S, torch.Generator().manual_seed(step),
+                            "cpu"))
+    return tree_to(batch, device)
+
+
+def _metrics_close(got: dict, want: dict, what: str, n_tokens: int,
+                   moe: bool) -> None:
+    for k in ("loss", "nll", "z", "aux", "grad_norm"):
+        g, w = float(got[k]), float(want[k])
+        # a MoE load-balance term moves by ~2 / tokens with one top-1 flip
+        tol = TOL_TRAIN_METRIC * abs(w) + (2.0 / n_tokens if moe and
+                                           k == "aux" else 1e-6)
+        if not np.isfinite(g) or abs(g - w) > tol:
+            raise AssertionError(f"{what}: {k} card {g} vs CPU {w}")
+
+
+def check_train_small(smi: str):
+    """The training path reduced, card against CPU on the same parameters
+    (f32, seed 0) and batch (``synthetic_batch``, 2 x 32 tokens, the
+    family's extras): one train step of each of the ten architectures
+    (loss, nll, z, aux and grad_norm at TOL_TRAIN_METRIC; each gradient
+    leaf by ``close_grads``), the reduced Mamba-2's gradients reaching
+    in_proj, conv and A_log through kernel E; arctic with Adafactor and a
+    bf16 momentum (the optimizer on the CPU's gradients, card vs CPU: params
+    and moments at TOL_OPT, the momentum within one bf16 ulp); reduced
+    minicpm-2b with per-layer remat on against off on the card; and the
+    reference's trainer test on the card (checkpoints under
+    ``build/train_ckpt``)."""
+    from repro_torch.configs import ARCHS, get_config, reduced
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    B, S = 2, 32
+    dispatch.reset_launches()
+    for arch in ARCHS:
+        cfg = reduced(get_config(arch))
+        model = build(cfg)
+        tcfg = step_lib.TrainConfig()
+        if arch == "arctic_480b":
+            tcfg = step_lib.TrainConfig(optimizer=opt.OptimizerConfig(
+                kind="adafactor", momentum_dtype="bfloat16"))
+        grads_fn = step_lib.make_compute_grads(model, tcfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        card = tree_to(params, "cuda")
+        batch = _train_batch(cfg, B, S, 0, "cpu")
+        g_cpu, m_cpu = grads_fn(params, batch)
+        g_gpu, m_gpu = grads_fn(card, tree_to(batch, "cuda"))
+        worst = close_grads(g_gpu, g_cpu, f"{arch} gradients")
+        if arch == "mamba2_27b":
+            for k in ("in_proj", "conv_w", "A_log"):
+                if not bool(g_gpu["blocks"][k].abs().max() > 0):
+                    raise AssertionError(f"mamba2: no gradient on {k}")
+        # the optimizer on each device's own gradients, then on the CPU's
+        # gradients on both
+        g_same = tree_to(g_cpu, "cuda")
+        st_cpu = opt.init_opt(params, tcfg.optimizer)
+        st_gpu = opt.init_opt(card, tcfg.optimizer)
+        _, st_cpu, om_cpu = opt.apply_opt(g_cpu, st_cpu, params,
+                                          tcfg.optimizer)
+        om_gpu = {"grad_norm": opt.global_norm(g_gpu)}
+        _, st_gpu, _ = opt.apply_opt(g_same, st_gpu, card, tcfg.optimizer)
+        _metrics_close({**m_gpu, **om_gpu}, {**m_cpu, **om_cpu}, arch,
+                       B * S, cfg.moe is not None)
+        opt_err = 0.0
+        for a, b in zip(train_leaves([card, st_gpu]),
+                        train_leaves([params, st_cpu])):
+            a = a.cpu()
+            if b.dtype == torch.bfloat16:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    b.float().abs().clamp(min=1e-38))) - 7)
+                if bool(((a.float() - b.float()).abs() > ulp).any()):
+                    raise AssertionError(f"{arch}: bf16 momentum beyond "
+                                         f"one ulp")
+                continue
+            torch.testing.assert_close(
+                a, b, rtol=TOL_OPT, atol=TOL_OPT * float(b.abs().max()),
+                msg=lambda m: f"{arch}: optimizer card vs CPU: {m}")
+            opt_err = max(opt_err, max_abs_err([(a, b)]))
+        print(f"{arch}: loss {float(m_gpu['loss']):.4f} (CPU "
+              f"{float(m_cpu['loss']):.4f}), grad_norm "
+              f"{float(om_gpu['grad_norm']):.4f} (CPU "
+              f"{float(om_cpu['grad_norm']):.4f}); gradients worst "
+              f"rms(card - CPU) / rms {worst:.2e}; {tcfg.optimizer.kind} on "
+              f"the same gradients max abs err {opt_err:.2e}")
+    launches = dict(dispatch.LAUNCHES)
+    # the reduced Mamba-2's SSD chunks: 2 layers x 2 chunks of 16, the
+    # forward and its per-layer recompute
+    if launches != {"ssd_chunk": 8}:
+        raise AssertionError(f"train small: launches {launches}, want 8 "
+                             f"of ssd_chunk (the reduced Mamba-2)")
+
+    cfg = reduced(get_config(MINICPM_ARCH))
+    model = build(cfg)
+    card = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = _train_batch(cfg, B, S, 1, "cuda")
+    on, m_on = step_lib.make_compute_grads(
+        model, step_lib.TrainConfig(remat=True))(card, batch)
+    off, m_off = step_lib.make_compute_grads(
+        model, step_lib.TrainConfig(remat=False))(card, batch)
+    same, worst = 0, 0.0
+    for a, b in zip(train_leaves([on, m_on]), train_leaves([off, m_off])):
+        if torch.equal(a, b):
+            same += 1
+            continue
+        rel = rms(a - b) / max(rms(b), 1e-30)
+        if rel > TOL_REMAT:
+            raise AssertionError(f"remat on vs off: rms diff {rel:.3e}")
+        worst = max(worst, rel)
+    n = len(train_leaves([on, m_on]))
+    print(f"{cfg.name} reduced, remat on vs off on the card: {same} of {n} "
+          f"gradient leaves and metrics bit for bit, the rest within "
+          f"{worst:.2e} of their RMS")
+    check_trainer_restart()
+
+
+def check_trainer_restart():
+    """The reference's trainer test (tests/test_train.py) on the card:
+    reduced minicpm-2b, 20 steps with checkpoints every 10 (the loss falls),
+    a crash injected at step 25 of 40, a restart that resumes at 20 and
+    ends at 40; the checkpoint of step 20 restores the state that the first
+    run ended with, bit for bit."""
+    import shutil
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models import build
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    model = build(reduced(get_config(MINICPM_ARCH)))
+    tcfg = step_lib.TrainConfig(optimizer=opt.OptimizerConfig(
+        schedule=opt.ScheduleConfig(kind="wsd", peak_lr=3e-3,
+                                    warmup_steps=5, total_steps=40)))
+    dcfg = DataConfig(vocab=model.cfg.vocab, seq_len=32, global_batch=4)
+    run = lambda **kw: Trainer(model, tcfg, dcfg, TrainerConfig(
+        ckpt_dir=str(TRAIN_CKPT), ckpt_every=10, log_every=5, **kw),
+        device="cuda")
+    tr = run(steps=20)
+    state, hist = tr.run(seed=0)
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"trainer: loss did not fall {hist}")
+    saved = tr.ckpt.restore(step_lib.abstract_train_state(model, tcfg), 20,
+                            device="cuda")
+    for a, b in zip(train_leaves(saved), train_leaves(state), strict=True):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError("trainer: the checkpoint differs from the "
+                                 "state it saved")
+    try:
+        run(steps=40, fail_at_step=25).run(seed=0)
+    except RuntimeError as e:
+        if "injected" not in str(e):
+            raise
+    else:
+        raise AssertionError("trainer: the injected crash did not raise")
+    tr3 = run(steps=40)
+    state3, hist3 = tr3.run(seed=0)
+    if hist3[0]["step"] != 21 or int(state3["step"]) != 40:
+        raise AssertionError(f"trainer: restart at {hist3[0]['step']} "
+                             f"ended at {int(state3['step'])}")
+    print(f"trainer on the card: loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f} over 20 steps; checkpoint 20 == the "
+          f"state bit for bit; crash at 25, restart from 20 to 40 (loss "
+          f"{hist3[-1]['loss']:.4f}); straggler events "
+          f"{tr3.straggler_events}")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+
+def lr_formula(sched, step: int) -> float:
+    """The WSD schedule in float64 (the check of the f32 one)."""
+    warm = min(step / max(sched.warmup_steps, 1), 1.0)
+    decay_start = sched.total_steps * (1 - sched.decay_frac)
+    t = min(max((step - decay_start)
+                / max(sched.total_steps - decay_start, 1), 0.0), 1.0)
+    return sched.peak_lr * warm * (1.0 if step < decay_start
+                                   else sched.min_ratio ** t)
+
+
+def run_train_main_path(arch: str, shape, smi: str):
+    """Train ``arch`` at its published widths (nothing cut: f32 parameters
+    from seed 0, AdamW f32 moments, the WSD schedule with a warmup of 1
+    step) as ``launch/train.py`` builds it: ``synthetic_batch`` through
+    the prefetcher, ``shape`` = (sequences, tokens each, steps, peak lr),
+    every step logged (each reads its metrics, so each ends synchronised),
+    no checkpoint (a full-width save is 2.7 B x 4 f32 leaves, 32.7 GB).
+    Checks: every step's loss and grad_norm finite, the last loss below
+    the first, lr == the schedule's formula at 1e-6.  Prints ms per step
+    (CUDA-synchronised, the median of steps 3 to the last), tokens/s, peak
+    memory and a torch.profiler pass over one more step.  Returns the
+    kernel launches of the run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models.modules import param_count
+    import shutil
+    B, S, steps, lr = shape
+    cfg = get_config(arch)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)     # nothing to resume
+    trainer = build_trainer(cfg, steps=steps, batch=B, seq=S, lr=lr,
+                            schedule="wsd", ckpt_dir=str(TRAIN_CKPT),
+                            ckpt_every=steps + 1, device="cuda")
+    step_fn, step_ms = trainer.train_step, []
+
+    def timed_step(state, batch):
+        out, s = timed_s(lambda: step_fn(state, batch))
+        step_ms.append(s * 1e3)
+        return out
+
+    trainer.train_step = timed_step
+    n_params = param_count(trainer.model.specs())
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}; {n_params / 1e9:.3f} B parameters in f32, AdamW "
+          f"(f32 moments), WSD lr {lr:g} warmup 1; {B} x {S} tokens a step, "
+          f"{steps} steps ({smi})")
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    (state, hist), run_s = timed_s(lambda: trainer.run(seed=0))
+    launches = dict(dispatch.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sched = trainer.tcfg.optimizer.schedule
+    for h in hist:
+        print(f"  step {h['step']}: loss {h['loss']:.4f} nll {h['nll']:.4f} "
+              f"z {h['z']:.2f} grad_norm {h['grad_norm']:.4f} lr "
+              f"{h['lr']:.4e} ({step_ms[h['step'] - 1]:.1f} ms)")
+        if not (np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])):
+            raise AssertionError(f"{cfg.name}: step {h['step']} not finite")
+        want = lr_formula(sched, h["step"])
+        if abs(h["lr"] - want) > 1e-6 * want:
+            raise AssertionError(f"{cfg.name}: lr {h['lr']} at step "
+                                 f"{h['step']}, the formula gives {want}")
+    if len(hist) != steps or not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"{cfg.name}: the loss did not fall "
+                             f"({hist[0]['loss']} -> {hist[-1]['loss']})")
+    ms = statistics.median(step_ms[2:])
+    print(f"{cfg.name} trained {steps} steps in {run_s:.1f} s (the "
+          f"parameters' init included): {ms:.1f} ms a step (median of steps "
+          f"3-{steps}, synchronised), {B * S / ms * 1e3:.0f} tokens/s, peak "
+          f"{peak:.2f} GiB, launches {launches}; straggler events "
+          f"{trainer.straggler_events} ({smi})")
+    batch = _train_batch(cfg, B, S, steps, "cuda")
+    profile_device(lambda: step_fn(state, batch), f"one {cfg.name} train "
+                   f"step ({B} x {S} tokens)", cfg.n_layers, "layer")
+    return launches, dict(ms=ms, peak_gib=peak)
+
+
+def run_minicpm_train(smi: str):
+    """Main path 11: minicpm-2b trained at full width.  The dense family
+    runs no hand-written kernel: 0 launches."""
+    launches, _ = run_train_main_path(MINICPM_ARCH, MINICPM_TRAIN, smi)
+    if launches:
+        raise AssertionError(f"minicpm-2b training launched {launches}")
+    return launches
+
+
+def run_mamba_train(smi: str):
+    """Main path 12: mamba2-2.7b trained at full width.  Kernel E (the
+    tensor-core route: the blocks compute in bf16) launches once a chunk
+    and layer in the forward and again in the per-layer recompute of the
+    backward: 64 x 8 x 2 a step; the FMA route never."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MAMBA_ARCH)
+    B, S, steps, _ = MAMBA_TRAIN
+    want = {"ssd_chunk": cfg.n_layers * (S // cfg.ssm.chunk) * 2 * steps}
+    launches, _ = run_train_main_path(MAMBA_ARCH, MAMBA_TRAIN, smi)
+    if launches != want:
+        raise AssertionError(f"mamba2 training launches {launches}, want "
+                             f"{want}")
+    print(f"kernel E on main path 12: {launches['ssd_chunk']} launches = "
+          f"{cfg.n_layers} layers x {S // cfg.ssm.chunk} chunks x 2 "
+          f"(forward, per-layer recompute) x {steps} steps")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4232,6 +4710,14 @@ def main() -> int:
                                 lm.ssm.chunk, lm.ssm.head_dim,
                                 lm.ssm.d_state,
                                 MAMBA_SLOTS * lm.ssm.n_groups, hgmma)]
+    e_grad = check_ssd_chunk_grad(gen, 2 * dims(lm)[1], lm.ssm.chunk,
+                                  lm.ssm.head_dim, lm.ssm.d_state,
+                                  2 * lm.ssm.n_groups)
+    e_record = next(r for r in records if r["name"] == "ssd_chunk")
+    e_record["parity"] += (f"; under autograd ({E_GRAD_CHUNKS} chained "
+                           f"chunks of {2 * dims(lm)[1]} pairs) the "
+                           f"gradients of all 6 inputs == the plain loop's "
+                           f"within 2e-4, max abs err {e_grad[1]:.2e}")
     for r in records:
         print(f"{r['name']}: {r['parity']}; device time per call (CUDA "
               f"graph): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
@@ -4332,10 +4818,24 @@ def main() -> int:
         banner(title)
         paths[name] = run(smi.splitlines()[0])
 
-    # each kernel's launches from the path of this slice that runs it
+    banner("the training path, reduced, card vs CPU")
+    check_train_small(smi.splitlines()[0])
+    for title, name, run in (
+            (f"main path 11: training {MINICPM_ARCH} at full width",
+             f"training {MINICPM_ARCH}", run_minicpm_train),
+            (f"main path 12: training {MAMBA_ARCH} at full width",
+             f"training {MAMBA_ARCH}", run_mamba_train)):
+        torch.cuda.empty_cache()
+        banner(title)
+        paths[name] = run(smi.splitlines()[0])
+
+    # each kernel's launches from the path of this slice that runs it (E's
+    # tensor-core route on main path 2, serving, and main path 12,
+    # training)
     launches = {**paths["microcircuit, torus3d"],
                 "bucket_scatter": paths["exchange"]["bucket_scatter"],
-                "ssd_chunk": paths["serving"]["ssd_chunk"],
+                "ssd_chunk": paths["serving"]["ssd_chunk"]
+                + paths[f"training {MAMBA_ARCH}"]["ssd_chunk"],
                 "ssd_chunk_f32": paths["f32 SSD scan"]["ssd_chunk_f32"],
                 **paths["cycle models"]}
     # F and B also run on main path 4 (its three runs), and A, B, C and F

@@ -27,7 +27,10 @@ Layouts:
   D)`` and ``length`` ``(n_layers,)``; Mamba-2's ``SSMCache``;
   RecurrentGemma's ``RGCaches`` (``RGLRUCache`` per recurrent stack, the
   ring ``KVCache``, a tuple of tail ``RGLRUCache``); Whisper's
-  ``WhisperCaches``.
+  ``WhisperCaches``;
+* train states: ``{"params", "opt", "step"}`` in both, the optimizer state
+  the AdamW or Adafactor NamedTuple of the same fields (told apart by
+  them), ``count`` and ``step`` 0-d ``int32``.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ from repro_torch.models.rglru import RGLRUCache
 from repro_torch.models.ssm import SSMCache
 from repro_torch.snn import lif, network
 from repro_torch.snn.simulator import PendingWindow, ShardState, SimCarry
+from repro_torch.train.optimizer import AdafactorState, AdamWState
 
 
 def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -185,3 +189,44 @@ def caches_from_reference(cache, device=None):
         return _t(tree, device)
 
     return rec(cache)
+
+
+_OPT_STATES = {c._fields: c for c in (AdamWState, AdafactorState)}
+
+
+def train_state_from_reference(state, device=None) -> dict:
+    """The port's train state from the reference's (numpy or JAX arrays):
+    params, the AdamW or Adafactor state (bf16 momentum bit for bit) and
+    the step."""
+    device = dispatch.resolve_device(device)
+    opt = state["opt"]
+    if opt._fields not in _OPT_STATES:
+        raise TypeError(f"no port optimizer state with the fields "
+                        f"{opt._fields}")
+    return {"params": params_from_reference(state["params"], device),
+            "opt": _OPT_STATES[opt._fields](*(
+                params_from_reference(getattr(opt, f), device)
+                for f in opt._fields)),
+            "step": _t(state["step"], device)}
+
+
+def _to_numpy(tree):
+    """Tensors to numpy, bf16 as ``ml_dtypes.bfloat16`` (the reference's
+    own type; imported only for such a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def train_state_to_reference(state) -> dict:
+    """Inverse of :func:`train_state_from_reference`: numpy leaves, the
+    optimizer state as the port's NamedTuple of the reference's fields
+    (``RefState(*opt)`` makes the reference's type)."""
+    opt = state["opt"]
+    return {"params": _to_numpy(state["params"]),
+            "opt": type(opt)(*(_to_numpy(v) for v in opt)),
+            "step": _to_numpy(state["step"])}

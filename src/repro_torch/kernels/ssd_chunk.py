@@ -8,6 +8,15 @@ of ``kernels/ref.py:ssd_chunk_ref``).  All compute in f32 and return f32
 outputs.  A shape the chosen kernel cannot take raises; nothing falls back
 to another kernel or to the plain version.
 
+Training: :func:`ssd_chunk_grad` is :func:`ssd_chunk` under autograd (a
+``torch.autograd.Function``).  Its forward is the same route (the kernel on
+the card, the plain version on the CPU); its backward recomputes
+:func:`ssd_chunk_plain` from the saved inputs and returns that version's
+vjp, in plain PyTorch by design: the reference differentiates its ``jnp``
+scan and has no backward kernel to port.  The kernel's outputs carry no
+``grad_fn`` of their own (they are filled through ctypes), so a caller that
+needs gradients goes through this function.
+
 Groups: ``B`` and ``C`` may hold one row block per group instead of one
 per pair (``BH % BG == 0``); pair ``g`` then reads row block
 ``g // (BH // BG)``, which is the head -> group map of ``models/ssm.py``
@@ -41,7 +50,10 @@ def ssd_chunk_plain(x, dt, A, B, C, s_prev):
     causal = torch.ones(c_len, c_len, dtype=torch.bool,
                         device=x.device).tril()
     diff = cum[:, :, None] - cum[:, None, :]
-    decay = torch.where(causal[None], torch.exp(diff), 0.0)
+    # the exponent is masked, not its result: above the diagonal diff
+    # grows with the chunk (past f32's exp range at c = 256), and the vjp
+    # of where(causal, exp(diff), 0) there is 0 * inf = NaN
+    decay = torch.exp(torch.where(causal[None], diff, -torch.inf))
     scores = C @ B.transpose(1, 2)                             # (BH, c, c)
     y = (scores * decay * dt[:, None, :]) @ x
     y = y + (C * torch.exp(cum)[:, :, None]) @ s_prev.transpose(1, 2)
@@ -153,3 +165,30 @@ def ssd_chunk(x, dt, A, B, C, s_prev):
     kernel = route(x.dtype, B.dtype, C.dtype)
     return (ssd_chunk_tc if kernel == "ssd_chunk_tc" else ssd_chunk_fma)(
         x, dt, A, B, C, s_prev)
+
+
+class _SSDChunk(torch.autograd.Function):
+    """Kernel E forward, the plain version's vjp backward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, s_prev):
+        ctx.save_for_backward(x, dt, A, B, C, s_prev)
+        return ssd_chunk(x, dt, A, B, C, s_prev)
+
+    @staticmethod
+    def backward(ctx, g_y, g_s):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            outs = ssd_chunk_plain(*inputs)
+        grads = iter(torch.autograd.grad(
+            outs, [t for t in inputs if t.requires_grad], (g_y, g_s)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs)
+
+
+def ssd_chunk_grad(x, dt, A, B, C, s_prev):
+    """:func:`ssd_chunk` with a gradient: the kernel (or, on the CPU, the
+    plain version) forward; the backward is the plain version's vjp from
+    the saved inputs, each input's gradient in its own dtype."""
+    return _SSDChunk.apply(x, dt, A, B, C, s_prev)

@@ -4,10 +4,10 @@ of ``src/repro/models/attention.py``).
 Prefill attention is flash-style: an online softmax over KV chunks in f32,
 so the (S, S) score matrix is never materialised.  Masking (causal and
 sliding window) is computed from absolute indices inside each chunk.
-Grouped KV heads are expanded to the query heads by a gather (query head
-``h`` reads KV head ``h // G``), chunk by chunk (the reference's
-``gqa="expand"``; its ``gqa="group"`` route and the sequence-split decode
-belong to the distributed slice).
+Grouped KV heads are expanded to the query heads (query head ``h`` reads
+KV head ``h // G``), chunk by chunk (the reference's ``gqa="expand"``;
+its ``gqa="group"`` route and the sequence-split decode belong to the
+distributed slice).
 
 Variants: grouped KV heads, the attention-logit softcap (applied to the f32
 scores before the mask) and query-scale override (gemma2), sliding-window
@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.models import layers as L
 
 NEG_INF = -2.3819763e38     # flash-attention convention
 
@@ -35,6 +36,19 @@ NEG_INF = -2.3819763e38     # flash-attention convention
 def _kv_head_map(hq: int, hkv: int, device) -> torch.Tensor:
     """Gather indices expanding kv heads to query heads."""
     return torch.arange(hq, device=device) // (hq // hkv)
+
+
+def _expand_heads(t: torch.Tensor, hq: int) -> torch.Tensor:
+    """(B, C, Hkv, D) -> (B, C, hq, D), query head ``h`` reading KV head
+    ``h // (hq // Hkv)``: the same copy as gathering by
+    :func:`_kv_head_map`, but its backward is a sum over each group, where
+    a gather's backward adds with atomics (on the card, in bf16 and in
+    another order every run)."""
+    B, C, hkv, D = t.shape
+    if hkv == hq:
+        return t
+    return t[:, :, :, None, :].expand(B, C, hkv, hq // hkv, D) \
+        .reshape(B, C, hq, D)
 
 
 def _scores(q, k, scale, cap):
@@ -45,6 +59,19 @@ def _scores(q, k, scale, cap):
     return s
 
 
+def _chunk_step(q, kj, vj, mask, m, l, acc, scale, cap):
+    """One KV chunk of the online softmax: (m, l, acc) -> updated."""
+    s = _scores(q, kj, scale, cap)                          # (B, Sq, Hq, C)
+    s = torch.where(mask[None, :, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bqhk,bkhd->bqhd", p,
+                                               vj.float())
+    return m_new, l, acc
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None,
                     q_offset=0, kv_len=None, chunk: int = 1024):
@@ -53,18 +80,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); Hq % Hkv == 0.
     window: keys with ``q - kv < window`` (0 = no window).
     q_offset: absolute index of q[0].  kv_len: optional () tensor or int,
-    the valid KV prefix length (the rest masked).
+    the valid KV prefix length (the rest masked).  Under autograd each
+    chunk step is checkpointed, as in the reference: the backward
+    recomputes a chunk's (.., chunk) scores and probabilities instead of
+    keeping them for every chunk.
     """
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     scale = (1.0 / D ** 0.5) if scale is None else scale
     chunk = min(chunk, Skv)
-    hmap = _kv_head_map(Hq, Hkv, q.device)
     q_idx = q_offset + torch.arange(Sq, device=q.device)
     m = torch.full((B, Sq, Hq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, Sq, Hq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
+    step = lambda kj, vj, mask, m, l, acc: _chunk_step(
+        q, _expand_heads(kj, Hq), _expand_heads(vj, Hq), mask, m, l, acc,
+        scale, softcap)
     for j0 in range(0, Skv, chunk):
         kv_idx = torch.arange(j0, min(j0 + chunk, Skv), device=q.device)
         mask = torch.ones((Sq, kv_idx.numel()), dtype=torch.bool,
@@ -75,17 +107,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             mask &= (q_idx[:, None] - kv_idx[None, :]) < window
         if kv_len is not None:
             mask &= (kv_idx < kv_len)[None, :]
-        kj = k[:, j0:j0 + chunk].index_select(2, hmap)   # (B, C, Hq, D)
-        vj = v[:, j0:j0 + chunk].index_select(2, hmap)
-        s = _scores(q, kj, scale, softcap)                  # (B, Sq, Hq, C)
-        s = torch.where(mask[None, :, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bqhk,bkhd->bqhd", p, vj.float())
-        m = m_new
+        m, l, acc = L.checkpointed(step, k[:, j0:j0 + chunk],
+                                   v[:, j0:j0 + chunk], mask, m, l, acc)
     out = acc / torch.clamp(l[..., None], min=1e-37)
     return out.to(q.dtype)
 

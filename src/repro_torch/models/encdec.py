@@ -92,16 +92,22 @@ def _mlp_res(p, x, cfg):
                      act="gelu")
 
 
-def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frames: torch.Tensor, cfg: ModelConfig,
+           remat: bool = False) -> torch.Tensor:
     """frames: (B, enc_ctx, d_model), precomputed conv-frontend
-    embeddings.  Returns the encoder's hidden states (bf16)."""
+    embeddings.  Returns the encoder's hidden states (bf16).  ``remat``:
+    under autograd each layer is recomputed in the backward."""
     x = frames.to(torch.bfloat16)
     x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model).to(
         device=x.device, dtype=x.dtype)
-    for layer in range(cfg.enc_layers):
-        p = T.cast_params(T._layer(params["enc"], layer))
+
+    def layer(x, p):
+        p = T.cast_params(p)
         x, _ = _mha(p, "sa_", x, None, cfg, causal=False)
-        x = _mlp_res(p, x, cfg)
+        return _mlp_res(p, x, cfg)
+
+    for p in L.unstack(params["enc"]):
+        x = L.checkpointed(layer, x, p, on=remat)
     return L.layer_norm(x, params["enc_ln_w"], params["enc_ln_b"])
 
 
@@ -115,39 +121,45 @@ class WhisperCaches(NamedTuple):
 
 
 def decode(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
-           caches: WhisperCaches | None = None):
+           caches: WhisperCaches | None = None, remat: bool = False):
     """Decoder forward: stateless over ``enc_out`` without ``caches``, else
     against them (the cross caches already filled).  Positions continue
-    from the first self-attention cache's length.  Returns (hidden, new
-    caches or None; the old ones are left as they were)."""
+    from the first self-attention cache's length.  ``remat``: under
+    autograd each layer is recomputed in the backward.  Returns (hidden,
+    new caches or None; the old ones are left as they were)."""
     Sq = tokens.shape[1]
     off = caches.self_kv.length[0] if caches is not None else 0
     positions = off + torch.arange(Sq, device=tokens.device)
     x = params["embed"].to(torch.bfloat16)[tokens]
     x = x + params["dec_pos"][positions].to(x.dtype)
+
+    def stateless(x, p):
+        p = T.cast_params(p)
+        x, _ = _mha(p, "sa_", x, None, cfg, causal=True)
+        x, _ = _mha(p, "xa_", x, enc_out, cfg, causal=False)
+        return _mlp_res(p, x, cfg)
+
     sk, sv, sl = [], [], []
-    for layer in range(cfg.n_layers):
-        p = T.cast_params(T._layer(params["dec"], layer))
+    for layer, p in enumerate(L.unstack(params["dec"])):
         if caches is None:
-            x, _ = _mha(p, "sa_", x, None, cfg, causal=True)
-            x, _ = _mha(p, "xa_", x, enc_out, cfg, causal=False)
+            x = L.checkpointed(stateless, x, p, on=remat)
+            continue
+        p = T.cast_params(p)
+        s_kv = _kv(caches.self_kv, layer)
+        x_kv = _kv(caches.cross_kv, layer)
+        x, s_kv = _mha(p, "sa_", x, None, cfg, causal=True, cache=s_kv)
+        # cross attention reads the (already filled) encoder cache
+        h = L.layer_norm(x, p["xa_ln_w"], p["xa_ln_b"])
+        q = T._proj(h, p["xa_wq"])
+        if Sq == 1:
+            o = A.decode_attention(q, x_kv)
         else:
-            s_kv = _kv(caches.self_kv, layer)
-            x_kv = _kv(caches.cross_kv, layer)
-            x, s_kv = _mha(p, "sa_", x, None, cfg, causal=True, cache=s_kv)
-            # cross attention reads the (already filled) encoder cache
-            h = L.layer_norm(x, p["xa_ln_w"], p["xa_ln_b"])
-            q = T._proj(h, p["xa_wq"])
-            if Sq == 1:
-                o = A.decode_attention(q, x_kv)
-            else:
-                o = A.flash_attention(q, x_kv.k, x_kv.v, causal=False,
-                                      kv_len=x_kv.length,
-                                      chunk=T.ATTN_CHUNK)
-            x = x + T._out(o, p["xa_wo"])
-            sk.append(s_kv.k)
-            sv.append(s_kv.v)
-            sl.append(s_kv.length)
+            o = A.flash_attention(q, x_kv.k, x_kv.v, causal=False,
+                                  kv_len=x_kv.length, chunk=T.ATTN_CHUNK)
+        x = x + T._out(o, p["xa_wo"])
+        sk.append(s_kv.k)
+        sv.append(s_kv.v)
+        sl.append(s_kv.length)
         x = _mlp_res(p, x, cfg)
     x = L.layer_norm(x, params["dec_ln_w"], params["dec_ln_b"])
     if caches is None:

@@ -8,8 +8,9 @@ stacked as *super-blocks* of three layers; the ``n_layers mod 3``
 remaining recurrent layers (the ``tail``) follow them, as in the
 reference.  Its attention is windowed in every layer, so its KV caches
 are rings of the window's length.  Parameters keep the reference's
-layout: block parameters are stacked along a leading axis, and layer
-``l`` is their ``[l]`` views.
+layout: block parameters are stacked along a leading axis, and the
+forward takes each layer's views from one ``unbind`` per stack
+(``layers.unstack``).
 """
 from __future__ import annotations
 
@@ -111,12 +112,13 @@ def _rg_stack(caches: list):
 
 
 def rg_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-               caches: RGCaches | None = None):
+               caches: RGCaches | None = None, remat: bool = False):
     """RecurrentGemma forward: stateless (full sequence) without
     ``caches``, else prefill (S > 1) or decode (S == 1) against them.
-    Positions continue from the first attention cache's length.  Returns
-    (hidden, aux (= 0), new caches or None; the old ones are left as they
-    were)."""
+    Positions continue from the first attention cache's length.
+    ``remat``: under autograd each super-block and tail layer is
+    recomputed in the backward.  Returns (hidden, aux (= 0), new caches or
+    None; the old ones are left as they were)."""
     B, Sq = tokens.shape
     off = caches.attn.length[0] if caches is not None else 0
     positions = (off + torch.arange(Sq, device=tokens.device)).expand(B, Sq)
@@ -124,14 +126,8 @@ def rg_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                          device=x.device)
     win = cfg.sliding_window
-    sup = params["super"]
-    new_r0, new_r1, new_kv = [], [], []
-    for i in range(cfg.n_layers // 3):
-        p = {k: (T._layer(v, i) if isinstance(v, dict) else v[i])
-             for k, v in sup.items()}
-        c = (None, None, None) if caches is None else (
-            _rg_cache(caches.r0, i), _rg_cache(caches.r1, i),
-            _rg_cache(caches.attn, i))
+
+    def super_block(x, p, c):
         x, c0 = _recurrent_residual(p["r0"], x, cfg, c[0])
         x = _mlp_residual(p["mlp0"], p["mln0"], x, cfg)
         x, c1 = _recurrent_residual(p["r1"], x, cfg, c[1])
@@ -139,18 +135,30 @@ def rg_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         x, kv = T.attn_block(p["attn"], x, cfg, window=win,
                              positions=positions, cache=c[2],
                              ring=caches is not None)
-        x = _mlp_residual(p["mlp2"], p["mln2"], x, cfg)
+        return _mlp_residual(p["mlp2"], p["mln2"], x, cfg), (c0, c1, kv)
+
+    def tail_layer(x, p, c):
+        x, c = _recurrent_residual(p["r"], x, cfg, c)
+        return _mlp_residual(p["mlp"], p["mln"], x, cfg), c
+
+    new_r0, new_r1, new_kv = [], [], []
+    for i, p in enumerate(L.unstack(params["super"])):
+        c = (None, None, None) if caches is None else (
+            _rg_cache(caches.r0, i), _rg_cache(caches.r1, i),
+            _rg_cache(caches.attn, i))
+        x, (c0, c1, kv) = L.checkpointed(super_block, x, p, c, on=remat)
         new_r0.append(c0)
         new_r1.append(c1)
         new_kv.append(kv)
     new_tail = []
     tail = params.get("tail", {})
     for i in range(cfg.n_layers % 3):
-        x, ci = _recurrent_residual(
-            T._layer(tail[f"r{i}"], 0), x, cfg,
-            None if caches is None else caches.tail[i])
-        x = _mlp_residual(T._layer(tail[f"mlp{i}"], 0), tail[f"mln{i}"][0],
-                          x, cfg)
+        p = {"r": L.unstack(tail[f"r{i}"])[0],
+             "mlp": L.unstack(tail[f"mlp{i}"])[0],
+             "mln": tail[f"mln{i}"][0]}
+        x, ci = L.checkpointed(tail_layer, x, p,
+                               None if caches is None else caches.tail[i],
+                               on=remat)
         new_tail.append(ci)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -213,20 +221,25 @@ def mamba2_param_specs(cfg: ModelConfig) -> dict:
 
 
 def mamba2_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-                   caches: S.SSMCache | None = None):
+                   caches: S.SSMCache | None = None, remat: bool = False):
     """Returns (hidden, aux (= 0), new_caches).  ``caches``: an
     ``SSMCache`` of tensors stacked over layers; the new caches are new
-    tensors (the old ones are left as they were)."""
+    tensors (the old ones are left as they were).  ``remat``: under
+    autograd each layer is recomputed in the backward (its SSD chunks
+    launched again)."""
     x = T.embed_tokens(params, tokens, cfg)
-    blocks = params["blocks"]
-    convs, states = [], []
-    for layer in range(cfg.n_layers):
-        p = T.cast_params({k: v[layer] for k, v in blocks.items()})
+
+    def layer(x, p, cache):
+        p = T.cast_params(p)
         h = L.rms_norm(x, p["ln"], cfg.rms_eps)
-        cache = None if caches is None else \
-            S.SSMCache(caches.conv[layer], caches.state[layer])
         o, c_new = S.mamba2_block(p, h, cfg, cache)
-        x = x + o
+        return x + o, c_new
+
+    convs, states = [], []
+    for i, p in enumerate(L.unstack(params["blocks"])):
+        cache = None if caches is None else \
+            S.SSMCache(caches.conv[i], caches.state[i])
+        x, c_new = L.checkpointed(layer, x, p, cache, on=remat)
         if c_new is not None:
             convs.append(c_new.conv)
             states.append(c_new.state)

@@ -1,12 +1,14 @@
 """Shared building blocks of the LM stack (port of
 ``src/repro/models/layers.py``): the norms, activations, rotary embeddings
 (standard and Qwen2-VL's M-RoPE), Whisper's sinusoidal table, the MLPs and
-the causal depthwise conv."""
+the causal depthwise conv, and :func:`checkpointed`, the counterpart of
+``jax.checkpoint``."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
@@ -29,6 +31,27 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     mu = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     return ((x - mu) * torch.rsqrt(var + eps) * w + b).to(dtype)
+
+
+def checkpointed(fn, *args, on: bool = True):
+    """``fn(*args)``; with ``on`` and grad enabled, its intermediates are
+    not kept but recomputed in the backward (``jax.checkpoint``; PyTorch's
+    non-reentrant checkpoint, which nests).  Values are unchanged."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def unstack(tree) -> list:
+    """Each layer's parameters of a stacked tree (nested dicts of ``(n,
+    ...)`` tensors), from one ``torch.unbind`` per leaf: its backward
+    stacks the layers' gradients once, where indexing layer by layer would
+    add a zero tensor the size of the whole stack per layer."""
+    if isinstance(tree, dict):
+        per = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per.values())))
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

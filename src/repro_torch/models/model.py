@@ -5,7 +5,9 @@ One object per architecture family exposing the same surface:
 
   specs()                              parameter ParamSpec tree
   init(generator, param_dtype, device) materialised params
-  hidden(params, batch)                full-seq forward -> (hidden, aux)
+  hidden(params, batch, remat=False)   full-seq forward -> (hidden, aux);
+                                       ``remat`` checkpoints each layer
+                                       under autograd (training)
   logits(params, hidden)               LM head
   init_caches(batch, max_len, ...)     decode state
   prefill(params, batch, caches)       fill caches, return the hidden
@@ -49,8 +51,9 @@ class Model:
 
 
 def _build_mamba2(cfg: ModelConfig) -> Model:
-    def hidden(params, batch):
-        h, aux, _ = H.mamba2_forward(params, batch["tokens"], cfg)
+    def hidden(params, batch, remat=False):
+        h, aux, _ = H.mamba2_forward(params, batch["tokens"], cfg,
+                                     remat=remat)
         return h, aux
 
     def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):
@@ -72,10 +75,11 @@ def _build_mamba2(cfg: ModelConfig) -> Model:
 def _build_transformer(cfg: ModelConfig) -> Model:
     """The dense, MoE and vision families (reference
     ``_build_transformer`` with its ``prefill_with_cache``)."""
-    def hidden(params, batch):
+    def hidden(params, batch, remat=False):
         return T.forward(params, batch["tokens"], cfg,
                          positions3=batch.get("positions3"),
-                         vision_embeds=batch.get("vision_embeds"))
+                         vision_embeds=batch.get("vision_embeds"),
+                         remat=remat)
 
     def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):
         return T.init_caches(cfg, batch, max_len, dtype, device)
@@ -97,8 +101,8 @@ def _build_transformer(cfg: ModelConfig) -> Model:
 
 
 def _build_recurrentgemma(cfg: ModelConfig) -> Model:
-    def hidden(params, batch):
-        h, aux, _ = H.rg_forward(params, batch["tokens"], cfg)
+    def hidden(params, batch, remat=False):
+        h, aux, _ = H.rg_forward(params, batch["tokens"], cfg, remat=remat)
         return h, aux
 
     def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):
@@ -117,9 +121,9 @@ def _build_recurrentgemma(cfg: ModelConfig) -> Model:
 
 
 def _build_whisper(cfg: ModelConfig) -> Model:
-    def hidden(params, batch):
-        enc = E.encode(params, batch["enc_frames"], cfg)
-        h, _ = E.decode(params, batch["tokens"], enc, cfg)
+    def hidden(params, batch, remat=False):
+        enc = E.encode(params, batch["enc_frames"], cfg, remat)
+        h, _ = E.decode(params, batch["tokens"], enc, cfg, remat=remat)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
     def init_caches(batch, max_len, dtype=torch.bfloat16, device=None):

@@ -6,8 +6,9 @@ Block layout follows mamba2: in_proj -> [z | x | B | C | dt], causal
 depthwise conv over [x|B|C], SSD, gated RMSNorm, out_proj.
 
 The chunked scan loops over chunks on the host; each chunk is one call of
-``kernels.ssd_chunk.ssd_chunk`` for all B*H pairs (one kernel launch on
-the card).  It computes in f32 throughout, as the reference's kernel and
+``kernels.ssd_chunk.ssd_chunk_grad`` for all B*H pairs (one kernel launch
+on the card; under autograd its backward is the plain version's vjp, the
+reference having no backward kernel).  It computes in f32 throughout, as the reference's kernel and
 ``ssd_chunk_ref`` do; the reference's jnp scan instead rounds its scores
 and carried state to the inputs' dtype, so on bf16 inputs the two agree
 only to bf16 precision.  Decode stays plain PyTorch, as the reference has
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_chunk import ssd_chunk
+from repro_torch.kernels.ssd_chunk import ssd_chunk_grad
 from repro_torch.models import layers as L
 
 
@@ -46,7 +47,9 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int):
     A:  (H,)             negative decay rates
     B_, C_: (B, Lq, G, N)
     Lq must be a multiple of ``chunk``.
-    Returns y (B, Lq, H, Pd) and the final state (B, H, Pd, N), both f32.
+    Returns y (B, Lq, H, Pd) and the final state (B, H, Pd, N), both f32,
+    differentiable in every input (the state carries the gradient from
+    chunk to chunk).
     """
     Bb, Lq, H, Pd = x.shape
     G, N = B_.shape[2], B_.shape[3]
@@ -64,7 +67,7 @@ def ssd_chunked(x, dt, A, B_, C_, chunk: int):
     S = torch.zeros((Bb * H, Pd, N), dtype=torch.float32, device=x.device)
     ys = []
     for i in range(nc):
-        y, S = ssd_chunk(xc[i].view(Bb * H, chunk, Pd),
+        y, S = ssd_chunk_grad(xc[i].view(Bb * H, chunk, Pd),
                          dtc[i].view(Bb * H, chunk), A_pairs,
                          Bc[i].view(Bb * G, chunk, N),
                          Cc[i].view(Bb * G, chunk, N), S)

@@ -5,8 +5,9 @@ against stacked KV caches.  The other families read ``embed_tokens``,
 ``logits_fn``, ``cast_params`` and the blocks from here too.
 
 Block parameters are stacked along a leading layer axis, as in the
-reference; layer ``l`` is their ``[l]`` views, applied in a Python loop
-(the reference's ``lax.scan``).  deepseek's leading dense layers are a
+reference; the forward takes each layer's views from one ``unbind`` per
+stack (``layers.unstack``) and applies them in a Python loop (the
+reference's ``lax.scan``), optionally checkpointed per layer.  deepseek's leading dense layers are a
 stack of their own (``dense_blocks``, caches ``"dense"``) before the MoE
 stack (``blocks``).  Qwen2-VL's M-RoPE positions (``positions3``) and
 vision embeddings (``vision_embeds``) are threaded through the forward,
@@ -309,21 +310,25 @@ def _stacks(cfg: ModelConfig):
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            positions3=None, vision_embeds=None):
+            positions3=None, vision_embeds=None, remat: bool = False):
     """Full-sequence forward -> (final hidden states (B, S, d) bf16, the
-    MoE layers' summed aux loss (0 without MoE))."""
+    MoE layers' summed aux loss (0 without MoE)).  ``remat``: under
+    autograd each layer is recomputed in the backward (the reference's
+    ``Runtime.remat``); values are unchanged."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = embed_tokens(params, tokens, cfg, vision_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def layer(x, aux, p, win):
+        x, _ = attn_block(p, x, cfg, window=win, positions=positions,
+                          positions3=positions3)
+        x, layer_aux = _ffn(p, x, cfg)
+        return x, aux if layer_aux is None else aux + layer_aux
+
     for stack, _, windows in _stacks(cfg):
-        for layer, win in enumerate(windows):
-            p = _layer(params[stack], layer)
-            x, _ = attn_block(p, x, cfg, window=int(win),
-                              positions=positions, positions3=positions3)
-            x, layer_aux = _ffn(p, x, cfg)
-            if layer_aux is not None:
-                aux = aux + layer_aux
+        for p, win in zip(L.unstack(params[stack]), windows):
+            x, aux = L.checkpointed(layer, x, aux, p, int(win), on=remat)
     x = _norm(cfg)(x, params["final_norm"])
     return x, aux
 
