@@ -168,6 +168,20 @@ Phases, each raising on failure (exit code != 0, no result line):
    bit, at layer 0's newest position and at layer 1's (global) position 0
    it moves them past their limit; torch.profiler over one prefill wave
    and 8 decode steps;
+   then main path 13 -- the same model and parameters decoding split-KV
+   (``Engine(rt=Runtime(mesh 1x8, split_kv_axis="model"))``, the mesh
+   virtual: the cache's shard axis a leading tensor dimension): 2
+   requests of 4,400 tokens into caches of 16,384 slots (8 shards of
+   2,048; shards 3-7 hold no valid slot, the local window binds), 16 new
+   tokens; 8 teacher-forced steps split vs unsplit from the same prefill
+   caches (the flip rule, max |dlogit| in row-RMS units), one local and
+   one global layer's attention split vs unsplit in f32 at 2e-4, ms a
+   step both ways, peak memory, 0 launches;
+   and main path 15 -- its forward on the context-parallel runtime
+   (``Runtime(mesh 1x8, seq_axis="model")``: the group-GQA route, G = 2)
+   on 2 x 4,096 tokens without a gradient against the expand route
+   (within ``TOL_MODEL`` of the RMS), ms and peak memory both ways, 0
+   launches;
 7c. the rest of the model zoo reduced (deepseek-moe-16b, arctic-480b,
    qwen2-vl-7b with vision embeddings and positions3, recurrentgemma-9b
    on rings of 16, whisper-large-v3), card against CPU: hidden, prefill
@@ -184,7 +198,13 @@ Phases, each raising on failure (exit code != 0, no result line):
    prefill wave's dropped fraction; the check at a factor of E / k where
    nothing drops (asserted); ``moe_layer_bucket`` with EP 8 as a leading
    dimension against ``moe_layer_local`` on layer 0's weights in f32 and
-   the prefill wave's hidden states at 2e-4; then one arctic-480b layer
+   the prefill wave's hidden states at 2e-4; then main path 14 -- its
+   prefill through the sharded bucket dispatch (``Runtime(mesh 1x8,
+   moe_impl="bucket", seq_axis="model")``, the reference's prefill-cell
+   runtime) on 4 x 560 tokens: each route's dropped fraction at 1.25;
+   at E / k the last 8 positions' logits against the local dispatch's
+   (flip rule), 0 dropped, the pmean'd and local stats side by side, 0
+   launches; then one arctic-480b layer
    (n_layers 1 of 35: 128 experts top-2, the parallel dense MLP; 14.07 B
    parameters) on 4 x 556 tokens;
 7e. main path 8 -- qwen2-vl-7b (7.62 B parameters): 4 requests served at
@@ -227,6 +247,17 @@ Phases, each raising on failure (exit code != 0, no result line):
    2,048 tokens a step (Mamba-2's pretraining context), 4 steps: kernel
    E's tensor-core route launched 64 layers x 8 chunks x 2 (the forward
    and the per-layer recompute) a step, the FMA route never;
+7k. distributed -- ``compressed_psum`` over 4 replicated parties on a
+   minicpm-2b gradient tree at full width (2 x 4,096 tokens), every leaf
+   within the reference test's bounds, the int8 payload and scales of 3
+   leaves == the CPU's bit for bit, ms a tree; ``pipelined_all_to_all``
+   in 4 chunks on the exchange's (src, dst, capacity) payload == one
+   transpose; ``launch/train.py``'s trainer reduced with ``--mesh 2x4``:
+   4 steps' losses == the mesh-free run's bit for bit;
+7l. dry run -- ``launch.dryrun.run_cell`` on ``meta`` for qwen3-32b x
+   train_4k and gemma2-9b x decode_32k with split-KV on the 16x16 mesh:
+   per-device GiB against 80 GB, counted against analytic FLOPs, the
+   bottleneck (analytic: datasheet rates, nothing timed);
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
    to 0 just before that path: A-C and F from main path 3, F and B also
@@ -2876,13 +2907,13 @@ def run_mamba_main_path():
 
     finite = []           # device booleans, read after the run
 
-    def prefill(p, batch, caches):
-        h, caches = model.prefill(p, batch, caches)
+    def prefill(p, batch, caches, rt=None):
+        h, caches = model.prefill(p, batch, caches, rt)
         finite.append(torch.isfinite(h).all())
         return h, caches
 
-    def decode(p, caches, tokens):
-        logits, caches = model.decode(p, caches, tokens)
+    def decode(p, caches, tokens, rt=None):
+        logits, caches = model.decode(p, caches, tokens, rt)
         finite.append(torch.isfinite(logits).all())
         return logits, caches
 
@@ -3501,13 +3532,13 @@ def run_gemma_main_path(smi: str):
           f"d_model^-0.5")
     finite = []
 
-    def prefill(p, batch, caches):
-        h, caches = model.prefill(p, batch, caches)
+    def prefill(p, batch, caches, rt=None):
+        h, caches = model.prefill(p, batch, caches, rt)
         finite.append(torch.isfinite(h).all())
         return h, caches
 
-    def decode(p, caches, tokens):
-        logits, caches = model.decode(p, caches, tokens)
+    def decode(p, caches, tokens, rt=None):
+        logits, caches = model.decode(p, caches, tokens, rt)
         finite.append(torch.isfinite(logits).all())
         return logits, caches
 
@@ -3596,7 +3627,7 @@ def run_gemma_main_path(smi: str):
 
     profile_decode(model, params, {"tokens": _padded(reqs[:MAMBA_SLOTS],
                                                      "cuda")}, 1024, "gemma2")
-    return launches
+    return launches, model, params
 
 
 # ---------------------------------------------------------------------------
@@ -3644,9 +3675,9 @@ def head_inputs():
     seen = []
     head = transformer.logits_fn
 
-    def spy(params, hidden, cfg):
+    def spy(params, hidden, cfg, rt=None):
         seen.append(hidden)
-        return head(params, hidden, cfg)
+        return head(params, hidden, cfg, rt)
 
     with mock.patch.object(transformer, "logits_fn", spy):
         yield seen
@@ -3765,19 +3796,22 @@ def teacher_forced(model, params, batch: dict, nxt, max_len: int,
     return torch.cat(steps, 1), l_full, first
 
 
-def flip_rule(label: str, l_dec, l_full, smi: str) -> list[float]:
+def flip_rule(label: str, l_dec, l_full, smi: str,
+              what: str = "") -> list[float]:
     """Main path 6's rule: no argmax flip of the full forward where its
     top-2 margin exceeds MARGIN_DEEP row RMS, among at least MIN_DECISIVE
     such rows; prints max |dlogit| per step in units of the row RMS and
-    returns it."""
+    returns it.  ``what`` names the two sides (default: prefill + decode
+    steps vs the full forward)."""
     rms = l_full.pow(2).mean(-1, keepdim=True).sqrt()
     per_step = ((l_dec - l_full).abs() / rms).amax(dim=(0, 2)).tolist()
     top = l_full.topk(2, dim=-1).values
     decisive = (top[..., 0] - top[..., 1]) > MARGIN_DEEP * rms[..., 0]
     flips = int((decisive & (l_dec.argmax(-1) != l_full.argmax(-1))).sum())
     n_dec = int(decisive.sum())
-    print(f"{label}: prefill + {l_dec.shape[1]} decode steps vs the full "
-          f"forward, max |dlogit| per step in units of the row RMS: "
+    what = what or (f"prefill + {l_dec.shape[1]} decode steps vs the full "
+                    f"forward")
+    print(f"{label}: {what}, max |dlogit| per step in units of the row RMS: "
           + ", ".join(f"{v:.5f}" for v in per_step)
           + f"; {flips} argmax flips among {n_dec} of {decisive.numel()} "
             f"rows of margin > {MARGIN_DEEP} ({smi})")
@@ -3836,13 +3870,13 @@ def serve_timed(model, params, reqs, scfg, smi: str, label: str):
     from repro_torch.serve.engine import Engine
     finite = []
 
-    def prefill(p, batch, caches):
-        h, caches = model.prefill(p, batch, caches)
+    def prefill(p, batch, caches, rt=None):
+        h, caches = model.prefill(p, batch, caches, rt)
         finite.append(torch.isfinite(h).all())
         return h, caches
 
-    def decode(p, caches, tokens):
-        logits, caches = model.decode(p, caches, tokens)
+    def decode(p, caches, tokens, rt=None):
+        logits, caches = model.decode(p, caches, tokens, rt)
         finite.append(torch.isfinite(logits).all())
         return logits, caches
 
@@ -3985,7 +4019,7 @@ def run_moe_main_path(smi: str):
     check_moe_bucket(cfg, params, h.float().reshape(-1, cfg.d_model), smi)
     del h
     profile_decode(model, params, {"tokens": toks}, 1024, cfg.name)
-    return launches
+    return launches, model, params
 
 
 def run_arctic_layer(smi: str):
@@ -4658,6 +4692,387 @@ def run_mamba_train(smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Main paths 13-15 and the distributed and dry-run phases: the mesh paths
+# of the LM stack on one card, each mesh axis a leading tensor dimension
+# (``launch.mesh.Mesh`` is virtual).  Plain PyTorch, as in the reference
+# (its split-KV, group-GQA, sharded MoE and int8 all-reduce are jnp
+# inside shard_map): no kernel launches on these paths.
+# ---------------------------------------------------------------------------
+
+SPLIT_KV = (2, 4400, 16384, 8)    # requests, prompt tokens, cache, shards
+TOL_ATTN = 2e-4                   # tests/test_multidevice.py:212
+MOE_SHARDED = (4, 560)            # prompts x tokens: 8 divides the sequence
+CP_TOKENS = (2, 4096)             # main path 15's batch
+COMPRESS_PARTIES = 4
+A2A_CHUNKS = 4
+
+
+def _stepped(model, params, caches, nxt, rt):
+    """Decode ``nxt`` (B, n) one token at a time from ``caches`` under
+    ``rt``: (logits (B, n, V), ms of each step, synchronised)."""
+    steps, ms = [], []
+    for i in range(nxt.shape[1]):
+        (logits, caches), s = timed_s(
+            lambda: model.decode(params, caches, nxt[:, i:i + 1], rt))
+        steps.append(logits)
+        ms.append(s * 1e3)
+    del caches
+    return torch.cat(steps, 1), ms
+
+
+def run_gemma_split_kv(model, params, smi: str):
+    """Main path 13: gemma2-9b decoding split-KV at full width, main path
+    6's model and parameters: ``Engine(rt=Runtime(mesh 1x8,
+    split_kv_axis="model"))`` serves 2 requests of 4,400 tokens into
+    caches of 16,384 slots (8 shards of 2,048; shards 3-7 hold no valid
+    slot, the local layers' 4,096-token window binds), 16 new tokens.
+    Checks: 8 teacher-forced steps split against unsplit from the same
+    prefill caches (flip rule, max |dlogit| in row-RMS units); one local
+    and one global layer's attention split against unsplit in f32 at
+    2e-4; ms a step both ways, peak memory; 0 launches."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import attention as A
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    cfg = model.cfg
+    n_req, s_req, max_len, shards = SPLIT_KV
+    rt = Runtime(mesh=make_test_mesh(1, shards), split_kv_axis="model")
+    rng = np.random.default_rng(13)
+    reqs = [Request(i, rng.integers(3, cfg.vocab, s_req).astype(np.int32))
+            for i in range(n_req)]
+    eng = Engine(model, ServeConfig(slots=n_req, max_len=max_len,
+                                    max_new_tokens=MAMBA_NEW), rt=rt)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    out, wall = timed_s(lambda: eng.generate_batch(params, reqs))
+    launches = dict(dispatch.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    w = eng.waves[0]
+    print(f"{cfg.name} split-KV serving: {n_req} x {s_req} tokens into "
+          f"caches of {max_len} ({shards} shards of {max_len // shards}), "
+          f"prefill {w.prefill_s * 1e3:.1f} ms, {w.decode_steps} decode "
+          f"steps {w.decode_s * 1e3 / max(w.decode_steps, 1):.2f} ms a step;"
+          f" {wall:.2f} s in all, peak {peak:.2f} GiB, launches {launches} "
+          f"({smi})")
+    if launches:
+        raise AssertionError(f"split-KV serving launched {launches}")
+    for r in reqs:
+        seq = out[r.rid]
+        if not (1 <= len(seq) <= MAMBA_NEW and (seq >= 0).all()
+                and (seq < cfg.vocab).all()):
+            raise AssertionError(f"request {r.rid}: bad output {seq}")
+
+    toks = _padded(reqs, "cuda")
+    nxt = torch.from_numpy(rng.integers(3, cfg.vocab, (n_req,
+                                                       DECODE_STEPS))).cuda()
+    _, first = model.prefill(params, {"tokens": toks}, model.init_caches(
+        n_req, max_len, device="cuda"))
+    torch.cuda.reset_peak_memory_stats()
+    l_split, ms_split = _stepped(model, params, first, nxt, rt)
+    peak_split = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    l_plain, ms_plain = _stepped(model, params, first, nxt, None)
+    peak_plain = torch.cuda.max_memory_allocated() / 2**30
+    flip_rule(f"{cfg.name}, {n_req} x {s_req} + {DECODE_STEPS} tokens",
+              l_split, l_plain, smi, what=f"{DECODE_STEPS} decode steps "
+              f"split-KV ({shards} shards) vs unsplit, from the same caches")
+    print(f"decode step at a {max_len}-slot cache: split-KV "
+          f"{statistics.median(ms_split):.2f} ms (peak {peak_split:.2f} GiB),"
+          f" unsplit {statistics.median(ms_plain):.2f} ms (peak "
+          f"{peak_plain:.2f} GiB), medians of {DECODE_STEPS} steps, "
+          f"synchronised ({smi})")
+
+    # one local (0) and one global (1) layer's attention in f32 on the
+    # prefill caches: cache_len 4,400 leaves shards 3-7 empty
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    scale = cfg.query_scale if cfg.query_scale else None
+    c = first["blocks"]
+    for layer, win in ((0, cfg.sliding_window), (1, 0)):
+        k, v = c.k[layer].float(), c.v[layer].float()
+        q = torch.randn((n_req, 1, cfg.n_heads, cfg.head_dim), generator=gen,
+                        device="cuda")
+        cache = A.KVCache(k, v, c.length[layer])
+        want = A.decode_attention(q, cache, window=win,
+                                  softcap=cfg.attn_softcap, scale=scale)
+        got = C.split_kv_decode_attention(
+            q, k.unflatten(1, (shards, -1)).movedim(1, 0),
+            v.unflatten(1, (shards, -1)).movedim(1, 0), cache.length,
+            scale=scale, window=win, softcap=cfg.attn_softcap)
+        err = max_abs_err([(got, want)])
+        print(f"layer {layer} ({'local, window %d' % win if win else 'global'}"
+              f", cache_len {int(cache.length)}): split-KV vs unsplit "
+              f"attention in f32, max |d| {err:.3e} (limit {TOL_ATTN})")
+        torch.testing.assert_close(got, want, rtol=TOL_ATTN, atol=TOL_ATTN)
+    del first, l_split, l_plain
+    return launches
+
+
+@contextlib.contextmanager
+def sharded_moe_stats():
+    """Collect the pmean'd MoEStats of every ``_moe_bucket_sharded`` call
+    and the per-rank ones of every ``moe_layer_bucket`` call."""
+    from repro_torch.models import moe, transformer
+    pmean, ranks = [], []
+    sharded, layer = transformer._moe_bucket_sharded, moe.moe_layer_bucket
+
+    def spy_sharded(*args, **kw):
+        y, st = sharded(*args, **kw)
+        pmean.append(st)
+        return y, st
+
+    def spy_layer(*args, **kw):
+        y, st = layer(*args, **kw)
+        ranks.append(st)
+        return y, st
+
+    with mock.patch.object(transformer, "_moe_bucket_sharded", spy_sharded), \
+            mock.patch.object(moe, "moe_layer_bucket", spy_layer):
+        yield pmean, ranks
+
+
+def run_moe_sharded_prefill(model, params, smi: str):
+    """Main path 14: deepseek-moe-16b prefill through the sharded bucket
+    dispatch at full width (main path 7's model and parameters):
+    ``Runtime(mesh 1x8, moe_impl="bucket", seq_axis="model")``, the
+    reference's prefill-cell runtime; 4 prompts of 560 tokens, each EP
+    rank bucketing its 70-token slice of each sequence for its 8 local
+    experts.  At the published capacity factor 1.25 (the timed run): each
+    route's dropped fraction (the per-rank capacity counts the rank's own
+    tokens, so they differ by design).  At E / k: the logits of the last
+    8 positions against the local dispatch's (flip rule), 0 dropped; the
+    pmean'd and the local stats side by side; 0 launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build
+    from repro_torch.models.transformer import Runtime
+    cfg = model.cfg
+    B, S = MOE_SHARDED
+    rt = Runtime(mesh=make_test_mesh(1, MOE_EP), moe_impl="bucket",
+                 seq_axis="model")
+    rng = np.random.default_rng(14)
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab, (B, S))).cuda()
+    batch = {"tokens": toks}
+    fresh = lambda: model.init_caches(B, S, device="cuda")
+    model.prefill(params, batch, fresh(), rt)           # warm-up
+    n_moe = cfg.n_layers - cfg.moe.first_dense
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    with sharded_moe_stats() as (pmean, _):
+        (h, _), t_b = timed_s(lambda: model.prefill(params, batch, fresh(),
+                                                    rt))
+    launches = dict(dispatch.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with moe_stats() as local_seen:
+        (h_l, _), t_l = timed_s(lambda: model.prefill(params, batch,
+                                                      fresh()))
+    d_b = torch.stack([st.dropped for st in pmean]).cpu()
+    d_l = torch.stack([st.dropped for _, st in local_seen]).cpu()
+    print(f"{cfg.name} prefill, {B} x {S} tokens, capacity factor "
+          f"{cfg.moe.capacity_factor}: sharded bucket dispatch (EP "
+          f"{MOE_EP}, {S // MOE_EP} tokens of each sequence a rank) "
+          f"{t_b * 1e3:.1f} ms, peak {peak:.2f} GiB, dropped over {n_moe} "
+          f"layers mean {float(d_b.mean()):.5f} max {float(d_b.max()):.5f};"
+          f" local dispatch {t_l * 1e3:.1f} ms, dropped mean "
+          f"{float(d_l.mean()):.5f} max {float(d_l.max()):.5f}; launches "
+          f"{launches} ({smi})")
+    if launches:
+        raise AssertionError(f"sharded MoE prefill launched {launches}")
+    if len(pmean) != n_moe or not torch.isfinite(h).all():
+        raise AssertionError(f"{len(pmean)} sharded MoE calls of {n_moe} "
+                             f"layers, or non-finite hidden states")
+    del h, h_l
+
+    ample = build(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)))
+    with sharded_moe_stats() as (pmean, ranks):
+        h_b, _ = ample.prefill(params, batch, fresh(), rt)
+    with moe_stats() as local_seen:
+        h_l, _ = ample.prefill(params, batch, fresh())
+    last = slice(S - DECODE_STEPS, S)
+    l_b = model.logits(params, h_b[:, last])
+    l_l = model.logits(params, h_l[:, last])
+    dropped = max(float(st.dropped) for st in pmean)
+    dropped_l = max(float(st.dropped) for _, st in local_seen)
+    print(f"at capacity factor {ample.cfg.moe.capacity_factor:.3f}: "
+          f"dropped {dropped} (sharded), {dropped_l} (local)")
+    if dropped or dropped_l:
+        raise AssertionError("the ample capacity dropped assignments")
+    flip_rule(f"{cfg.name} prefill, {B} x {S} tokens", l_b, l_l, smi,
+              what=f"the sharded bucket vs the local dispatch at the last "
+              f"{DECODE_STEPS} positions")
+    for i in sorted({0, n_moe - 1}):
+        sb, (_, sl) = pmean[i], local_seen[i]
+        print(f"MoE layer {i}: pmean'd stats aux {float(sb.aux_loss):.5f} "
+              f"router_z {float(sb.router_z):.4f} | local aux "
+              f"{float(sl.aux_loss):.5f} router_z {float(sl.router_z):.4f} "
+              f"| per-rank aux {[round(float(a), 4) for a in ranks[i].aux_loss]}")
+    del h_b, h_l, l_b, l_l, ample
+    return launches
+
+
+def run_gemma_context_parallel(model, params, smi: str):
+    """Main path 15: gemma2-9b's forward on the context-parallel runtime
+    at full width (main path 6's model and parameters):
+    ``Runtime(mesh 1x8, seq_axis="model")`` takes the group-GQA route (G
+    = 2: 16 query heads over 8 KV heads) on 2 x 4,096 tokens, no gradient;
+    the hidden states against the expand route's, max difference in units
+    of their RMS within ``TOL_MODEL``; ms and peak GiB both ways; 0
+    launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import Runtime
+    cfg = model.cfg
+    B, S = CP_TOKENS
+    rt = Runtime(mesh=make_test_mesh(1, 8), seq_axis="model")
+    rng = np.random.default_rng(15)
+    batch = {"tokens": torch.from_numpy(rng.integers(3, cfg.vocab,
+                                                     (B, S))).cuda()}
+    res = {}
+    with torch.no_grad():
+        model.hidden(params, {"tokens": batch["tokens"][:, :256]}, rt)
+        for label, r in (("group (context-parallel)", rt), ("expand", None)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            dispatch.reset_launches()
+            (h, _), s = timed_s(lambda: model.hidden(params, batch, r))
+            res[label] = (h, s * 1e3, torch.cuda.max_memory_allocated()
+                          / 2**30, dict(dispatch.LAUNCHES))
+    (h_g, ms_g, pk_g, launches), (h_e, ms_e, pk_e, _) = res.values()
+    rms = float(h_e.float().pow(2).mean().sqrt())
+    err = float((h_g.float() - h_e.float()).abs().max()) / rms
+    print(f"{cfg.name} forward, {B} x {S} tokens: group-GQA route "
+          f"{ms_g:.1f} ms, peak {pk_g:.2f} GiB; expand route {ms_e:.1f} ms, "
+          f"peak {pk_e:.2f} GiB; max |dh| {err:.5f} of the RMS (limit "
+          f"{TOL_MODEL}); launches {launches} ({smi})")
+    if launches:
+        raise AssertionError(f"the context-parallel forward launched "
+                             f"{launches}")
+    if not (err <= TOL_MODEL and torch.isfinite(h_g).all()):
+        raise AssertionError(f"group vs expand route: {err} of the RMS")
+    return launches
+
+
+def run_distributed(smi: str):
+    """The distributed phase: (1) ``compressed_psum`` over 4 replicated
+    parties on a minicpm-2b gradient tree at full width (main path 11's
+    model and batch shape), leaf by leaf within the reference test's
+    bounds, the int8 payload and scale of 3 leaves == a CPU run bit for
+    bit, ms per tree; (2) ``pipelined_all_to_all`` in 4 chunks on the
+    exchange path's (src, dst, capacity) payload == one transpose bit for
+    bit; (3) ``launch/train.py``'s trainer, reduced, ``--mesh 2x4`` on the
+    card: the losses of 4 steps == the mesh-free run's bit for bit."""
+    import shutil
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import aggregator
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import compression as Q
+    from repro_torch.launch import train as cli
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import build
+    from repro_torch.train import step as step_lib
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = get_config(MINICPM_ARCH)
+    model = build(cfg)
+    B, S, _, _ = MINICPM_TRAIN
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    grads, _ = step_lib.make_compute_grads(model, step_lib.TrainConfig())(
+        params, _train_batch(cfg, B, S, 0, "cuda"))
+    del params
+    ar = Q.make_compressed_allreduce(Mesh((COMPRESS_PARTIES,), ("pod",)),
+                                     ("pod",))
+    err0 = Q.init_error_feedback(grads)
+    ar(grads, err0)
+    (mean, err), s = timed_s(lambda: ar(grads, err0))
+    worst = (0.0, 0.0)
+    flat_g, flat_m, flat_e = (tree_leaves(t) for t in (grads, mean, err))
+    for g, m, e in zip(flat_g, flat_m, flat_e):
+        scale = float(g.abs().max())
+        dm, de = float((m - g).abs().max()), float(e.abs().max())
+        if dm > scale / 127 * 1.5 + 1e-6 or de > scale / 127 + 1e-6:
+            raise AssertionError(f"compressed all-reduce out of bounds: "
+                                 f"{dm}, {de} at scale {scale}")
+        worst = max(worst, (dm / (scale / 127 + 1e-30),
+                            de / (scale / 127 + 1e-30)))
+    n_el = sum(g.numel() for g in flat_g)
+    small = sorted(flat_g, key=lambda t: t.numel())[:3]
+    for g in small:
+        gn = g.expand(COMPRESS_PARTIES, *g.shape)
+        en = torch.zeros_like(gn)
+        q_d, s_d, _ = Q.quantize(gn, en)
+        q_h, s_h, _ = Q.quantize(gn.cpu(), en.cpu())
+        if not (torch.equal(q_d.cpu(), q_h) and torch.equal(s_d.cpu(), s_h)):
+            raise AssertionError(f"int8 payload of a {tuple(g.shape)} leaf: "
+                                 f"card != CPU")
+    print(f"compressed_psum over {COMPRESS_PARTIES} replicated parties on "
+          f"{cfg.name}'s gradient tree ({len(flat_g)} leaves, "
+          f"{n_el / 1e9:.3f} B f32 values, {B} x {S} tokens): {s * 1e3:.1f} "
+          f"ms a tree, synchronised; worst |mean - g| {worst[0]:.3f} and "
+          f"|err| {worst[1]:.3f} of scale/127 (bounds 1.5 and 1); the int8 "
+          f"payload and scales of the leaves "
+          f"{[tuple(g.shape) for g in small]} == the CPU's bit for bit "
+          f"({smi})")
+    del grads, mean, err, err0, flat_g, flat_m, flat_e
+
+    words, tables = exchange_inputs("cuda")
+    dest, guid, routed = tables.route(words)
+    payload = aggregator.aggregate(torch.where(routed, words, 0), dest, guid,
+                                   X_SHARDS, X_CAPACITY, impl="sort").data
+    got = C.pipelined_all_to_all(payload, A2A_CHUNKS)
+    if not torch.equal(got, payload.transpose(0, 1)):
+        raise AssertionError("pipelined all-to-all != one transpose")
+    print(f"pipelined_all_to_all in {A2A_CHUNKS} chunks on the exchange "
+          f"payload {tuple(payload.shape)} == one transpose bit for bit")
+
+    small_cfg = reduced(get_config("qwen3_32b"))
+    losses = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mesh in (None, cli.parse_mesh("2x4", 8)):
+            d = ROOT / "build" / "mesh_train" / str(mesh)
+            shutil.rmtree(d, ignore_errors=True)
+            tr = cli.build_trainer(small_cfg, steps=4, batch=8, seq=64,
+                                   ckpt_dir=str(d), ckpt_every=100,
+                                   mesh=mesh, device="cuda")
+            losses.append([h["loss"] for h in tr.run(seed=0)[1]])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"launch/train.py's trainer, {small_cfg.name} reduced, 4 steps of "
+          f"8 x 64 tokens on the card: losses mesh-free {losses[0]}, "
+          f"--mesh 2x4 {losses[1]}")
+    if losses[0] != losses[1] or len(losses[0]) != 4:
+        raise AssertionError("the --mesh 2x4 losses differ")
+
+
+DRYRUN_CELLS = (("qwen3_32b", "train_4k", False),
+                ("gemma2_9b", "decode_32k", True))
+
+
+def run_dryrun(smi: str):
+    """The dry-run phase: ``run_cell`` on ``meta`` at the full widths on
+    the 16x16 mesh (virtual): per-device state against the H100's 80 GB,
+    counted against analytic FLOPs, the bottleneck (datasheet rates)."""
+    from repro_torch.launch import dryrun as dr
+    for arch, shape, split_kv in DRYRUN_CELLS:
+        r = dr.run_cell(arch, shape, multi_pod=False, split_kv=split_kv,
+                        verbose=False)
+        t = r["roofline"]
+        print(f"dry run {arch} x {shape} on {r['mesh']}"
+              f"{' --split-kv' if split_kv else ''}: "
+              f"{r['per_chip_state_bytes'] / 2**30:.2f} GiB a device, fits "
+              f"80 GB: {r['fits_hbm']}; counted / analytic FLOPs "
+              f"{r['flops_counted'] / t['model_flops']:.3f}; bottleneck "
+              f"{t['bottleneck']} (analytic, datasheet rates of {smi}); "
+              f"built in {r['build_s']} s on meta")
+        if r["status"] != "ok" or not r["fits_hbm"] or r["flops_counted"] <= 0:
+            raise AssertionError(f"dry-run cell {arch} x {shape}: {r}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -4797,15 +5212,29 @@ def main() -> int:
     check_dense_small()
 
     banner(f"main path 6: serving {GEMMA_ARCH}")
-    paths[f"serving {GEMMA_ARCH}"] = run_gemma_main_path(smi.splitlines()[0])
+    paths[f"serving {GEMMA_ARCH}"], model, params = run_gemma_main_path(
+        smi.splitlines()[0])
+    banner(f"main path 13: {GEMMA_ARCH} decoding split-KV over a 1x8 mesh")
+    paths[f"split-KV decode {GEMMA_ARCH}"] = run_gemma_split_kv(
+        model, params, smi.splitlines()[0])
+    banner(f"main path 15: {GEMMA_ARCH} forward, context-parallel runtime")
+    paths[f"context-parallel forward {GEMMA_ARCH}"] = \
+        run_gemma_context_parallel(model, params, smi.splitlines()[0])
+    del model, params
 
     banner("the rest of the model zoo, reduced, card vs CPU")
     check_zoo_small()
 
     # one full-width model on the card at a time
+    torch.cuda.empty_cache()
+    banner(f"main path 7: serving {MOE_ARCH}")
+    paths[f"serving {MOE_ARCH}"], model, params = run_moe_main_path(
+        smi.splitlines()[0])
+    banner(f"main path 14: {MOE_ARCH} prefill, the sharded bucket dispatch")
+    paths[f"sharded MoE prefill {MOE_ARCH}"] = run_moe_sharded_prefill(
+        model, params, smi.splitlines()[0])
+    del model, params
     for title, name, run in (
-            (f"main path 7: serving {MOE_ARCH}", f"serving {MOE_ARCH}",
-             run_moe_main_path),
             (f"main path 7, second part: one {ARCTIC_ARCH} layer",
              f"{ARCTIC_ARCH}, 1 layer", run_arctic_layer),
             (f"main path 8: {VLM_ARCH}", f"serving {VLM_ARCH}",
@@ -4828,6 +5257,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         banner(title)
         paths[name] = run(smi.splitlines()[0])
+
+    torch.cuda.empty_cache()
+    banner("distributed: int8 all-reduce, chunked all-to-all, --mesh 2x4")
+    run_distributed(smi.splitlines()[0])
+    banner("dry run on meta at the production mesh")
+    run_dryrun(smi.splitlines()[0])
 
     # each kernel's launches from the path of this slice that runs it (E's
     # tensor-core route on main path 2, serving, and main path 12,

@@ -17,8 +17,10 @@ format, so either package restores the other's checkpoints.
   the manifest's dtype (no ``ml_dtypes`` needed).
 * **Retention** -- keep the last ``keep`` checkpoints, delete older ones.
 
-The reference's ``shardings`` (restore onto a mesh) returns with the
-distributed slice (ROADMAP queue 1, item 12 part 7).
+* **Elastic restore** -- ``restore(..., shardings=)`` places the state
+  in another (virtual) mesh's layout: it raises where the reference's
+  ``device_put`` would (a dimension the mesh does not divide) and
+  changes no value.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import check_layout
 from repro_torch.kernels import dispatch
 
 BF16_DESCR = "<V2"           # what np.save writes for ml_dtypes' bfloat16
@@ -134,10 +137,13 @@ class Checkpointer:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, template, step: int | None = None, device=None):
+    def restore(self, template, step: int | None = None, device=None,
+                shardings=None):
         """Restore step ``step`` (default: the latest; None if there is
         none) into ``template``'s structure (its leaves are not read: meta
-        tensors will do), every leaf on ``device`` (``None`` is CUDA)."""
+        tensors will do), every leaf on ``device`` (``None`` is CUDA), in
+        the layout ``shardings`` (a Sharding tree like the state) if
+        given."""
         device = dispatch.resolve_device(device)
         step = self.latest_step() if step is None else step
         if step is None:
@@ -148,7 +154,10 @@ class Checkpointer:
         flat = {k: _load_leaf(os.path.join(path, m["file"]), m["dtype"],
                               device)
                 for k, m in manifest.items()}
-        return _unflatten_into(template, flat)
+        state = _unflatten_into(template, flat)
+        if shardings is not None:
+            check_layout(state, shardings)
+        return state
 
     def _gc(self):
         for s in self._steps()[:-self.keep]:

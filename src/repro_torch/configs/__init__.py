@@ -1,14 +1,16 @@
 """System and model configurations (port of ``src/repro/configs``).
 
 ``get_config(name)`` resolves a model architecture by the reference's
-names and aliases: all ten of the reference's architectures are ported.
+names and aliases: all ten of the reference's architectures are ported;
+``list_configs()`` lists them.
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, MoEConfig, RecurrentConfig, SSMConfig, reduced,
+    ModelConfig, MoEConfig, RecurrentConfig, SHAPES, SSMConfig, ShapeConfig,
+    reduced,
 )
 
 ARCHS = (
@@ -44,3 +46,7 @@ def get_config(name: str) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
+
+
+def list_configs() -> list:
+    return list(ARCHS)

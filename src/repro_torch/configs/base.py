@@ -7,6 +7,7 @@ Mamba-2 SSM (``ssm``), RecurrentGemma's RG-LRU (``recurrent``), Whisper's
 encoder (``enc_layers``, ``enc_ctx``) and Qwen2-VL's M-RoPE and vision
 stub (``mrope_sections``, ``vision_tokens``).  ``reduced()`` shrinks a
 config to a CPU-testable size exactly as the reference's does.
+``SHAPES`` are the reference's four input shapes of the dry run.
 """
 from __future__ import annotations
 
@@ -97,6 +98,22 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2) -> ModelConfig:

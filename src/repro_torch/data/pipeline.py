@@ -8,9 +8,8 @@ The producer thread fills a bounded ring of prepared batches; the consumer
 function of ``(seed, step)``, drawn with the reference's numpy calls, so
 the tokens equal the reference's bit for bit and the pipeline's cursor in
 a checkpoint is the step counter.  Batches are CPU ``int32`` tensors; the
-trainer moves them to its device.  The reference's ``shard_batch`` places
-a batch on a mesh and returns with the distributed slice (ROADMAP queue 1,
-item 12 part 7).
+trainer moves them to its device, through :func:`shard_batch` when it has
+a mesh.
 """
 from __future__ import annotations
 
@@ -95,3 +94,19 @@ class RingPrefetcher:
         except _q.Empty:
             pass
         self._thread.join(timeout=1.0)
+
+
+def shard_batch(batch: dict, mesh, batch_axes=("data",), device=None):
+    """Place a host batch on the device (``None`` is CUDA), its leading
+    (batch) dimension split over ``batch_axes`` of the virtual ``mesh``.
+    Raises ``ValueError`` where the reference's ``device_put`` would: a
+    batch the data axes do not divide.  Changes no value."""
+    from repro_torch.kernels import dispatch
+    n = mesh.axis_size(tuple(batch_axes))
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"divide over the {n} ranks of {batch_axes} "
+                             f"on mesh {mesh}")
+    device = dispatch.resolve_device(device)
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}

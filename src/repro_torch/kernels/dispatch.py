@@ -7,7 +7,9 @@
   launches its hand-written kernel through :func:`launch`, which raises on
   any launch error; on the CPU it runs the plain PyTorch version.  There is
   no fallback from one to the other and no switch that routes the card to
-  the plain version.
+  the plain version.  ``meta`` tensors (the dry run's shapes, nothing
+  computed) take the plain version too: what it does to shapes is what
+  the dry run counts, and nothing runs.
 * :data:`LAUNCHES` counts kernel launches by kernel name, so a run can
   show that its main path went through the kernels;
   :data:`ENTRY_LAUNCHES` counts the same launches by C entry point (a
@@ -40,14 +42,15 @@ def resolve_device(device=None) -> torch.device:
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie on
-    the CPU; raises on a mix or on another device type."""
+    the CPU or all on ``meta``; raises on a mix or on another device
+    type."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
     device = devices.pop()
     if device.type == "cuda":
         return True
-    if device.type == "cpu":
+    if device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain version for device {device}")
 

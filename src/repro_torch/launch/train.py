@@ -2,12 +2,22 @@
 
 One process, one device: the trainer runs on the card (``cuda``) unless
 ``--device`` names another.  Parameters are random (f32, from seed 0); the
-data is ``data.pipeline.synthetic_batch`` behind the prefetcher.  The
-reference's ``--mesh`` and ``--fake-devices`` (a sharded run over a device
-mesh) return with the distributed slice and raise here.  Examples:
+data is ``data.pipeline.synthetic_batch`` behind the prefetcher.
+
+``--mesh DxM`` trains under a (data, model) mesh, as the reference builds
+it: ``Runtime(mesh, batch_axes, moe_impl, remat=True)``, each batch split
+over the data axis.  On one card the mesh is virtual (``launch.mesh``):
+its axes become leading tensor dimensions where a path reads them
+(``--moe-impl bucket``: the sharded bucket dispatch over the model axis),
+and the losses equal the mesh-free run's.  ``--fake-devices N`` (the
+reference's forced host device count) must equal the mesh's size; on one
+card it forces nothing.
+Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
       --reduced --steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_32b \\
+      --reduced --steps 4 --mesh 2x4 --fake-devices 8 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
       --steps 8 --batch 2 --seq 4096 --lr 1e-3
 """
@@ -18,20 +28,37 @@ import os
 import sys
 import tempfile
 
-DISTRIBUTED = ("{} needs the distributed slice of the port (ROADMAP "
-               "queue 1, item 12 part 7), which is not ported yet")
+
+def parse_mesh(spec: str | None, fake_devices: int = 0):
+    """``"DxM"`` -> a virtual (data, model) Mesh (None for None).
+    ``fake_devices`` (the reference's forced host device count), when
+    given with a mesh, must equal its size; without one it changes
+    nothing, as in the reference."""
+    from repro_torch.launch.mesh import Mesh
+    if not spec:
+        return None
+    d, m = (int(x) for x in spec.split("x"))
+    mesh = Mesh((d, m), ("data", "model"))
+    if fake_devices and fake_devices != mesh.size:
+        raise ValueError(f"--fake-devices {fake_devices} != the size "
+                         f"{mesh.size} of mesh {spec}")
+    return mesh
 
 
 def build_trainer(cfg, *, steps: int, batch: int, seq: int,
                   lr: float = 1e-3, schedule: str = "wsd",
                   microbatch: int = 0, ckpt_dir: str, ckpt_every: int,
-                  device=None):
+                  mesh=None, moe_impl: str = "local", device=None):
     """The launcher's trainer for model config ``cfg``: AdamW with a
     warmup of a tenth of the steps (at least 1) into ``schedule``,
     ``synthetic_batch`` data of ``batch`` x ``seq`` tokens, a log line
-    every tenth of the steps, on ``device`` (``None`` is CUDA)."""
+    every tenth of the steps, on ``device`` (``None`` is CUDA); with a
+    ``mesh``, the reference's ``Runtime(mesh, batch_axes, moe_impl,
+    remat=True)``."""
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import batch_axes
     from repro_torch.models import build
+    from repro_torch.models.transformer import Runtime
     from repro_torch.train.optimizer import OptimizerConfig, ScheduleConfig
     from repro_torch.train.step import TrainConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -43,11 +70,14 @@ def build_trainer(cfg, *, steps: int, batch: int, seq: int,
         microbatch=microbatch,
     )
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
+    rt = Runtime() if mesh is None else Runtime(
+        mesh=mesh, batch_axes=batch_axes(mesh), moe_impl=moe_impl,
+        remat=True)
     return Trainer(build(cfg), tcfg, dcfg,
                    TrainerConfig(steps=steps, ckpt_dir=ckpt_dir,
                                  ckpt_every=ckpt_every,
                                  log_every=max(steps // 10, 1)),
-                   device=device)
+                   rt=rt, mesh=mesh, device=device)
 
 
 def main(argv=None) -> int:
@@ -62,11 +92,17 @@ def main(argv=None) -> int:
     ap.add_argument("--schedule", default="wsd",
                     choices=["wsd", "cosine", "constant"])
     ap.add_argument("--microbatch", type=int, default=0)
-    ap.add_argument("--moe-impl", default="local", choices=["local"],
-                    help="the MoE dispatch without a mesh (the reference's "
-                         "default)")
-    ap.add_argument("--mesh", default=None, help="e.g. 2x4 (data x model)")
-    ap.add_argument("--fake-devices", type=int, default=0)
+    ap.add_argument("--moe-impl", default="local",
+                    choices=["local", "bucket"],
+                    help="the MoE dispatch under --mesh (bucket: the "
+                         "sharded expert-parallel dispatch); without a mesh "
+                         "always local")
+    ap.add_argument("--mesh", default=None,
+                    help="e.g. 2x4 (data x model); on one card the mesh is "
+                         "virtual: its axes become tensor dimensions")
+    ap.add_argument("--fake-devices", type=int, default=0,
+                    help="the reference's forced device count; must equal "
+                         "the mesh's size (on one card nothing is forced)")
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_train_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -75,10 +111,7 @@ def main(argv=None) -> int:
     from repro_torch.obs import log as obs_log
     obs_log.add_log_args(ap)
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise ValueError(DISTRIBUTED.format("--mesh"))
-    if args.fake_devices:
-        raise ValueError(DISTRIBUTED.format("--fake-devices"))
+    mesh = parse_mesh(args.mesh, args.fake_devices)
     # progress defaults to INFO on stderr (a launcher's progress is not a
     # machine protocol; --quiet silences it)
     log = obs_log.setup_logging("INFO", quiet=args.quiet,
@@ -94,7 +127,8 @@ def main(argv=None) -> int:
                             schedule=args.schedule,
                             microbatch=args.microbatch,
                             ckpt_dir=args.ckpt_dir,
-                            ckpt_every=args.ckpt_every, device=args.device)
+                            ckpt_every=args.ckpt_every, mesh=mesh,
+                            moe_impl=args.moe_impl, device=args.device)
     state, history = trainer.run(seed=0)
     for h in history:
         log.info("step %5d loss %.4f lr %.2e dt %.0fms stalls %d",

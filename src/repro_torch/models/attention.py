@@ -5,9 +5,11 @@ Prefill attention is flash-style: an online softmax over KV chunks in f32,
 so the (S, S) score matrix is never materialised.  Masking (causal and
 sliding window) is computed from absolute indices inside each chunk.
 Grouped KV heads are expanded to the query heads (query head ``h`` reads
-KV head ``h // G``), chunk by chunk (the reference's ``gqa="expand"``;
-its ``gqa="group"`` route and the sequence-split decode belong to the
-distributed slice).
+KV head ``h // G``), chunk by chunk (``gqa="expand"``), or the queries
+are viewed as (Hkv, G) groups and K/V never expand (``gqa="group"``, the
+reference's route for context-parallel training, where each KV head's
+gradient stays Hkv-sized).  The split-KV decode is
+``distributed.collectives``.
 
 Variants: grouped KV heads, the attention-logit softcap (applied to the f32
 scores before the mask) and query-scale override (gemma2), sliding-window
@@ -72,31 +74,57 @@ def _chunk_step(q, kj, vj, mask, m, l, acc, scale, cap):
     return m_new, l, acc
 
 
+def _group_step(qg, kj, vj, mask, m, l, acc, scale, cap):
+    """:func:`_chunk_step` with the queries in (Hkv, G) groups: qg (B, Sq,
+    Hkv, G, D), kj / vj (B, C, Hkv, D) unexpanded."""
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg.float(), kj.float()) * scale
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p,
+                                               vj.float())
+    return m_new, l, acc
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: float | None = None,
-                    q_offset=0, kv_len=None, chunk: int = 1024):
+                    q_offset=0, kv_len=None, chunk: int = 1024,
+                    gqa: str = "expand"):
     """Online-softmax attention.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D); Hq % Hkv == 0.
     window: keys with ``q - kv < window`` (0 = no window).
     q_offset: absolute index of q[0].  kv_len: optional () tensor or int,
-    the valid KV prefix length (the rest masked).  Under autograd each
-    chunk step is checkpointed, as in the reference: the backward
-    recomputes a chunk's (.., chunk) scores and probabilities instead of
-    keeping them for every chunk.
+    the valid KV prefix length (the rest masked).  gqa: ``"expand"`` (K/V
+    copied to the Hq query heads, chunk by chunk) or ``"group"`` (Q viewed
+    as (B, Sq, Hkv, G, D); K/V never expand).  Under autograd each chunk
+    step is checkpointed, as in the reference: the backward recomputes a
+    chunk's (.., chunk) scores and probabilities instead of keeping them
+    for every chunk.
     """
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    if gqa not in ("expand", "group"):
+        raise ValueError(f"gqa {gqa!r}: expand or group")
     scale = (1.0 / D ** 0.5) if scale is None else scale
     chunk = min(chunk, Skv)
     q_idx = q_offset + torch.arange(Sq, device=q.device)
-    m = torch.full((B, Sq, Hq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Sq, Hq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Sq, Hq, D), dtype=torch.float32, device=q.device)
-    step = lambda kj, vj, mask, m, l, acc: _chunk_step(
-        q, _expand_heads(kj, Hq), _expand_heads(vj, Hq), mask, m, l, acc,
-        scale, softcap)
+    heads = (B, Sq, Hkv, Hq // Hkv) if gqa == "group" else (B, Sq, Hq)
+    m = torch.full(heads, NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(heads, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(heads + (D,), dtype=torch.float32, device=q.device)
+    if gqa == "group":
+        qg = q.view(B, Sq, Hkv, Hq // Hkv, D)
+        step = lambda kj, vj, mask, m, l, acc: _group_step(
+            qg, kj, vj, mask, m, l, acc, scale, softcap)
+    else:
+        step = lambda kj, vj, mask, m, l, acc: _chunk_step(
+            q, _expand_heads(kj, Hq), _expand_heads(vj, Hq), mask, m, l,
+            acc, scale, softcap)
     for j0 in range(0, Skv, chunk):
         kv_idx = torch.arange(j0, min(j0 + chunk, Skv), device=q.device)
         mask = torch.ones((Sq, kv_idx.numel()), dtype=torch.bool,
@@ -110,7 +138,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         m, l, acc = L.checkpointed(step, k[:, j0:j0 + chunk],
                                    v[:, j0:j0 + chunk], mask, m, l, acc)
     out = acc / torch.clamp(l[..., None], min=1e-37)
-    return out.to(q.dtype)
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -64,7 +64,7 @@ def whisper_param_specs(cfg: ModelConfig, max_dec_pos: int = 4096) -> dict:
     }
 
 
-def _mha(p, pre, xq, xkv, cfg, *, causal, cache=None):
+def _mha(p, pre, xq, xkv, cfg, rt, *, causal, cache=None):
     """LayerNorm attention residual (no RoPE: Whisper's positions are
     absolute).  ``xkv`` None: self-attention on the normed ``xq``; else
     keys and values from ``xkv`` as given.  Returns (x, new cache)."""
@@ -79,9 +79,9 @@ def _mha(p, pre, xq, xkv, cfg, *, causal, cache=None):
             o = A.decode_attention(q, cache)
         else:
             o = A.flash_attention(q, cache.k, cache.v, causal=causal,
-                                  kv_len=cache.length, chunk=T.ATTN_CHUNK)
+                                  kv_len=cache.length, chunk=rt.attn_chunk)
     else:
-        o = A.flash_attention(q, k, v, causal=causal, chunk=T.ATTN_CHUNK)
+        o = A.flash_attention(q, k, v, causal=causal, chunk=rt.attn_chunk)
     return xq + T._out(o, p[pre + "wo"]), cache
 
 
@@ -93,21 +93,23 @@ def _mlp_res(p, x, cfg):
 
 
 def encode(params, frames: torch.Tensor, cfg: ModelConfig,
-           remat: bool = False) -> torch.Tensor:
+           rt: T.Runtime | None = None) -> torch.Tensor:
     """frames: (B, enc_ctx, d_model), precomputed conv-frontend
-    embeddings.  Returns the encoder's hidden states (bf16).  ``remat``:
-    under autograd each layer is recomputed in the backward."""
+    embeddings.  Returns the encoder's hidden states (bf16).
+    ``rt.remat``: under autograd each layer is recomputed in the
+    backward."""
+    rt = rt or T.DEFAULT
     x = frames.to(torch.bfloat16)
     x = x + L.sinusoidal_positions(x.shape[1], cfg.d_model).to(
         device=x.device, dtype=x.dtype)
 
     def layer(x, p):
         p = T.cast_params(p)
-        x, _ = _mha(p, "sa_", x, None, cfg, causal=False)
+        x, _ = _mha(p, "sa_", x, None, cfg, rt, causal=False)
         return _mlp_res(p, x, cfg)
 
     for p in L.unstack(params["enc"]):
-        x = L.checkpointed(layer, x, p, on=remat)
+        x = L.checkpointed(layer, x, p, on=rt.remat)
     return L.layer_norm(x, params["enc_ln_w"], params["enc_ln_b"])
 
 
@@ -121,12 +123,14 @@ class WhisperCaches(NamedTuple):
 
 
 def decode(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
-           caches: WhisperCaches | None = None, remat: bool = False):
+           caches: WhisperCaches | None = None,
+           rt: T.Runtime | None = None):
     """Decoder forward: stateless over ``enc_out`` without ``caches``, else
     against them (the cross caches already filled).  Positions continue
-    from the first self-attention cache's length.  ``remat``: under
+    from the first self-attention cache's length.  ``rt.remat``: under
     autograd each layer is recomputed in the backward.  Returns (hidden,
     new caches or None; the old ones are left as they were)."""
+    rt = rt or T.DEFAULT
     Sq = tokens.shape[1]
     off = caches.self_kv.length[0] if caches is not None else 0
     positions = off + torch.arange(Sq, device=tokens.device)
@@ -135,19 +139,19 @@ def decode(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
 
     def stateless(x, p):
         p = T.cast_params(p)
-        x, _ = _mha(p, "sa_", x, None, cfg, causal=True)
-        x, _ = _mha(p, "xa_", x, enc_out, cfg, causal=False)
+        x, _ = _mha(p, "sa_", x, None, cfg, rt, causal=True)
+        x, _ = _mha(p, "xa_", x, enc_out, cfg, rt, causal=False)
         return _mlp_res(p, x, cfg)
 
     sk, sv, sl = [], [], []
     for layer, p in enumerate(L.unstack(params["dec"])):
         if caches is None:
-            x = L.checkpointed(stateless, x, p, on=remat)
+            x = L.checkpointed(stateless, x, p, on=rt.remat)
             continue
         p = T.cast_params(p)
         s_kv = _kv(caches.self_kv, layer)
         x_kv = _kv(caches.cross_kv, layer)
-        x, s_kv = _mha(p, "sa_", x, None, cfg, causal=True, cache=s_kv)
+        x, s_kv = _mha(p, "sa_", x, None, cfg, rt, causal=True, cache=s_kv)
         # cross attention reads the (already filled) encoder cache
         h = L.layer_norm(x, p["xa_ln_w"], p["xa_ln_b"])
         q = T._proj(h, p["xa_wq"])
@@ -155,7 +159,7 @@ def decode(params, tokens: torch.Tensor, enc_out, cfg: ModelConfig,
             o = A.decode_attention(q, x_kv)
         else:
             o = A.flash_attention(q, x_kv.k, x_kv.v, causal=False,
-                                  kv_len=x_kv.length, chunk=T.ATTN_CHUNK)
+                                  kv_len=x_kv.length, chunk=rt.attn_chunk)
         x = x + T._out(o, p["xa_wo"])
         sk.append(s_kv.k)
         sv.append(s_kv.v)

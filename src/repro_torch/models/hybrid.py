@@ -112,17 +112,18 @@ def _rg_stack(caches: list):
 
 
 def rg_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-               caches: RGCaches | None = None, remat: bool = False):
+               caches: RGCaches | None = None, rt: T.Runtime | None = None):
     """RecurrentGemma forward: stateless (full sequence) without
     ``caches``, else prefill (S > 1) or decode (S == 1) against them.
     Positions continue from the first attention cache's length.
-    ``remat``: under autograd each super-block and tail layer is
+    ``rt.remat``: under autograd each super-block and tail layer is
     recomputed in the backward.  Returns (hidden, aux (= 0), new caches or
     None; the old ones are left as they were)."""
+    rt = rt or T.DEFAULT
     B, Sq = tokens.shape
     off = caches.attn.length[0] if caches is not None else 0
     positions = (off + torch.arange(Sq, device=tokens.device)).expand(B, Sq)
-    x = T.embed_tokens(params, tokens, cfg)
+    x = T.embed_tokens(params, tokens, cfg, rt=rt)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                          device=x.device)
     win = cfg.sliding_window
@@ -132,7 +133,7 @@ def rg_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         x = _mlp_residual(p["mlp0"], p["mln0"], x, cfg)
         x, c1 = _recurrent_residual(p["r1"], x, cfg, c[1])
         x = _mlp_residual(p["mlp1"], p["mln1"], x, cfg)
-        x, kv = T.attn_block(p["attn"], x, cfg, window=win,
+        x, kv = T.attn_block(p["attn"], x, cfg, rt, window=win,
                              positions=positions, cache=c[2],
                              ring=caches is not None)
         return _mlp_residual(p["mlp2"], p["mln2"], x, cfg), (c0, c1, kv)
@@ -146,7 +147,7 @@ def rg_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         c = (None, None, None) if caches is None else (
             _rg_cache(caches.r0, i), _rg_cache(caches.r1, i),
             _rg_cache(caches.attn, i))
-        x, (c0, c1, kv) = L.checkpointed(super_block, x, p, c, on=remat)
+        x, (c0, c1, kv) = L.checkpointed(super_block, x, p, c, on=rt.remat)
         new_r0.append(c0)
         new_r1.append(c1)
         new_kv.append(kv)
@@ -158,7 +159,7 @@ def rg_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
              "mln": tail[f"mln{i}"][0]}
         x, ci = L.checkpointed(tail_layer, x, p,
                                None if caches is None else caches.tail[i],
-                               on=remat)
+                               on=rt.remat)
         new_tail.append(ci)
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -221,13 +222,15 @@ def mamba2_param_specs(cfg: ModelConfig) -> dict:
 
 
 def mamba2_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-                   caches: S.SSMCache | None = None, remat: bool = False):
+                   caches: S.SSMCache | None = None,
+                   rt: T.Runtime | None = None):
     """Returns (hidden, aux (= 0), new_caches).  ``caches``: an
     ``SSMCache`` of tensors stacked over layers; the new caches are new
-    tensors (the old ones are left as they were).  ``remat``: under
+    tensors (the old ones are left as they were).  ``rt.remat``: under
     autograd each layer is recomputed in the backward (its SSD chunks
     launched again)."""
-    x = T.embed_tokens(params, tokens, cfg)
+    rt = rt or T.DEFAULT
+    x = T.embed_tokens(params, tokens, cfg, rt=rt)
 
     def layer(x, p, cache):
         p = T.cast_params(p)
@@ -239,7 +242,7 @@ def mamba2_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     for i, p in enumerate(L.unstack(params["blocks"])):
         cache = None if caches is None else \
             S.SSMCache(caches.conv[i], caches.state[i])
-        x, c_new = L.checkpointed(layer, x, p, cache, on=remat)
+        x, c_new = L.checkpointed(layer, x, p, cache, on=rt.remat)
         if c_new is not None:
             convs.append(c_new.conv)
             states.append(c_new.state)

@@ -3,8 +3,9 @@
 
 An architecture's parameters are a nested dict of :class:`ParamSpec`
 (shape, logical axes, dtype, initializer); :func:`init_params` turns it
-into a nested dict of tensors.  The logical axis names are kept for the
-distributed slice; on one card nothing reads them.
+into a nested dict of tensors, :func:`abstract_params` into one of
+``meta`` tensors (shapes and dtypes, nothing allocated).  The logical axis
+names are what ``distributed.sharding`` maps onto a mesh.
 
 Random draws: the reference folds Python's salted ``hash()`` of each
 leaf's path into its key, so its parameters differ from process to
@@ -51,6 +52,13 @@ def tree_paths(tree, prefix=()):
         return
     for k in sorted(tree):
         yield from tree_paths(tree[k], prefix + (k,))
+
+
+def tree_map_specs(fn, tree):
+    """``fn`` applied to every ParamSpec leaf; the same nesting."""
+    if is_spec(tree):
+        return fn(tree)
+    return {k: tree_map_specs(fn, v) for k, v in tree.items()}
 
 
 def _fan_in(spec: ParamSpec) -> int:
@@ -106,6 +114,14 @@ def init_params(spec_tree, generator: torch.Generator, param_dtype=None,
         return {k: rec(v, prefix + (k,)) for k, v in tree.items()}
 
     return rec(spec_tree)
+
+
+def abstract_params(spec_tree, param_dtype=None) -> dict:
+    """The parameter tree as ``meta`` tensors (the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    return tree_map_specs(
+        lambda s: torch.empty(s.shape, dtype=param_dtype or s.dtype,
+                              device="meta"), spec_tree)
 
 
 def param_count(spec_tree) -> int:

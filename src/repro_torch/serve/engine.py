@@ -16,6 +16,11 @@ of ``positions3``, axis 0 of the others) is not the wave's size raises a
 Whisper raises a ``TypeError`` on such frames, and its vision stub
 writes such embeddings into the rows they cover.
 
+``rt`` (``models.transformer.Runtime``) is the mesh context every
+prefill, decode and LM head of the engine runs under, as in the
+reference: e.g. ``Runtime(mesh=..., split_kv_axis="model")`` decodes
+split-KV.
+
 Differences from the reference:
 
 * ``temperature > 0`` samples from a ``torch.Generator`` seeded with
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import Runtime
 from repro_torch.obs import spans as obs_spans
 
 
@@ -87,9 +93,11 @@ class WaveStats:
 
 
 class Engine:
-    def __init__(self, model: Model, cfg: ServeConfig, seed: int = 0,
+    def __init__(self, model: Model, cfg: ServeConfig,
+                 rt: Runtime | None = None, seed: int = 0,
                  tracer: obs_spans.Tracer | None = None):
         self.model = model
+        self.rt = rt or Runtime()
         self.tracer = tracer if tracer is not None else obs_spans.NULL
         self.cfg = cfg
         self.seed = seed
@@ -125,15 +133,17 @@ class Engine:
                                   prompt_len=S) as pre:
                 caches = self.model.init_caches(B, self.cfg.max_len,
                                                 device=device)
-                h, caches = self.model.prefill(params, batch, caches)
-                tok = self._sample(self.model.logits(params, h[:, -1:, :]))
+                h, caches = self.model.prefill(params, batch, caches,
+                                               self.rt)
+                tok = self._sample(self.model.logits(params, h[:, -1:, :],
+                                                     self.rt))
                 gen = [tok.cpu().numpy()]
             done = np.zeros((B,), bool)
             with self.tracer.span("serve/decode", track="serve",
                                   batch=B) as dec:
                 for _ in range(self.cfg.max_new_tokens - 1):
                     logits, caches = self.model.decode(params, caches,
-                                                       tok[:, None])
+                                                       tok[:, None], self.rt)
                     tok = self._sample(logits)
                     gen.append(tok.cpu().numpy())
                     done |= gen[-1] == self.cfg.eos_id

@@ -11,10 +11,15 @@ of the batch and averaged, as the reference's gradient accumulation), then
 the optimizer, which updates the state in place.  The gradient computation
 stands on its own as ``make_compute_grads`` (the reference's inner
 ``compute_grads``), so gradients can be held against the reference's
-before any optimizer step.  ``TrainConfig.remat`` (default True) turns on
-the per-layer checkpoint of the model's forward, the counterpart of the
-reference's ``Runtime.remat``; it changes no value.  The reference's mesh
-hooks (``rt.wsc``, ``grad_specs``) return with the distributed slice.
+before any optimizer step.
+
+Each factory takes the model's ``Runtime`` (``rt``, the mesh context;
+None is the single-device default).  Its ``logits_chunk`` is the loss's
+sequence chunk; its ``remat`` (the per-layer checkpoint of the forward)
+is set from ``TrainConfig.remat`` (default True), the one switch of the
+train step; it changes no value.  ``rt.grad_specs`` (a parameter-sharding
+tree) constrains the gradients to the parameters' layout, which on one
+card changes no value.
 """
 from __future__ import annotations
 
@@ -26,10 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as L
 from repro_torch.models.model import Model
-from repro_torch.models.modules import is_spec
+from repro_torch.models.transformer import DEFAULT, Runtime
 from repro_torch.train import optimizer as opt
-
-LOGITS_CHUNK = 512          # the reference's Runtime.logits_chunk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,18 +45,23 @@ class TrainConfig:
 
 
 def chunked_xent(params, hidden: torch.Tensor, labels: torch.Tensor,
-                 cfg: ModelConfig, chunk: int | None = None):
+                 cfg: ModelConfig, chunk: int | None = None,
+                 rt: Runtime | None = None):
     """(mean NLL, mean squared logsumexp) over the unmasked tokens, never
     materialising the full logits.
 
     hidden: (B, S, d) bf16; labels: (B, S) integer (-1 = masked).  Each
     chunk: the head in the hidden's dtype, times ``logit_scale``, then f32
-    and the softcap, as ``models.transformer.logits_fn``.
+    and the softcap, as ``models.transformer.logits_fn``; ``chunk``
+    defaults to ``rt.logits_chunk`` (512).
     """
+    rt = rt or DEFAULT
     B, S, d = hidden.shape
-    chunk = chunk or min(LOGITS_CHUNK, S)
+    chunk = chunk or min(rt.logits_chunk, S)
     if S % chunk:
         raise ValueError(f"sequence {S} is not a multiple of chunk {chunk}")
+    # the loss chunks along S: back to a batch-only layout, once, here
+    hidden = rt.wsc(hidden, (rt.batch_axes, None, None))
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
     def one(h_c, y_c):
@@ -79,25 +87,27 @@ def chunked_xent(params, hidden: torch.Tensor, labels: torch.Tensor,
     return nll / n, zsq / n
 
 
-def make_loss_fn(model: Model, tcfg: TrainConfig):
+def make_loss_fn(model: Model, tcfg: TrainConfig, rt: Runtime | None = None):
     cfg = model.cfg
+    rt = dataclasses.replace(rt or DEFAULT, remat=tcfg.remat)
 
     def loss_fn(params, batch):
-        hidden, aux = model.hidden(params, batch, remat=tcfg.remat)
-        nll, zsq = chunked_xent(params, hidden, batch["labels"], cfg)
+        hidden, aux = model.hidden(params, batch, rt)
+        nll, zsq = chunked_xent(params, hidden, batch["labels"], cfg, rt=rt)
         loss = nll + tcfg.aux_weight * aux + tcfg.z_weight * zsq
         return loss, {"loss": loss, "nll": nll, "aux": aux, "z": zsq}
 
     return loss_fn
 
 
-def make_compute_grads(model: Model, tcfg: TrainConfig):
+def make_compute_grads(model: Model, tcfg: TrainConfig,
+                       rt: Runtime | None = None):
     """Returns ``compute_grads(params, batch) -> (grads, metrics)``: the
     loss's gradients (f32 for f32 parameters, a tree like ``params``) and
     its metrics, as detached 0-d tensors.  With ``microbatch > 1`` the batch
     is split on its leading axis, and gradients and metrics are the mean
     over the slices (summed in f32, then divided)."""
-    loss_fn = make_loss_fn(model, tcfg)
+    loss_fn = make_loss_fn(model, tcfg, rt)
 
     def grad_fn(params, batch):
         live = []           # the leaves, in tree_map's order
@@ -134,7 +144,8 @@ def make_compute_grads(model: Model, tcfg: TrainConfig):
     return compute_grads
 
 
-def make_train_step(model: Model, tcfg: TrainConfig):
+def make_train_step(model: Model, tcfg: TrainConfig,
+                    rt: Runtime | None = None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``state`` = ``{"params", "opt", "step"}``; the parameters and moments
@@ -143,11 +154,17 @@ def make_train_step(model: Model, tcfg: TrainConfig):
     loss, nll, aux, z, lr and grad_norm, as 0-d device tensors (reading
     them syncs with the device).
     """
-    compute_grads = make_compute_grads(model, tcfg)
+    rt = rt or DEFAULT
+    compute_grads = make_compute_grads(model, tcfg, rt)
 
     def train_step(state, batch):
         params = state["params"]
         grads, metrics = compute_grads(params, batch)
+        if rt.grad_specs is not None:
+            # the gradients pinned to the parameters' layout (the
+            # reference's reduce-scatter hint): no value changes
+            grads = opt.tree_map(lambda g, sh: rt.wsc(g, sh.spec), grads,
+                                 rt.grad_specs)
         params, opt_state, om = opt.apply_opt(grads, state["opt"], params,
                                               tcfg.optimizer)
         metrics.update(om)
@@ -172,12 +189,6 @@ def abstract_train_state(model: Model, tcfg: TrainConfig,
                          param_dtype=None) -> dict:
     """The train state's tree on the ``meta`` device: shapes and dtypes,
     nothing allocated (a restore template at any width)."""
-    def rec(tree):
-        if is_spec(tree):
-            return torch.empty(tree.shape, dtype=param_dtype or tree.dtype,
-                               device="meta")
-        return {k: rec(v) for k, v in tree.items()}
-
-    params = rec(model.specs())
+    params = model.abstract(param_dtype)
     return {"params": params, "opt": opt.init_opt(params, tcfg.optimizer),
             "step": torch.zeros((), dtype=torch.int32, device="meta")}

@@ -12,8 +12,14 @@
 
 The state stays on the device between steps: only logged steps read their
 metrics (and so wait for the device), and a checkpoint copies the state to
-the host.  The reference's mesh and state shardings (elastic restore onto
-another mesh) return with the distributed slice.
+the host.
+
+``rt`` is the model's mesh context (``models.transformer.Runtime``);
+``mesh`` (a virtual ``launch.mesh.Mesh``) splits each batch over its data
+axis (``data.pipeline.shard_batch``, which raises where the batch does
+not divide); ``state_shardings`` (a Sharding tree like the state) is the
+layout a fresh or restored state is placed in (the reference's elastic
+restore onto another mesh).  On one card neither changes a value.
 """
 from __future__ import annotations
 
@@ -26,9 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.data.pipeline import DataConfig, RingPrefetcher
+from repro_torch.data.pipeline import DataConfig, RingPrefetcher, shard_batch
+from repro_torch.distributed.sharding import check_layout
 from repro_torch.kernels import dispatch
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import Runtime
 from repro_torch.obs import spans as obs_spans
 from repro_torch.train import step as step_lib
 
@@ -46,6 +54,8 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, model: Model, tcfg: step_lib.TrainConfig,
                  dcfg: DataConfig, run_cfg: TrainerConfig,
+                 rt: Runtime | None = None, mesh=None,
+                 state_shardings=None,
                  tracer: obs_spans.Tracer | None = None, device=None):
         self.model = model
         # a disabled (NULL) tracer still times the step for the straggler
@@ -55,8 +65,11 @@ class Trainer:
         self.dcfg = dcfg
         self.cfg = run_cfg
         self.device = dispatch.resolve_device(device)
+        self.rt = rt or Runtime(mesh=mesh)
+        self.mesh = mesh
+        self.state_shardings = state_shardings
         self.ckpt = Checkpointer(run_cfg.ckpt_dir)
-        self.train_step = step_lib.make_train_step(model, tcfg)
+        self.train_step = step_lib.make_train_step(model, tcfg, self.rt)
         self.step_times: list = []
         self.straggler_events = 0
 
@@ -67,11 +80,14 @@ class Trainer:
         latest = self.ckpt.latest_step()
         if latest is not None:
             template = step_lib.abstract_train_state(self.model, self.tcfg)
-            state = self.ckpt.restore(template, latest, device=self.device)
+            state = self.ckpt.restore(template, latest, device=self.device,
+                                      shardings=self.state_shardings)
             return state, int(state["step"])
         state = step_lib.init_train_state(
             self.model, torch.Generator().manual_seed(seed), self.tcfg,
             self.device)
+        if self.state_shardings is not None:
+            check_layout(state, self.state_shardings)
         return state, 0
 
     # -- loop ---------------------------------------------------------------
@@ -88,8 +104,12 @@ class Trainer:
                     _, batch = data.next()
                     if extra_batch is not None:
                         batch.update(extra_batch(self.model.cfg, batch))
-                    batch = {k: v.to(self.device, non_blocking=True)
-                             for k, v in batch.items()}
+                    if self.mesh is not None:
+                        batch = shard_batch(batch, self.mesh,
+                                            device=self.device)
+                    else:
+                        batch = {k: v.to(self.device, non_blocking=True)
+                                 for k, v in batch.items()}
                     if (self.cfg.fail_at_step is not None
                             and i == self.cfg.fail_at_step):
                         raise RuntimeError("injected node failure")

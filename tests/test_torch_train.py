@@ -453,12 +453,16 @@ def test_train_cli_on_cpu_writes_a_reference_checkpoint(tmp_path, caplog):
         assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2x4"],
-                                  ["--fake-devices", "8"]])
-def test_train_cli_distributed_flags_raise(flag):
-    with pytest.raises(ValueError, match="item 12 part 7"):
+@pytest.mark.parametrize("flag", [["--mesh", "2x4", "--fake-devices", "4"],
+                                  ["--mesh", "3x4", "--fake-devices", "12"]])
+def test_train_cli_distributed_flags_raise(flag, tmp_path):
+    """The mesh flags raise where the reference would: a forced device
+    count that is not the mesh's size, a data axis (3) that does not
+    divide the batch (8)."""
+    with pytest.raises(ValueError, match="fake-devices|does not divide"):
         train_cli.main(["--arch", "minicpm_2b", "--reduced", "--device",
-                        "cpu", *flag])
+                        "cpu", "--steps", "1", "--ckpt-dir", str(tmp_path),
+                        "--quiet", *flag])
 
 
 def test_train_cli_default_device_needs_a_card(tmp_path):
