@@ -97,10 +97,11 @@ class RingPrefetcher:
 
 
 def shard_batch(batch: dict, mesh, batch_axes=("data",), device=None):
-    """Place a host batch on the device (``None`` is CUDA), its leading
-    (batch) dimension split over ``batch_axes`` of the virtual ``mesh``.
-    Raises ``ValueError`` where the reference's ``device_put`` would: a
-    batch the data axes do not divide.  Changes no value."""
+    """Place a host batch whole on the device (``None`` is CUDA).  The
+    reference splits its leading (batch) dimension over ``batch_axes``;
+    on the virtual ``mesh`` nothing is split, and only the division is
+    checked: ``ValueError`` where the reference's ``device_put`` would
+    raise, a batch the data axes do not divide.  Changes no value."""
     from repro_torch.kernels import dispatch
     n = mesh.axis_size(tuple(batch_axes))
     for k, v in batch.items():

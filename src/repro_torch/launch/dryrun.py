@@ -31,7 +31,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import time
@@ -67,11 +66,12 @@ def train_policy(cfg: ModelConfig):
 
 def make_runtime(mesh: Mesh, *, train: bool, moe_impl: str = "local",
                  seq_axis=None, split_kv: bool = False) -> Runtime:
+    """The reference's cell runtime.  ``remat`` is left to the train
+    step, which sets it from ``TrainConfig.remat``."""
     return Runtime(
         mesh=mesh,
         batch_axes=batch_axes(mesh),
         moe_impl=moe_impl,
-        remat=train,
         seq_axis=("model" if train else None) if seq_axis is None
         else seq_axis,
         split_kv_axis="model" if split_kv else None,
@@ -156,14 +156,11 @@ def _meta_caches(model, shape: ShapeConfig):
 # ---------------------------------------------------------------------------
 
 def build_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
-                     moe_impl: str = "local", seq_axis=None,
-                     grad_rs: bool = False):
+                     moe_impl: str = "local", seq_axis=None):
     model = build(cfg)
     tcfg, pdtype = train_policy(cfg)
     rt = make_runtime(mesh, train=True, moe_impl=moe_impl, seq_axis=seq_axis)
     pspecs = shd.param_shardings(model.specs(), mesh)
-    if grad_rs:
-        rt = dataclasses.replace(rt, grad_specs=pspecs)
     train_step = step_lib.make_train_step(model, tcfg, rt)
     state_abs = step_lib.abstract_train_state(model, tcfg, pdtype)
     # moments / master share the parameter tree's shardings leaf for leaf
@@ -255,16 +252,20 @@ def count_flops(fn, args) -> int:
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
              moe_impl: str = "local", seq_axis=None, verbose: bool = True,
              serve_rules: bool = False, split_kv: bool = False,
-             grad_rs: bool = False, shape: ShapeConfig | None = None,
+             shape: ShapeConfig | None = None,
              mesh: Mesh | None = None, cfg: ModelConfig | None = None):
-    """One cell's report (a dict; ``status`` ok or skipped).  ``shape``,
-    ``mesh`` and ``cfg`` override the named shape, the production mesh
-    and the architecture's config (e.g. a cut depth)."""
+    """One cell's report (a dict; ``status`` ok or skipped).
+    ``serve_rules``: prefill and decode cells lay their parameters out by
+    ``SERVE_RULES`` (resident weights, ``embed`` unsplit), recorded as the
+    report's ``rules``.  ``shape``, ``mesh`` and ``cfg`` override the
+    named shape, the production mesh and the architecture's config (e.g. a
+    cut depth)."""
     cfg = cfg or get_config(arch)
     shape = shape or SHAPES[shape_name]
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     report = {"arch": arch, "shape": shape.name, "mesh": str(mesh),
-              "moe_impl": moe_impl}
+              "moe_impl": moe_impl,
+              "rules": "serve" if serve_rules else "default"}
     skip = cell_skip_reason(cfg, shape)
     if skip:
         report["status"] = "skipped"
@@ -280,7 +281,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         moe_impl = "local"
     if shape.kind == "train":
         fn, args, shardings, model = build_train_cell(
-            cfg, shape, mesh, moe_impl, seq_axis, grad_rs=grad_rs)
+            cfg, shape, mesh, moe_impl, seq_axis)
     elif shape.kind == "prefill":
         fn, args, shardings, model = build_prefill_cell(
             cfg, shape, mesh, moe_impl, rules)
@@ -324,11 +325,10 @@ def main(argv=None) -> int:
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--moe-impl", default="local")
     ap.add_argument("--serve-rules", action="store_true",
-                    help="resident-weight inference sharding")
+                    help="resident-weight inference sharding (prefill and "
+                         "decode cells)")
     ap.add_argument("--split-kv", action="store_true",
                     help="flash-decoding over the sequence-split cache")
-    ap.add_argument("--grad-rs", action="store_true",
-                    help="constrain gradients to the parameter sharding")
     ap.add_argument("--out", default=None)
     obs_log.add_log_args(ap)
     args = ap.parse_args(argv)
@@ -347,8 +347,7 @@ def main(argv=None) -> int:
                 reports.append(run_cell(a, s, multi_pod=mp,
                                         moe_impl=args.moe_impl,
                                         serve_rules=args.serve_rules,
-                                        split_kv=args.split_kv,
-                                        grad_rs=args.grad_rs))
+                                        split_kv=args.split_kv))
             except Exception as e:                       # noqa: BLE001
                 traceback.print_exc()
                 reports.append({"arch": a, "shape": s,

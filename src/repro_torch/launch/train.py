@@ -5,19 +5,24 @@ One process, one device: the trainer runs on the card (``cuda``) unless
 data is ``data.pipeline.synthetic_batch`` behind the prefetcher.
 
 ``--mesh DxM`` trains under a (data, model) mesh, as the reference builds
-it: ``Runtime(mesh, batch_axes, moe_impl, remat=True)``, each batch split
-over the data axis.  On one card the mesh is virtual (``launch.mesh``):
-its axes become leading tensor dimensions where a path reads them
-(``--moe-impl bucket``: the sharded bucket dispatch over the model axis),
-and the losses equal the mesh-free run's.  ``--fake-devices N`` (the
-reference's forced host device count) must equal the mesh's size; on one
-card it forces nothing.
+it: ``Runtime(mesh, batch_axes, moe_impl)``, with the per-layer recompute
+on (``TrainConfig.remat``, set by the train step).  On one card the mesh
+is virtual (``launch.mesh``): each batch is checked to divide over the
+data axis and placed whole on the device, and only a path that reads a
+mesh axis changes what runs.  Of the launcher's runtime that is
+``--moe-impl bucket``: the sharded bucket dispatch over the model axis,
+each EP rank holding all of the batch's tokens.  A dense model reads no
+axis and trains as without a mesh.  ``--fake-devices N`` (the reference's
+forced host device count) must equal the mesh's size; on one card it
+forces nothing.
 Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \\
       --reduced --steps 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_32b \\
       --reduced --steps 4 --mesh 2x4 --fake-devices 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek_moe_16b \
+      --reduced --steps 4 --mesh 1x4 --moe-impl bucket --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm-2b \\
       --steps 8 --batch 2 --seq 4096 --lr 1e-3
 """
@@ -53,8 +58,8 @@ def build_trainer(cfg, *, steps: int, batch: int, seq: int,
     warmup of a tenth of the steps (at least 1) into ``schedule``,
     ``synthetic_batch`` data of ``batch`` x ``seq`` tokens, a log line
     every tenth of the steps, on ``device`` (``None`` is CUDA); with a
-    ``mesh``, the reference's ``Runtime(mesh, batch_axes, moe_impl,
-    remat=True)``."""
+    ``mesh``, the reference's ``Runtime(mesh, batch_axes, moe_impl)``
+    (its ``remat`` is the train step's, from ``TrainConfig.remat``)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.mesh import batch_axes
     from repro_torch.models import build
@@ -71,8 +76,7 @@ def build_trainer(cfg, *, steps: int, batch: int, seq: int,
     )
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
     rt = Runtime() if mesh is None else Runtime(
-        mesh=mesh, batch_axes=batch_axes(mesh), moe_impl=moe_impl,
-        remat=True)
+        mesh=mesh, batch_axes=batch_axes(mesh), moe_impl=moe_impl)
     return Trainer(build(cfg), tcfg, dcfg,
                    TrainerConfig(steps=steps, ckpt_dir=ckpt_dir,
                                  ckpt_every=ckpt_every,

@@ -52,7 +52,9 @@ class Runtime:
     batch_axes: tuple = ("data",)       # mesh axes the batch is split over
     model_axis: str = "model"
     moe_impl: str = "local"             # local | bucket
-    remat: bool = False                 # per-layer recompute under autograd
+    remat: bool = False                 # per-layer recompute under autograd;
+                                        # the train step sets it from
+                                        # TrainConfig.remat
     attn_chunk: int = 1024              # KV chunk of prefill attention
     logits_chunk: int = 512             # sequence chunk of the loss
     seq_axis: Any = None                # sequence parallelism: the residual

@@ -15,9 +15,10 @@ metrics (and so wait for the device), and a checkpoint copies the state to
 the host.
 
 ``rt`` is the model's mesh context (``models.transformer.Runtime``);
-``mesh`` (a virtual ``launch.mesh.Mesh``) splits each batch over its data
-axis (``data.pipeline.shard_batch``, which raises where the batch does
-not divide); ``state_shardings`` (a Sharding tree like the state) is the
+``mesh`` (a virtual ``launch.mesh.Mesh``) checks that each batch divides
+over its data axis and places it whole on the device
+(``data.pipeline.shard_batch``; the reference splits it there);
+``state_shardings`` (a Sharding tree like the state) is the
 layout a fresh or restored state is placed in (the reference's elastic
 restore onto another mesh).  On one card neither changes a value.
 """

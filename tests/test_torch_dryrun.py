@@ -9,7 +9,10 @@
   ``shd.bytes_per_device`` of its own abstract arguments and shardings,
   without compiling; the port builds the same cell on ``meta`` tensors and
   its per-device state bytes equal the reference's.  Its counted FLOPs
-  are > 0; the ratio to the analytic count is printed.
+  are > 0; the ratio to the analytic count is printed.  The same
+  subprocess builds a decode cell of that model (8 x 512) under
+  ``SERVE_RULES`` and the default rules; the port's ``--serve-rules``
+  cell gives the reference's bytes under each.
 * Full-size cells on ``meta``: gemma2-9b decode_32k with split-KV on
   16x16, mamba2-2.7b long_500k (kernel E's plain version, counted on
   ``meta``), the skipped quadratic long_500k cell.
@@ -35,6 +38,7 @@ from repro_torch.launch import report  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 
 SMALL = ShapeConfig("train_small", 512, 8, "train")
+SMALL_DECODE = ShapeConfig("decode_small", 512, 8, "decode")
 
 REF_SCRIPT = r"""
 import dataclasses
@@ -50,15 +54,20 @@ mesh = jax.make_mesh((2, 4), ("data", "model"),
 cfg = dataclasses.replace(get_config("qwen3_32b"), n_layers=2)
 shape = ShapeConfig("train_small", 512, 8, "train")
 fn, args, shardings, model = dr.build_train_cell(cfg, shape, mesh)
-print("BYTES", shd.bytes_per_device(args, shardings))
+print("BYTES train", shd.bytes_per_device(args, shardings))
+shape = ShapeConfig("decode_small", 512, 8, "decode")
+for name, rules in (("default", None), ("serve", shd.SERVE_RULES)):
+    fn, args, shardings, model = dr.build_decode_cell(cfg, shape, mesh,
+                                                      rules=rules)
+    print("BYTES decode_" + name, shd.bytes_per_device(args, shardings))
 """
 
 
 @pytest.fixture(scope="module")
 def ref_bytes():
     out = run_md(REF_SCRIPT, n_devices=8, timeout=600)
-    return int(next(line.split()[1] for line in out.splitlines()
-                    if line.startswith("BYTES")))
+    return {line.split()[1]: int(line.split()[2])
+            for line in out.splitlines() if line.startswith("BYTES")}
 
 
 def test_small_mesh_dryrun_cell_matches_reference(ref_bytes):
@@ -66,14 +75,32 @@ def test_small_mesh_dryrun_cell_matches_reference(ref_bytes):
     r = dr.run_cell("qwen3_32b", SMALL.name, multi_pod=False, shape=SMALL,
                     mesh=make_test_mesh(2, 4), cfg=cfg, verbose=False)
     assert r["status"] == "ok" and r["chips"] == 8 and r["mesh"] == "2x4"
-    assert r["per_chip_state_bytes"] == ref_bytes
+    assert r["per_chip_state_bytes"] == ref_bytes["train"]
+    assert r["rules"] == "default"
     t = r["roofline"]
     assert r["flops_counted"] > 0
     assert t["flops"] == max(r["flops_counted"], t["model_flops"])
     assert t["coll_bytes"] is None and t["t_collective"] is None
-    assert t["hbm_bytes"] == ref_bytes and r["fits_hbm"]
+    assert t["hbm_bytes"] == ref_bytes["train"] and r["fits_hbm"]
     print(f"counted / analytic FLOPs per device: "
           f"{r['flops_counted'] / t['model_flops']:.3f}")
+
+
+def test_serve_rules_decode_cell_matches_reference(ref_bytes):
+    """``--serve-rules`` lays a decode cell's parameters out by
+    ``SERVE_RULES`` (``embed`` unsplit): the port's bytes per device equal
+    the reference's under both rule sets, and the two differ."""
+    cfg = dataclasses.replace(get_config("qwen3_32b"), n_layers=2)
+    got = {}
+    for name in ("default", "serve"):
+        r = dr.run_cell("qwen3_32b", SMALL_DECODE.name, multi_pod=False,
+                        shape=SMALL_DECODE, mesh=make_test_mesh(2, 4),
+                        cfg=cfg, serve_rules=name == "serve",
+                        verbose=False)
+        assert r["status"] == "ok" and r["rules"] == name
+        got[name] = r["per_chip_state_bytes"]
+        assert got[name] == ref_bytes["decode_" + name]
+    assert got["serve"] > got["default"]
 
 
 def test_full_size_cells_on_meta():
