@@ -114,7 +114,7 @@ Phases, each raising on failure (exit code != 0, no result line):
    metrics and both tenants; ms per served window, events/s and device
    functions per served window, instrumented and not;
 5i. kernel F's tenant form against both tenant loops, bit for bit on
-   every field and the stall lane, on the states of every 6th window of
+   every field and the stall lane, on the states of every 12th window of
    each of 5h's runs (without a mask also under an all-false mask against
    both loops); its time (CUDA graph) without and with the lane against
    its chain bound, and the loops' times;
@@ -240,10 +240,10 @@ Phases, each raising on failure (exit code != 0, no result line):
    d_model 2304, vocab 122,753; 2.725 B f32 parameters, AdamW, the WSD
    schedule at lr 1e-3 with warmup 1), built as ``launch/train.py``
    builds it: ``synthetic_batch`` through the prefetcher, 2 x 4,096
-   tokens a step (MiniCPM's context), 8 steps, no checkpoint: every
+   tokens a step (MiniCPM's context), 4 steps, no checkpoint: every
    step's loss and grad_norm finite, the last loss below the first, lr
    == the schedule's formula at 1e-6, 0 launches; ms a step (median of
-   steps 3-8, synchronised), tokens/s, peak memory and a torch.profiler
+   steps 3-4, synchronised), tokens/s, peak memory and a torch.profiler
    pass over one more step;
 7j. main path 12 -- mamba2-2.7b trained at full width the same way, 2 x
    2,048 tokens a step (Mamba-2's pretraining context), 4 steps: kernel
@@ -263,12 +263,29 @@ Phases, each raising on failure (exit code != 0, no result line):
    train_4k and gemma2-9b x decode_32k with split-KV on the 16x16 mesh:
    per-device GiB against 80 GB, counted against analytic FLOPs, the
    bottleneck (analytic: datasheet rates, nothing timed);
+7m. the user entry points (``repro_torch.examples``, ``repro_torch.tools``)
+   called as a user calls them: the microcircuit example at scale 0.2 on
+   ``alltoall extoll`` and ``torus3d ethernet`` (a 1x2x2 torus of the 4
+   shards; the network built once), each 25 windows after a 1-window
+   warm-up from seed-0 potentials and a drive drawn on the card, with 0
+   deadline misses and overflows, launches flush_window 25, lif_step 25,
+   wire_codec 26, ms a window, and every integer ``WindowStats`` /
+   ``LinkStats`` field of the first 3 windows equal to a CPU run of the
+   entry point from the same state and drive; the quickstart (kernel A
+   once, G once; its buckets, bucket state and cycle outputs == the
+   CPU's); ``serve_lm`` (reduced gemma2, 10 requests, tokens/s);
+   ``train_100m`` at its defaults (200 steps of 8 x 256 tokens, checkpoints
+   under ``build/``; the loss falls; tokens/s, ms a step, peak memory);
+   the trace smoke into ``build/trace_smoke`` (exit 0; a tenant-form F,
+   an encode and a decode a served window);
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
    to 0 just before that path: A-C and F from main path 3, F and B also
    from main path 4's three runs, A-C and F from obs-sim's recorded runs
-   and F and B from obs-serve's instrumented run (the per-row placement 0:
-   it is on no path), D from the exchange,
+   and F and B from obs-serve's instrumented run, A-C from the entry
+   points' two microcircuit runs, A and G from the quickstart and F and B
+   from the trace smoke (the per-row placement 0: it is on no path), D
+   from the exchange,
    E's tensor-core kernel from main paths 2 and 12, E's FMA kernel from
    the f32 scan of phase 6, G's two forms from main path 5) and, last,
    the device JSON line.
@@ -277,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import statistics
 import subprocess
@@ -2084,8 +2102,9 @@ QOS_P99_BOUND = 4.0                # benchmarks/bench_serve.py:35
 SERVE_FAULT_START = 2              # link_fault(0, x+) from window 2
 # every how many windows of each main-path-4 run phase 5i checks the
 # admission state against both loops (they take ~0.3-0.4 s a call on the
-# card): 32-36 windows a run, spread over it and its drain
-SERVE_CAPTURE_EVERY = 6
+# card): 16-18 windows a run, spread over it and its drain (every 12th
+# keeps the script inside its time limit beside the entry-point phase)
+SERVE_CAPTURE_EVERY = 12
 
 
 def serve_engine(device, hot: bool, fault: bool = False, recorder=None,
@@ -4275,7 +4294,7 @@ MINICPM_ARCH = "minicpm-2b"
 # the reference's init (std 1, no input scale) gives logits of std
 # sqrt(2560) ~ 51 (loss ~300 at step 1), and at 1e-3 the third step
 # overshot (a probe on the H100 read 314, 263, 491, 384)
-MINICPM_TRAIN = (2, 4096, 8, 1e-3)
+MINICPM_TRAIN = (2, 4096, 4, 1e-3)   # 4 steps: the time limit
 MAMBA_TRAIN = (2, 2048, 4, 1e-4)
 
 
@@ -5123,6 +5142,217 @@ def run_dryrun(smi: str):
             raise AssertionError(f"dry-run cell {arch} x {shape}: {r}")
 
 
+
+# ---------------------------------------------------------------------------
+# The user entry points (``repro_torch.examples``, ``repro_torch.tools``),
+# each called as a user calls it, on the card.
+# ---------------------------------------------------------------------------
+
+ENTRY_CASES = (("alltoall", "extoll"), ("torus3d", "ethernet"))
+ENTRY_CHECK_WINDOWS = 3           # windows of each card run held to the CPU
+TRAIN_100M_CKPT = ROOT / "build" / "train_100m_ckpt"
+TRACE_SMOKE_DIR = ROOT / "build" / "trace_smoke"
+
+
+def quiet(fn):
+    """``fn()`` with its standard output dropped (warm-ups, CPU twins)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def run_entry_microcircuit(smi: str) -> dict:
+    """The microcircuit example at scale 0.2 on ``alltoall extoll`` and
+    ``torus3d ethernet`` (a 1x2x2 torus of the 4 shards): the network built
+    once for both; seed-0 potentials and a background drive drawn on the
+    card; a 1-window warm-up, then the 25-window run with its launches
+    counted (flush_window 25, lif_step 25, wire_codec 26: a decode per
+    exchange and the final flush's); every integer ``WindowStats`` /
+    ``LinkStats`` field of its first 3 windows equal to a CPU run of the
+    entry point from the same state and drive (latency at rtol 1e-6).
+    Returns the launches of the two runs, summed."""
+    from repro_torch.convert import flatten
+    from repro_torch.core import events as ev
+    from repro_torch.examples import multiwafer_microcircuit as ex
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import lif
+    from repro_torch.snn import simulator as sim
+    t0 = time.perf_counter()
+    net = ex.build_network(SCALE)
+    part, S = net.part, ex.N_SHARDS
+    per = part.per_shard
+    if per * part.fanout.shape[1] > ev.ADDR_MASK + 1:
+        raise AssertionError("event addresses exceed the 14-bit field")
+    print(f"the network at scale {SCALE}, built on the host once for both "
+          f"transports in {time.perf_counter() - t0:.1f} s")
+    rates = net.spec.bg_rates()
+    bg = torch.from_numpy(np.pad(rates, (0, part.n_neurons - len(rates)))
+                          .reshape(S, per).astype(np.float32)).cuda()
+    want = {"flush_window": ex.N_WINDOWS, "lif_step": ex.N_WINDOWS,
+            "wire_codec": ex.N_WINDOWS + 1}
+    total = {}
+    for transport, fmt in ENTRY_CASES:
+        cfg = ex.sim_config(net, transport, fmt)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ring = torch.zeros((cfg.ring_len, S, per), dtype=torch.float32,
+                           device="cuda")
+        state = sim.ShardState(
+            lif.init_state((S, per), cfg.params, generator=gen,
+                           device="cuda"), ring, ring.clone(),
+            torch.zeros((S,), dtype=torch.int32, device="cuda"))
+        drive = lif.poisson_input(
+            bg.expand((ex.N_WINDOWS, cfg.window, S, per)), 87.8,
+            cfg.params.dt, generator=gen)
+        cpu_state = sim.ShardState(*(tree_to(x, "cpu") for x in state[:4]))
+        cpu_drive = drive.cpu()
+        quiet(lambda: ex.main(transport, fmt, net=net, state=state,
+                              drive=drive[:1], n_windows=1, device="cuda"))
+        print(f"\n$ python -m repro_torch.examples.multiwafer_microcircuit "
+              f"{transport} {fmt} --scale {SCALE}  [{smi}; seed-0 state "
+              f"and a drive drawn on the card, after a 1-window warm-up]")
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        card = ex.main(transport, fmt, net=net, state=state, drive=drive,
+                       device="cuda")
+        launches = dict(dispatch.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"{transport} {fmt}: launches {launches} "
+                                 f"!= {want}")
+        if int(card.stats.overflow.sum()) != 0:
+            raise AssertionError(f"{transport} {fmt}: bucket overflows")
+        cpu = quiet(lambda: ex.main(
+            transport, fmt, net=net, state=cpu_state,
+            drive=cpu_drive[:ENTRY_CHECK_WINDOWS],
+            n_windows=ENTRY_CHECK_WINDOWS, device="cpu"))
+        got, ref = flatten(card.stats), flatten(cpu.stats)
+        n_int = 0
+        for key, a in ref.items():
+            b = got[key][:, :ENTRY_CHECK_WINDOWS]
+            if a.dtype.kind == "f":
+                np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=key)
+            elif b.shape != a.shape or not (a == b).all():
+                raise AssertionError(f"{transport} {fmt}: {key} card != CPU "
+                                     f"in the first {ENTRY_CHECK_WINDOWS} "
+                                     f"windows")
+            else:
+                n_int += 1
+        ms = card.wall_s * 1e3 / ex.N_WINDOWS
+        print(f"entry point {transport} {fmt} at scale {SCALE} [{smi}]: "
+              f"{ms:.3f} ms a window (25 windows and the final flush, host "
+              f"clock, synchronised); launches {launches}; {n_int} integer "
+              f"WindowStats / LinkStats fields of the first "
+              f"{ENTRY_CHECK_WINDOWS} windows card == CPU; "
+              f"{int(ref['spikes'].sum())} spikes in them")
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+    return total
+
+
+def run_entry_quickstart(smi: str) -> dict:
+    """The quickstart on the card: kernel A once (the aggregation) and G
+    once (the cycle model), nothing else; its buckets, final bucket state
+    and every cycle output equal to the CPU's on the same draws."""
+    from repro_torch.examples import quickstart as qs
+    from repro_torch.kernels import dispatch
+    print(f"\n$ python -m repro_torch.examples.quickstart  [{smi}]")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    (buckets, (st, out)), _, losses = qs.main(device="cuda")
+    launches = dict(dispatch.LAUNCHES)
+    want = {"flush_window": 1, "bucket_trace": 1}
+    if launches != want:
+        raise AssertionError(f"quickstart launches {launches} != {want}")
+    cpu_buckets, (cpu_st, cpu_out) = quiet(
+        lambda: qs.spike_aggregation_demo(device="cpu"))
+    for what, a, b in (("buckets", buckets, cpu_buckets),
+                       ("bucket state", st, cpu_st),
+                       ("cycle outputs", out, cpu_out)):
+        require_equal(f"quickstart {what} card vs CPU",
+                      [(x.cpu(), y) for x, y in zip(a, b)])
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"quickstart: the tiny LM's loss {losses}")
+    print(f"quickstart: launches {launches}; buckets, bucket state and "
+          f"cycle outputs card == CPU bit for bit; the tiny LM's loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}")
+    return launches
+
+
+def run_entry_serve_lm(smi: str) -> None:
+    """serve_lm twice (the first call warms the allocator and cuBLAS; the
+    second's tokens/s is the one to read): the same tokens both times, no
+    kernel launched (the dense family is plain PyTorch)."""
+    from repro_torch.examples import serve_lm
+    from repro_torch.kernels import dispatch
+    print(f"\n$ python -m repro_torch.examples.serve_lm  [{smi}; the "
+          f"second of two calls]")
+    first = quiet(lambda: serve_lm.main(device="cuda"))
+    dispatch.reset_launches()
+    out = serve_lm.main(device="cuda")
+    if dispatch.LAUNCHES:
+        raise AssertionError(f"serve_lm launched {dispatch.LAUNCHES}")
+    if sorted(out) != list(range(serve_lm.N_REQUESTS)) or any(
+            not np.array_equal(out[r], first[r]) for r in out):
+        raise AssertionError("serve_lm: the two calls' tokens differ")
+
+
+def run_entry_train_100m(smi: str) -> None:
+    """train_100m at its defaults (200 steps of 8 x 256 tokens, WSD,
+    checkpoints every 50 under ``build/``), from an empty checkpoint
+    directory: the entry point asserts that the loss falls; no kernel
+    launched."""
+    import shutil
+    from repro_torch.examples import train_100m
+    from repro_torch.kernels import dispatch
+    shutil.rmtree(TRAIN_100M_CKPT, ignore_errors=True)   # nothing to resume
+    print(f"\n$ python -m repro_torch.examples.train_100m --ckpt-dir "
+          f"build/train_100m_ckpt  [{smi}]")
+    dispatch.reset_launches()
+    history = train_100m.main(["--ckpt-dir", str(TRAIN_100M_CKPT)])
+    if dispatch.LAUNCHES:
+        raise AssertionError(f"train_100m launched {dispatch.LAUNCHES}")
+    if not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError("train_100m: a logged loss is not finite")
+    shutil.rmtree(TRAIN_100M_CKPT, ignore_errors=True)
+
+
+def run_entry_trace_smoke(smi: str) -> dict:
+    """The trace smoke into ``build/trace_smoke``: it exits 0 (a failure
+    raises ``SystemExit`` with its reasons), and the engine's launches are
+    one tenant-form F, one encode and one decode a window (the warm-up's
+    segment and the drain segments included; each of the two walks, the
+    warm-up's and the final one, adds an encode and two decodes)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.tools import trace_smoke
+    print(f"\n$ python -m repro_torch.tools.trace_smoke --out-dir "
+          f"build/trace_smoke  [{smi}]")
+    dispatch.reset_launches()
+    if trace_smoke.main(["--out-dir", str(TRACE_SMOKE_DIR)]) != 0:
+        raise AssertionError("trace smoke failed")
+    launches, entries = dict(dispatch.LAUNCHES), dict(dispatch.ENTRY_LAUNCHES)
+    meta = json.loads((TRACE_SMOKE_DIR / "meta.json").read_text())
+    n = meta["seg_windows"] + meta["windows"] + meta["drain_windows"]
+    want = {"repro_admission_tenants": n, "repro_wire_encode": n + 2,
+            "repro_wire_decode": n + 4}
+    if entries != want:
+        raise AssertionError(f"trace smoke: launches {entries} != {want}")
+    print(f"trace smoke: launches {entries}")
+    return launches
+
+
+def run_entry_points(smi: str) -> dict:
+    """The phase of the user entry points; returns their kernel launches,
+    summed."""
+    t0 = time.perf_counter()
+    total = run_entry_microcircuit(smi)
+    for counts in (run_entry_quickstart(smi), run_entry_trace_smoke(smi)):
+        for name, count in counts.items():
+            total[name] = total.get(name, 0) + count
+    run_entry_serve_lm(smi)
+    run_entry_train_100m(smi)
+    print(f"\nthe entry-point phase took {time.perf_counter() - t0:.1f} s; "
+          f"launches {total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -5315,6 +5545,10 @@ def main() -> int:
     banner("dry run on meta at the production mesh")
     run_dryrun(smi.splitlines()[0])
 
+    torch.cuda.empty_cache()
+    banner("the user entry points: the examples and the trace smoke")
+    entry_launches = run_entry_points(smi.splitlines()[0])
+
     # each kernel's launches from the path of this slice that runs it (E's
     # tensor-core route on main path 2, serving, and main path 12,
     # training)
@@ -5327,12 +5561,15 @@ def main() -> int:
     # F and B also run on main path 4 (its three runs), and A, B, C and F
     # on the observability phases (obs-sim's recorded runs, obs-serve's
     # instrumented run)
-    for counts in (serve_launches, obs_launches):
+    # and A, B, C, F and G on the entry points' phase (the microcircuit
+    # example, the quickstart, the trace smoke)
+    for counts in (serve_launches, obs_launches, entry_launches):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     paths["spike serving (3 runs)"] = serve_launches
     paths["observability (obs-sim recorded, obs-serve instrumented)"] = \
         obs_launches
+    paths["the user entry points"] = entry_launches
     for path, counts in paths.items():
         print(f"launches on {path}: {counts}")
 

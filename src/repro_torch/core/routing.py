@@ -17,6 +17,8 @@ import torch
 from repro_torch.core import events as ev
 from repro_torch.kernels import dispatch
 
+DEST_BITS = 16          # Extoll: 16-bit destination address in the header
+MAX_DESTS = 1 << DEST_BITS
 NO_ROUTE = -1
 
 

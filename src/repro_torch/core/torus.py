@@ -17,6 +17,16 @@ import itertools
 
 import numpy as np
 
+# paper constants
+FPGAS_PER_WAFER = 48
+CONCENTRATORS_PER_WAFER = 8
+FPGAS_PER_CONCENTRATOR = 6
+HICANNS_PER_FPGA = 8
+LANES_PER_LINK = 12
+GBIT_PER_LANE = 8.4
+LINK_GBYTES = LANES_PER_LINK * GBIT_PER_LANE / 8.0   # 12.6 GB/s per link
+LINKS_PER_NODE = 7                                    # Tourmalet: 7 links
+
 
 @dataclasses.dataclass(frozen=True)
 class Torus:

@@ -208,3 +208,28 @@ def test_convert_partition_and_stacked_tables():
     for key, want in ref.items():
         assert (getattr(got, key) == getattr(own, key)).all(), key
         assert back[key].dtype == want.dtype and (back[key] == want).all()
+
+
+PAPER_CONSTANTS = (("torus", "FPGAS_PER_WAFER", 48),
+                   ("torus", "CONCENTRATORS_PER_WAFER", 8),
+                   ("torus", "FPGAS_PER_CONCENTRATOR", 6),
+                   ("torus", "HICANNS_PER_FPGA", 8),
+                   ("torus", "LANES_PER_LINK", 12),
+                   ("torus", "GBIT_PER_LANE", 8.4),
+                   ("torus", "LINK_GBYTES", 12.6),
+                   ("torus", "LINKS_PER_NODE", 7),
+                   ("routing", "DEST_BITS", 16),
+                   ("routing", "MAX_DESTS", 1 << 16))
+
+
+@pytest.mark.parametrize("module,name,paper", PAPER_CONSTANTS)
+def test_paper_constants_equal_reference(module, name, paper):
+    """The paper's hardware constants (``tests/test_core.py``'s
+    ``test_wafer_topology_paper_constants``): the port's own copies equal
+    the reference's and the paper's."""
+    import importlib
+    ref = getattr(importlib.import_module(f"repro.core.{module}"), name)
+    got = getattr(importlib.import_module(f"repro_torch.core.{module}"),
+                  name)
+    assert type(got) is type(ref) and got == ref, (name, got, ref)
+    assert abs(got - paper) < 1e-9, (name, got)
