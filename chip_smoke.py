@@ -36,13 +36,17 @@ Phases, each raising on failure (exit code != 0, no result line):
 5. main path 1 -- the Potjans-Diesmann microcircuit at scale 0.2 (15,431
    neurons, the largest round scale whose addresses fit the 14-bit event
    field) on 4 wafer shards, transport alltoall, wire format extoll, for
-   25 windows (20 ms biological) with launch counts (the flush window and
-   the LIF window once a window, the codec's decode once an exchange,
-   the per-row placement never),
-   deadline, residue and link-conservation checks, and the summary of
-   ``examples/multiwafer_microcircuit.py``; then a torch.profiler pass
+   25 windows (20 ms biological), run through the microcircuit example's
+   ``main`` (``repro_torch.examples.multiwafer_microcircuit``, which
+   prints the reference example's summary) after a 1-window warm-up, from
+   seed-0 potentials and a drive drawn on the card; launch counts (the
+   flush window and the LIF window once a window, the codec's decode once
+   an exchange, the per-row placement never), deadline, overflow, residue
+   and link-conservation checks, every integer ``WindowStats`` /
+   ``LinkStats`` field of the first 3 windows equal to a CPU run of the
+   example from the same state and drive; then a torch.profiler pass
    over 5 more windows for the device busy share and device functions
-   per window;
+   per window; the network is kept for phase 7m;
 5a. the exchange -- ``make_exchange`` at S 8, N 4096, C 256 on the tables
    of ``benchmarks/bench_transport.py`` for alltoall, torus2d 2x4 and
    torus3d 2x2x2, with link credits 512 and without, the onehot and sort
@@ -114,7 +118,7 @@ Phases, each raising on failure (exit code != 0, no result line):
    metrics and both tenants; ms per served window, events/s and device
    functions per served window, instrumented and not;
 5i. kernel F's tenant form against both tenant loops, bit for bit on
-   every field and the stall lane, on the states of every 12th window of
+   every field and the stall lane, on the states of every 6th window of
    each of 5h's runs (without a mask also under an all-false mask against
    both loops); its time (CUDA graph) without and with the lane against
    its chain bound, and the loops' times;
@@ -265,25 +269,29 @@ Phases, each raising on failure (exit code != 0, no result line):
    bottleneck (analytic: datasheet rates, nothing timed);
 7m. the user entry points (``repro_torch.examples``, ``repro_torch.tools``)
    called as a user calls them: the microcircuit example at scale 0.2 on
-   ``alltoall extoll`` and ``torus3d ethernet`` (a 1x2x2 torus of the 4
-   shards; the network built once), each 25 windows after a 1-window
-   warm-up from seed-0 potentials and a drive drawn on the card, with 0
-   deadline misses and overflows, launches flush_window 25, lif_step 25,
-   wire_codec 26, ms a window, and every integer ``WindowStats`` /
-   ``LinkStats`` field of the first 3 windows equal to a CPU run of the
-   entry point from the same state and drive; the quickstart (kernel A
+   ``torus3d ethernet`` (a 1x2x2 torus of the 4 shards; main path 1's
+   network, main path 1 being its ``alltoall extoll`` run), 25 windows
+   after a 1-window warm-up from seed-0 potentials and a drive drawn on
+   the card, with 0 deadline misses and overflows, launches flush_window
+   25, lif_step 25, wire_codec 26, ms a window, and every integer
+   ``WindowStats`` / ``LinkStats`` field of the first 3 windows equal to
+   a CPU run of the entry point from the same state and drive; the
+   quickstart (kernel A
    once, G once; its buckets, bucket state and cycle outputs == the
    CPU's); ``serve_lm`` (reduced gemma2, 10 requests, tokens/s);
    ``train_100m`` at its defaults (200 steps of 8 x 256 tokens, checkpoints
    under ``build/``; the loss falls; tokens/s, ms a step, peak memory);
    the trace smoke into ``build/trace_smoke`` (exit 0; a tenant-form F,
-   an encode and a decode a served window);
+   an encode and a decode a served window; the engine it served, 4
+   shards on 2x2x1, held to the same engine on the CPU on every report
+   integer, every ``WindowServeStats`` integer and the global and
+   per-shard recorder rows);
 8. the ``kernels`` lines (a summary, then one JSON object; each kernel's
    launches come from the path of this slice that runs it, its counts set
    to 0 just before that path: A-C and F from main path 3, F and B also
    from main path 4's three runs, A-C and F from obs-sim's recorded runs
-   and F and B from obs-serve's instrumented run, A-C from the entry
-   points' two microcircuit runs, A and G from the quickstart and F and B
+   and F and B from obs-serve's instrumented run, A-C from main path 1
+   and the entry points' torus run, A and G from the quickstart and F and B
    from the trace smoke (the per-row placement 0: it is on no path), D
    from the exchange,
    E's tensor-core kernel from main paths 2 and 12, E's FMA kernel from
@@ -1111,84 +1119,121 @@ def check_slice_small():
           f"integer stat; {spikes} spikes, {deferred} deferred events")
 
 
-def run_main_path():
-    from repro_torch.core import aggregator, events as ev
-    from repro_torch.kernels import dispatch
-    from repro_torch.snn import microcircuit as mc, network
+def quiet(fn):
+    """``fn()`` with its standard output dropped (warm-ups, CPU twins)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn()
+
+
+def entry_inputs(net, cfg):
+    """Seed-0 potentials and the background drive of ``N_WINDOWS`` windows
+    for the microcircuit example's ``net``, drawn on the card (the state
+    keeps the generator for runs without a drive), and their copies on the
+    CPU: (state, drive, cpu_state, cpu_drive)."""
+    from repro_torch.snn import lif
     from repro_torch.snn import simulator as sim
-    from repro_torch.wire import get_profile
+    part = net.part
+    S, per = part.n_shards, part.per_shard
+    rates = net.spec.bg_rates()
+    bg = torch.from_numpy(np.pad(rates, (0, part.n_neurons - len(rates)))
+                          .reshape(S, per).astype(np.float32)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ring = torch.zeros((cfg.ring_len, S, per), dtype=torch.float32,
+                       device="cuda")
+    state = sim.ShardState(
+        lif.init_state((S, per), cfg.params, generator=gen, device="cuda"),
+        ring, ring.clone(), torch.zeros((S,), dtype=torch.int32,
+                                        device="cuda"), gen)
+    drive = lif.poisson_input(bg.expand((N_WINDOWS, cfg.window, S, per)),
+                              87.8, cfg.params.dt, generator=gen)
+    cpu_state = sim.ShardState(*(tree_to(x, "cpu") for x in state[:4]))
+    return state, drive, cpu_state, drive.cpu()
+
+
+ENTRY_CHECK_WINDOWS = 3           # windows of each card run held to the CPU
+
+
+def check_entry_windows(card, net, transport, fmt, cpu_state,
+                        cpu_drive) -> tuple[int, int]:
+    """Every integer ``WindowStats`` / ``LinkStats`` field of the card
+    run's first ``ENTRY_CHECK_WINDOWS`` windows equal to a CPU run of the
+    microcircuit example from the same state and drive (floats at rtol
+    1e-6) -> (integer fields held, spikes in those windows)."""
+    from repro_torch.convert import flatten
+    from repro_torch.examples import multiwafer_microcircuit as ex
+    cpu = quiet(lambda: ex.main(
+        transport, fmt, net=net, state=cpu_state,
+        drive=cpu_drive[:ENTRY_CHECK_WINDOWS],
+        n_windows=ENTRY_CHECK_WINDOWS, device="cpu"))
+    got, ref = flatten(card.stats), flatten(cpu.stats)
+    n_int = 0
+    for key, a in ref.items():
+        b = got[key][:, :ENTRY_CHECK_WINDOWS]
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=key)
+        elif b.shape != a.shape or not (a == b).all():
+            raise AssertionError(f"{transport} {fmt}: {key} card != CPU in "
+                                 f"the first {ENTRY_CHECK_WINDOWS} windows")
+        else:
+            n_int += 1
+    return n_int, int(ref["spikes"].sum())
+
+
+def run_main_path(smi: str):
+    """Main path 1: the microcircuit example at scale 0.2 on ``alltoall
+    extoll``, called as a user calls it (``examples.multiwafer_microcircuit
+    .main``) after a 1-window warm-up, from seed-0 potentials and a drive
+    drawn on the card; its launches, checks, the first windows card ==
+    CPU and a profile.  Returns (launches, the network) so that the
+    entry-point phase reuses the network."""
+    from repro_torch.core import events as ev
+    from repro_torch.examples import multiwafer_microcircuit as ex
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import simulator as sim
 
     t0 = time.perf_counter()
-    spec = mc.MicrocircuitSpec(scale=SCALE)
-    w, is_inh = spec.weight_matrix()
-    print(f"microcircuit: {spec.n_neurons} neurons, {int((w != 0).sum())} "
-          f"synapses (scale={spec.scale})")
-    part = network.build_partition(w, is_inh, n_shards=N_SHARDS)
-    del w
-    print(f"partition: {N_SHARDS} wafer shards x {part.per_shard} neurons, "
-          f"max fan-out {part.fanout.shape[1]} shards/source")
+    net = ex.build_network(SCALE)
+    part = net.part
     if part.per_shard * part.fanout.shape[1] > ev.ADDR_MASK + 1:
         raise AssertionError("event addresses exceed the 14-bit field")
-    cfg = sim_config(part, e_max=1024, capacity=1024, residue=256)
-    init, run = sim.build_sharded_sim(cfg, part, spec.bg_rates(),
-                                      device="cuda")
-    state = init(seed=0)
-    run(state, 1)                     # warm-up (library handles, caches)
+    cfg = ex.sim_config(net)
+    state, drive, cpu_state, cpu_drive = entry_inputs(net, cfg)
+    quiet(lambda: ex.main(net=net, state=state, drive=drive[:1],
+                          n_windows=1, device="cuda"))     # warm-up
     torch.cuda.synchronize()
     print(f"set-up (network on the host, upload, warm-up): "
           f"{time.perf_counter() - t0:.1f} s")
 
+    print(f"\n$ python -m repro_torch.examples.multiwafer_microcircuit "
+          f"alltoall extoll --scale {SCALE}  [{smi}; seed-0 state and a "
+          f"drive drawn on the card]")
     torch.cuda.reset_peak_memory_stats()
     dispatch.reset_launches()
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    state, stats = run(state, N_WINDOWS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
+    res = ex.main(net=net, state=state, drive=drive, device="cuda")
     launches = dict(dispatch.LAUNCHES)
+    stats = res.stats
 
     s = {k: v.cpu().numpy() for k, v in (
         ("spikes", stats.spikes), ("sent", stats.events_sent),
-        ("wire", stats.wire_bytes), ("miss", stats.deadline_miss),
-        ("ovf", stats.overflow), ("off", stats.offered),
-        ("defr", stats.deferred))}
+        ("miss", stats.deadline_miss), ("ovf", stats.overflow),
+        ("off", stats.offered), ("defr", stats.deferred))}
     link = {k: getattr(stats.link, k).cpu().numpy() for k in (
-        "offered_events", "sent_events", "delivered_events",
-        "bytes_on_wire")}
-    bio_ms = N_WINDOWS * cfg.window * cfg.params.dt
-    total_spikes = int(s["spikes"].sum())
-    sent, wire_b = int(s["sent"].sum()), int(s["wire"].sum())
-    print(f"\nsimulated {bio_ms:.1f} ms: {total_spikes} spikes, mean rate "
-          f"{total_spikes / (spec.n_neurons * bio_ms * 1e-3):.1f} Hz")
-    print(f"events shipped (incl. fan-out replicas): {sent}")
-    print(f"Extoll wire bytes: {wire_b} ({wire_b / max(sent, 1):.1f} "
-          f"B/event effective)")
-    naive = int(aggregator.unaggregated_cost(sent).bytes)
-    print(f"without aggregation: {naive} bytes -> bucket aggregation saves "
-          f"{naive / max(wire_b, 1):.1f}x")
-    print(f"deadline misses: {int(s['miss'].sum())}   bucket overflows: "
-          f"{int(s['ovf'].sum())}")
-    fmt = get_profile(cfg.wire_format)
-    lat = stats.latency
-    p50 = float(lat.p50_us[:, 1:].mean())
-    print(f"wire profile '{fmt.name}': {int(link['bytes_on_wire'].sum())} "
-          f"bytes on wire (frame-exact; {fmt.header_bytes + fmt.crc_bytes} "
-          f"B/frame tax, {fmt.gap_bytes} B gap, {fmt.cell_bytes} B cells)")
-    print(f"event latency: p50 {p50:.2f} us (mean over windows), p99 "
-          f"{float(lat.p99_us.max()):.2f} us, max "
-          f"{float(lat.max_us.max()):.2f} us")
-    ms_window = wall * 1e3 / N_WINDOWS
-    print(f"{N_WINDOWS} windows in {wall * 1e3:.1f} ms: {ms_window:.3f} ms "
-          f"per window, {ms_window / (cfg.window * cfg.params.dt):.2f}x "
-          f"slower than biological time; peak device memory "
+        "offered_events", "sent_events", "delivered_events")}
+    ms_window = res.wall_s * 1e3 / N_WINDOWS
+    print(f"{N_WINDOWS} windows in {res.wall_s * 1e3:.1f} ms: "
+          f"{ms_window:.3f} ms per window, "
+          f"{ms_window / (cfg.window * cfg.params.dt):.2f}x slower than "
+          f"biological time; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     # --- checks ---------------------------------------------------------
-    if total_spikes <= 0:
+    if int(s["spikes"].sum()) <= 0:
         raise AssertionError("network is silent")
-    if int(s["miss"].sum()) != 0:
-        raise AssertionError("deadline misses on the main path")
-    if not np.isfinite(state.neuron.v.cpu().numpy()).all():
+    if int(s["miss"].sum()) != 0 or int(s["ovf"].sum()) != 0:
+        raise AssertionError("deadline misses or bucket overflows on the "
+                             "main path")
+    if not np.isfinite(res.state.neuron.v.cpu().numpy()).all():
         raise AssertionError("non-finite membrane potentials")
     off, snt, defr, drop = s["off"], s["sent"], s["defr"], s["ovf"]
     if not (off == snt + defr + drop).all():
@@ -1212,8 +1257,15 @@ def run_main_path():
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
     print(f"launches on the main path: {launches}")
-    window_functions(run, state, 5)
-    return launches
+    n_int, spikes = check_entry_windows(res, net, "alltoall", "extoll",
+                                        cpu_state, cpu_drive)
+    print(f"{n_int} integer WindowStats / LinkStats fields of the first "
+          f"{ENTRY_CHECK_WINDOWS} windows card == CPU ({spikes} spikes in "
+          f"them)")
+    _, run = sim.build_sharded_sim(cfg, part, net.spec.bg_rates(),
+                                   device="cuda")
+    window_functions(run, res.state, 5)
+    return launches, net
 
 
 def window_functions(run, state, n_windows: int,
@@ -2102,9 +2154,8 @@ QOS_P99_BOUND = 4.0                # benchmarks/bench_serve.py:35
 SERVE_FAULT_START = 2              # link_fault(0, x+) from window 2
 # every how many windows of each main-path-4 run phase 5i checks the
 # admission state against both loops (they take ~0.3-0.4 s a call on the
-# card): 16-18 windows a run, spread over it and its drain (every 12th
-# keeps the script inside its time limit beside the entry-point phase)
-SERVE_CAPTURE_EVERY = 12
+# card): 32-36 windows a run, spread over it and its drain
+SERVE_CAPTURE_EVERY = 6
 
 
 def serve_engine(device, hot: bool, fault: bool = False, recorder=None,
@@ -5148,103 +5199,51 @@ def run_dryrun(smi: str):
 # each called as a user calls it, on the card.
 # ---------------------------------------------------------------------------
 
-ENTRY_CASES = (("alltoall", "extoll"), ("torus3d", "ethernet"))
-ENTRY_CHECK_WINDOWS = 3           # windows of each card run held to the CPU
 TRAIN_100M_CKPT = ROOT / "build" / "train_100m_ckpt"
 TRACE_SMOKE_DIR = ROOT / "build" / "trace_smoke"
 
 
-def quiet(fn):
-    """``fn()`` with its standard output dropped (warm-ups, CPU twins)."""
-    with contextlib.redirect_stdout(io.StringIO()):
-        return fn()
-
-
-def run_entry_microcircuit(smi: str) -> dict:
-    """The microcircuit example at scale 0.2 on ``alltoall extoll`` and
-    ``torus3d ethernet`` (a 1x2x2 torus of the 4 shards): the network built
-    once for both; seed-0 potentials and a background drive drawn on the
-    card; a 1-window warm-up, then the 25-window run with its launches
-    counted (flush_window 25, lif_step 25, wire_codec 26: a decode per
-    exchange and the final flush's); every integer ``WindowStats`` /
-    ``LinkStats`` field of its first 3 windows equal to a CPU run of the
-    entry point from the same state and drive (latency at rtol 1e-6).
-    Returns the launches of the two runs, summed."""
-    from repro_torch.convert import flatten
-    from repro_torch.core import events as ev
+def run_entry_microcircuit(net, smi: str) -> dict:
+    """The microcircuit example at scale 0.2 on ``torus3d ethernet`` (a
+    1x2x2 torus of the 4 shards) on main path 1's network (main path 1 is
+    its ``alltoall extoll`` run): seed-0 potentials and a background drive
+    drawn on the card; a 1-window warm-up, then the 25-window run with its
+    launches counted (flush_window 25, lif_step 25, wire_codec 26: a
+    decode per exchange and the final flush's), 0 overflows, and the first
+    windows card == CPU.  Returns its launches."""
     from repro_torch.examples import multiwafer_microcircuit as ex
     from repro_torch.kernels import dispatch
-    from repro_torch.snn import lif
-    from repro_torch.snn import simulator as sim
-    t0 = time.perf_counter()
-    net = ex.build_network(SCALE)
-    part, S = net.part, ex.N_SHARDS
-    per = part.per_shard
-    if per * part.fanout.shape[1] > ev.ADDR_MASK + 1:
-        raise AssertionError("event addresses exceed the 14-bit field")
-    print(f"the network at scale {SCALE}, built on the host once for both "
-          f"transports in {time.perf_counter() - t0:.1f} s")
-    rates = net.spec.bg_rates()
-    bg = torch.from_numpy(np.pad(rates, (0, part.n_neurons - len(rates)))
-                          .reshape(S, per).astype(np.float32)).cuda()
-    want = {"flush_window": ex.N_WINDOWS, "lif_step": ex.N_WINDOWS,
-            "wire_codec": ex.N_WINDOWS + 1}
-    total = {}
-    for transport, fmt in ENTRY_CASES:
-        cfg = ex.sim_config(net, transport, fmt)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        ring = torch.zeros((cfg.ring_len, S, per), dtype=torch.float32,
-                           device="cuda")
-        state = sim.ShardState(
-            lif.init_state((S, per), cfg.params, generator=gen,
-                           device="cuda"), ring, ring.clone(),
-            torch.zeros((S,), dtype=torch.int32, device="cuda"))
-        drive = lif.poisson_input(
-            bg.expand((ex.N_WINDOWS, cfg.window, S, per)), 87.8,
-            cfg.params.dt, generator=gen)
-        cpu_state = sim.ShardState(*(tree_to(x, "cpu") for x in state[:4]))
-        cpu_drive = drive.cpu()
-        quiet(lambda: ex.main(transport, fmt, net=net, state=state,
-                              drive=drive[:1], n_windows=1, device="cuda"))
-        print(f"\n$ python -m repro_torch.examples.multiwafer_microcircuit "
-              f"{transport} {fmt} --scale {SCALE}  [{smi}; seed-0 state "
-              f"and a drive drawn on the card, after a 1-window warm-up]")
-        torch.cuda.synchronize()
-        dispatch.reset_launches()
-        card = ex.main(transport, fmt, net=net, state=state, drive=drive,
-                       device="cuda")
-        launches = dict(dispatch.LAUNCHES)
-        if launches != want:
-            raise AssertionError(f"{transport} {fmt}: launches {launches} "
-                                 f"!= {want}")
-        if int(card.stats.overflow.sum()) != 0:
-            raise AssertionError(f"{transport} {fmt}: bucket overflows")
-        cpu = quiet(lambda: ex.main(
-            transport, fmt, net=net, state=cpu_state,
-            drive=cpu_drive[:ENTRY_CHECK_WINDOWS],
-            n_windows=ENTRY_CHECK_WINDOWS, device="cpu"))
-        got, ref = flatten(card.stats), flatten(cpu.stats)
-        n_int = 0
-        for key, a in ref.items():
-            b = got[key][:, :ENTRY_CHECK_WINDOWS]
-            if a.dtype.kind == "f":
-                np.testing.assert_allclose(b, a, rtol=1e-6, err_msg=key)
-            elif b.shape != a.shape or not (a == b).all():
-                raise AssertionError(f"{transport} {fmt}: {key} card != CPU "
-                                     f"in the first {ENTRY_CHECK_WINDOWS} "
-                                     f"windows")
-            else:
-                n_int += 1
-        ms = card.wall_s * 1e3 / ex.N_WINDOWS
-        print(f"entry point {transport} {fmt} at scale {SCALE} [{smi}]: "
-              f"{ms:.3f} ms a window (25 windows and the final flush, host "
-              f"clock, synchronised); launches {launches}; {n_int} integer "
-              f"WindowStats / LinkStats fields of the first "
-              f"{ENTRY_CHECK_WINDOWS} windows card == CPU; "
-              f"{int(ref['spikes'].sum())} spikes in them")
-        for name, count in launches.items():
-            total[name] = total.get(name, 0) + count
-    return total
+    transport, fmt = "torus3d", "ethernet"
+    cfg = ex.sim_config(net, transport, fmt)
+    state, drive, cpu_state, cpu_drive = entry_inputs(net, cfg)
+    quiet(lambda: ex.main(transport, fmt, net=net, state=state,
+                          drive=drive[:1], n_windows=1, device="cuda"))
+    print(f"\n$ python -m repro_torch.examples.multiwafer_microcircuit "
+          f"{transport} {fmt} --scale {SCALE}  [{smi}; main path 1's "
+          f"network, seed-0 state and a drive drawn on the card, after a "
+          f"1-window warm-up]")
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    card = ex.main(transport, fmt, net=net, state=state, drive=drive,
+                   device="cuda")
+    launches = dict(dispatch.LAUNCHES)
+    want = {"flush_window": N_WINDOWS, "lif_step": N_WINDOWS,
+            "wire_codec": N_WINDOWS + 1}
+    if launches != want:
+        raise AssertionError(f"{transport} {fmt}: launches {launches} != "
+                             f"{want}")
+    if int(card.stats.overflow.sum()) != 0:
+        raise AssertionError(f"{transport} {fmt}: bucket overflows")
+    n_int, spikes = check_entry_windows(card, net, transport, fmt,
+                                        cpu_state, cpu_drive)
+    ms = card.wall_s * 1e3 / N_WINDOWS
+    print(f"entry point {transport} {fmt} at scale {SCALE} [{smi}]: "
+          f"{ms:.3f} ms a window (25 windows and the final flush, host "
+          f"clock, synchronised); launches {launches}; {n_int} integer "
+          f"WindowStats / LinkStats fields of the first "
+          f"{ENTRY_CHECK_WINDOWS} windows card == CPU; {spikes} spikes in "
+          f"them")
+    return launches
 
 
 def run_entry_quickstart(smi: str) -> dict:
@@ -5319,31 +5318,83 @@ def run_entry_trace_smoke(smi: str) -> dict:
     raises ``SystemExit`` with its reasons), and the engine's launches are
     one tenant-form F, one encode and one decode a window (the warm-up's
     segment and the drain segments included; each of the two walks, the
-    warm-up's and the final one, adds an encode and two decodes)."""
+    warm-up's and the final one, adds an encode and two decodes).  The
+    engine it served (4 shards on a 2x2x1 torus: Z rings of length 1) is
+    held to the same engine served on the CPU: every report integer and
+    histogram, every segment's ``WindowServeStats`` integer (floats at
+    rtol 1e-6) and the global and per-shard recorder rows equal."""
+    from repro_torch.convert import flatten
     from repro_torch.kernels import dispatch
     from repro_torch.tools import trace_smoke
     print(f"\n$ python -m repro_torch.tools.trace_smoke --out-dir "
           f"build/trace_smoke  [{smi}]")
-    dispatch.reset_launches()
-    if trace_smoke.main(["--out-dir", str(TRACE_SMOKE_DIR)]) != 0:
-        raise AssertionError("trace smoke failed")
-    launches, entries = dict(dispatch.LAUNCHES), dict(dispatch.ENTRY_LAUNCHES)
+    served = {}
+    write = trace_smoke.obs_report.write_engine_run
+
+    def spy(out_dir, eng, rep):
+        served.update(eng=eng, rep=rep)
+        return write(out_dir, eng, rep)
+
+    trace_smoke.obs_report.write_engine_run = spy
+    try:
+        dispatch.reset_launches()
+        if trace_smoke.main(["--out-dir", str(TRACE_SMOKE_DIR)]) != 0:
+            raise AssertionError("trace smoke failed")
+        launches = dict(dispatch.LAUNCHES)
+        entries = dict(dispatch.ENTRY_LAUNCHES)
+    finally:
+        trace_smoke.obs_report.write_engine_run = write
     meta = json.loads((TRACE_SMOKE_DIR / "meta.json").read_text())
     n = meta["seg_windows"] + meta["windows"] + meta["drain_windows"]
     want = {"repro_admission_tenants": n, "repro_wire_encode": n + 2,
             "repro_wire_decode": n + 4}
     if entries != want:
         raise AssertionError(f"trace smoke: launches {entries} != {want}")
-    print(f"trace smoke: launches {entries}")
+
+    cpu = trace_smoke.engine("cpu")
+    cpu.warmup()
+    cpu_rep = cpu.run(trace_smoke.SEGMENTS)
+    card, card_rep = served["eng"], served["rep"]
+    want_ints = _report_ints(cpu_rep)
+    for key, a in _report_ints(card_rep).items():
+        if not np.array_equal(a, want_ints[key]):
+            raise AssertionError(f"trace smoke: {key} card {a} != CPU "
+                                 f"{want_ints[key]}")
+    for x, y in zip(card_rep.tenants, cpu_rep.tenants):
+        np.testing.assert_allclose([x.max_us, x.mean_us],
+                                   [y.max_us, y.mean_us], rtol=1e-6)
+    if len(card.window_stats) != len(cpu.window_stats):
+        raise AssertionError("trace smoke: segment counts differ card vs "
+                             "CPU")
+    for k, (a, b) in enumerate(zip(card.window_stats, cpu.window_stats)):
+        fa, fb = flatten(a), flatten(b)
+        for key in fa:
+            if fa[key].dtype.kind == "f":
+                np.testing.assert_allclose(fa[key], fb[key], rtol=1e-6,
+                                           atol=1e-6, err_msg=key)
+            elif not np.array_equal(fa[key], fb[key]):
+                raise AssertionError(f"trace smoke segment {k}: {key} "
+                                     f"differs card vs CPU")
+    rows = [card.recorder_rows()] + [card.recorder_rows(s)
+                                     for s in range(trace_smoke.N_SHARDS)]
+    if rows != [cpu.recorder_rows()] + [
+            cpu.recorder_rows(s) for s in range(trace_smoke.N_SHARDS)]:
+        raise AssertionError("trace smoke: recorder rows differ card vs CPU")
+    print(f"trace smoke: launches {entries}; card == CPU on every report "
+          f"integer and histogram, {len(card.window_stats)} segments of "
+          f"WindowServeStats and the global and per-shard recorder rows "
+          f"({len(rows[0])} windows); delivered "
+          f"{card_rep.delivered.tolist()}")
     return launches
 
 
-def run_entry_points(smi: str) -> dict:
-    """The phase of the user entry points; returns their kernel launches,
-    summed."""
+def run_entry_points(net, smi: str) -> dict:
+    """The phase of the user entry points (the microcircuit's ``alltoall
+    extoll`` run is main path 1); returns their kernel launches, summed."""
     t0 = time.perf_counter()
-    total = run_entry_microcircuit(smi)
-    for counts in (run_entry_quickstart(smi), run_entry_trace_smoke(smi)):
+    total = {}
+    for counts in (run_entry_microcircuit(net, smi),
+                   run_entry_quickstart(smi), run_entry_trace_smoke(smi)):
         for name, count in counts.items():
             total[name] = total.get(name, 0) + count
     run_entry_serve_lm(smi)
@@ -5424,7 +5475,8 @@ def main() -> int:
     check_slice_small()
 
     banner("main path 1: microcircuit")
-    paths = {"microcircuit, alltoall": run_main_path()}
+    launches1, net1 = run_main_path(smi.splitlines()[0])
+    paths = {"microcircuit, alltoall": launches1}
 
     banner("the exchange on the card")
     paths["exchange"] = run_exchange_path()
@@ -5547,7 +5599,8 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     banner("the user entry points: the examples and the trace smoke")
-    entry_launches = run_entry_points(smi.splitlines()[0])
+    entry_launches = run_entry_points(net1, smi.splitlines()[0])
+    del net1
 
     # each kernel's launches from the path of this slice that runs it (E's
     # tensor-core route on main path 2, serving, and main path 12,
@@ -5558,12 +5611,14 @@ def main() -> int:
                 + paths[f"training {MAMBA_ARCH}"]["ssd_chunk"],
                 "ssd_chunk_f32": paths["f32 SSD scan"]["ssd_chunk_f32"],
                 **paths["cycle models"]}
-    # F and B also run on main path 4 (its three runs), and A, B, C and F
-    # on the observability phases (obs-sim's recorded runs, obs-serve's
-    # instrumented run)
-    # and A, B, C, F and G on the entry points' phase (the microcircuit
-    # example, the quickstart, the trace smoke)
-    for counts in (serve_launches, obs_launches, entry_launches):
+    # F and B also run on main path 4 (its three runs), A, B, C and F on
+    # the observability phases (obs-sim's recorded runs, obs-serve's
+    # instrumented run), A, B and C on main path 1 (the microcircuit
+    # example's alltoall extoll run) and A, B, C, F and G on the entry
+    # points' phase (the example on torus3d ethernet, the quickstart, the
+    # trace smoke)
+    for counts in (serve_launches, obs_launches,
+                   paths["microcircuit, alltoall"], entry_launches):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     paths["spike serving (3 runs)"] = serve_launches

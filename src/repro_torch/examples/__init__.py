@@ -21,16 +21,6 @@ import subprocess
 
 import torch
 
-from repro_torch.kernels import dispatch
-
-
-def resolve(device) -> torch.device:
-    """``None`` or ``"cuda"`` -> the card, raising when there is none;
-    any other name -> that device."""
-    if device is None or str(device) == "cuda":
-        return dispatch.resolve_device(None)
-    return torch.device(device)
-
 
 def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op off the card)."""

@@ -3,14 +3,14 @@
 Potjans-Diesmann cortical microcircuit spread over 4 'wafer' shards, spikes
 exchanged through the bucket-aggregated transport fabric.
 
-Prints the reference's lines in its order: the network, the partition, the
-transport, spikes and mean rate, events shipped, wire bytes, the
-aggregation saving, deadline misses and overflows, frame-exact bytes on the
-wire of the chosen profile, the event latency percentiles and, on a torus,
-the link statistics; then the run's wall time on its device.  The shard
-axis is a leading tensor dimension (no mesh): each window is one LIF window
-launch, one flush window (route, bucket, wire encode) and one decode for
-all shards.
+Prints the reference's lines in its order: the network, the partition,
+(from ``WIDE_FROM`` up only) the buffer sizes, the transport, spikes and
+mean rate, events shipped, wire bytes, the aggregation saving, deadline
+misses and overflows, frame-exact bytes on the wire of the chosen profile,
+the event latency percentiles and, on a torus, the link statistics; then
+the run's wall time on its device.  The shard axis is a leading tensor
+dimension (no mesh): each window is one LIF window launch, one flush
+window (route, bucket, wire encode) and one decode for all shards.
 
 Run:  PYTHONPATH=src python -m repro_torch.examples.multiwafer_microcircuit \\
           [alltoall|torus2d|torus3d] [extoll|ethernet] [--scale S] \\
@@ -19,8 +19,10 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.multiwafer_microcircuit \\
 (the transport and wire profile as in the reference: ``torus2d`` walks a
 2x2 torus, ``torus3d`` a 1x2x2 one whose Z rings are the wafer axis.
 ``--scale`` is the microcircuit's, default the reference's 0.004; 0.2,
-15,431 neurons, is the widest whose event addresses fit 14 bits, and from
-``WIDE_FROM`` up the buffers take sizes at which nothing overflows there.
+15,431 neurons, is the widest whose event addresses fit 14 bits.  From
+scale ``WIDE_FROM`` (0.05) up the buffers are ``WIDE_SIZES``, at which
+nothing overflows at 0.2, not the reference's ``SIZES``; the run prints
+them.
 Without ``--device cpu`` it runs on the card and raises without one.)
 
 ``main`` also takes a prebuilt network (``build_network``: at scale 0.2
@@ -41,6 +43,7 @@ from typing import NamedTuple
 from repro_torch import examples
 from repro_torch.configs import brainscales
 from repro_torch.core import aggregator
+from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import wafer_torus_shape, wafer_wire_format
 from repro_torch.snn import microcircuit as mc, network, simulator as sim
 
@@ -50,7 +53,7 @@ REFERENCE_SCALE = 0.004
 N_SHARDS = 4
 N_WINDOWS = 25                 # 25 x 8 x 0.1 ms = 20 ms biological
 SIZES = dict(e_max=512, capacity=512)          # the reference's
-WIDE_SIZES = dict(e_max=1024, capacity=1024, residue=256)
+WIDE_SIZES = dict(e_max=1024, capacity=1024)  # no overflow at scale 0.2
 WIDE_FROM = 0.05               # scales from which WIDE_SIZES apply
 
 
@@ -102,7 +105,7 @@ def main(transport: str = "alltoall", wire_format: str = "extoll", *,
     ``net`` (else built at ``scale``), ``state`` (else drawn from seed 0)
     and ``drive`` (else drawn from the state's generator) as in the module
     docstring; ``device`` ``None`` / ``"cuda"`` is the card."""
-    device = examples.resolve(device)
+    device = dispatch.resolve_device(device)
     if transport not in TRANSPORTS:
         raise ValueError(f"transport must be one of {TRANSPORTS}, got "
                          f"{transport!r}")
@@ -117,6 +120,10 @@ def main(transport: str = "alltoall", wire_format: str = "extoll", *,
           f"max fan-out {part.fanout.shape[1]} shards/source")
 
     cfg = sim_config(net, transport, wire_format)
+    if spec.scale >= WIDE_FROM:
+        print(f"buffers: e_max {cfg.e_max}, capacity {cfg.capacity} "
+              f"(the reference's are {SIZES['e_max']} and "
+              f"{SIZES['capacity']}; wider from scale {WIDE_FROM} up)")
     if transport == "torus2d":
         print(f"transport: {transport} {wafer_torus_shape(N_SHARDS)} torus")
     elif transport == "torus3d":
@@ -187,7 +194,9 @@ def cli(argv=None) -> int:
                     choices=WIRE_FORMATS)
     ap.add_argument("--scale", type=float, default=REFERENCE_SCALE,
                     help="microcircuit scale (0.2: 15,431 neurons, the "
-                         "widest the 14-bit address carries)")
+                         "widest the 14-bit address carries; from 0.05 up "
+                         "the buffers are 1,024 wide, not the reference's "
+                         "512)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without one)")
     args = ap.parse_args(argv)

@@ -22,8 +22,8 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch import examples
 from repro_torch.core import aggregator, bucket, events as ev, routing as rt
+from repro_torch.kernels import dispatch
 
 N_EVENTS = 256
 LM_STEPS = 10
@@ -39,7 +39,7 @@ def draw_window():
 def spike_aggregation_demo(addr=None, deadline=None, *, device=None):
     """Aggregation and the cycle model; returns (buckets, (final bucket
     state, cycle outputs))."""
-    device = examples.resolve(device)
+    device = dispatch.resolve_device(device)
     print("=== paper §3.1: event aggregation ===")
     # events from 8 HICANN links, addressed to 4 destination FPGAs
     if addr is None:
@@ -80,7 +80,7 @@ def spike_aggregation_demo(addr=None, deadline=None, *, device=None):
 def routing_demo(*, device=None):
     """LUT routing and GUID multicast; returns (dest, guid, routed,
     masks)."""
-    device = examples.resolve(device)
+    device = dispatch.resolve_device(device)
     print("=== paper §3: LUT routing + GUID multicast ===")
     tabs = rt.build_tables(16, [
         rt.Projection(0, 8, dest_node=3, dest_links=[0, 5]),
@@ -100,7 +100,7 @@ def routing_demo(*, device=None):
 def tiny_lm_demo(params=None, *, device=None) -> list[float]:
     """Reduced qwen3-32b trained for 10 steps on ``synthetic_batch``
     (from ``params``, else a draw from seed 0); returns the 10 losses."""
-    device = examples.resolve(device)
+    device = dispatch.resolve_device(device)
     print("=== the LM stack on the same substrate ===")
     from repro_torch.configs import get_config, reduced
     from repro_torch.data.pipeline import DataConfig, synthetic_batch
@@ -139,7 +139,7 @@ def tiny_lm_demo(params=None, *, device=None) -> list[float]:
 def main(*, device=None):
     """The four demos; returns their outputs (the aggregation and cycle
     model's, the routing's, the tiny LM's losses)."""
-    device = examples.resolve(device)
+    device = dispatch.resolve_device(device)
     fabric = spike_aggregation_demo(device=device)
     routes = routing_demo(device=device)
     losses = tiny_lm_demo(device=device)

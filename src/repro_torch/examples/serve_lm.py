@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import examples
 from repro_torch.configs import get_config, reduced
+from repro_torch.kernels import dispatch
 from repro_torch.models import build
 from repro_torch.serve.engine import Engine, Request, ServeConfig
 
@@ -40,7 +41,7 @@ def requests(vocab: int) -> list[Request]:
 def main(params=None, *, device=None) -> dict:
     """Serve the 10 requests (with ``params``, else a draw from seed 0)
     and print them and tokens/s; returns {rid: generated tokens}."""
-    device = examples.resolve(device)
+    device = dispatch.resolve_device(device)
     cfg = config()
     model = build(cfg)
     if params is None:

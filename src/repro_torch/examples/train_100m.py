@@ -27,6 +27,7 @@ import torch
 from repro_torch import examples
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.kernels import dispatch
 from repro_torch.models import build
 from repro_torch.models.modules import param_count
 from repro_torch.train.optimizer import OptimizerConfig, ScheduleConfig
@@ -57,7 +58,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without one)")
     args = ap.parse_args(argv)
-    device = examples.resolve(args.device)
+    device = dispatch.resolve_device(args.device)
 
     cfg = config_100m()
     model = build(cfg)

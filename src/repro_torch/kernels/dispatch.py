@@ -1,8 +1,8 @@
 """Device policy of the port (counterpart of ``src/repro/kernels/dispatch.py``).
 
 * Entry points that create tensors take ``device``; :func:`resolve_device`
-  makes ``None`` mean ``cuda`` and raises when there is no card, so the
-  port never quietly runs on the CPU.
+  makes ``None`` mean ``cuda`` and raises for ``cuda`` when there is no
+  card, so the port never quietly runs on the CPU.
 * A kernel wrapper asks :func:`on_cuda` where its tensors lie.  On CUDA it
   launches its hand-written kernel through :func:`launch`, which raises on
   any launch error; on the CPU it runs the plain PyTorch version.  There is
@@ -29,15 +29,14 @@ def reset_launches() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda``; raises when CUDA is absent and the caller did
-    not ask for another device explicitly."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the GPU; pass "
-                "device='cpu' to run the plain PyTorch versions")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``None`` -> ``cuda``; ``None`` or a CUDA device raises when CUDA is
+    absent, any other device is taken as given."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU; pass "
+            "device='cpu' to run the plain PyTorch versions")
+    return device
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -31,6 +31,7 @@ import sys
 import tempfile
 
 from repro_torch import examples
+from repro_torch.kernels import dispatch
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import recorder as obs_recorder
 from repro_torch.obs import report as obs_report
@@ -44,9 +45,10 @@ N_SHARDS = 4
 THREADS = ("spike-ingest", "spike-device", "device")
 
 
-def serve(out_dir: str, device) -> str:
-    """Serve ``SEGMENTS`` instrumented segments and write the run
-    directory under ``out_dir``; returns its path."""
+def engine(device) -> SpikeEngine:
+    """The smoke's engine on ``device``: 4 shards on a 2x2x1 torus, two
+    tenants, load-generator seed 11, the recorder (depth 32) and a
+    tracer."""
     cfg = EngineConfig(capacity=8, link_credits=16, notify_latency=2,
                        window_us=100.0, seg_windows=3, nx=2, ny=2, nz=1)
     tenants = [TenantSpec("a", reserve=8, rate_epw=16.0),
@@ -54,9 +56,15 @@ def serve(out_dir: str, device) -> str:
     src = PoissonLoadGen(11, [TenantProfile("a", 16.0),
                               TenantProfile("b", 8.0)], N_SHARDS,
                          cfg.capacity)
-    eng = SpikeEngine(N_SHARDS, tenants, cfg, src,
-                      recorder=obs_recorder.RecorderConfig(depth=32),
-                      tracer=obs_spans.Tracer(), device=device)
+    return SpikeEngine(N_SHARDS, tenants, cfg, src,
+                       recorder=obs_recorder.RecorderConfig(depth=32),
+                       tracer=obs_spans.Tracer(), device=device)
+
+
+def serve(out_dir: str, device) -> str:
+    """Serve ``SEGMENTS`` instrumented segments and write the run
+    directory under ``out_dir``; returns its path."""
+    eng = engine(device)
     eng.warmup()
     rep = eng.run(SEGMENTS)
     run_dir = obs_report.write_engine_run(out_dir, eng, rep)
@@ -138,7 +146,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without one)")
     args = ap.parse_args(argv)
-    device = examples.resolve(args.device)
+    device = dispatch.resolve_device(args.device)
 
     run_dir = serve(args.out_dir, device)
     failures, summary = validate(run_dir)
