@@ -108,13 +108,23 @@ Phases, each raising on failure (exit code != 0, no result line):
    (at most 4.0), per-tenant counts and latency beside the file's, the
    launches per served window (the tenant form of kernel F, B's encode
    and B's decode once each), events/s and ms per window, peak device
-   memory, and a torch.profiler pass over one served segment;
+   memory, and a torch.profiler pass over one served segment; then the
+   program's clock beside the profiler's: the deployment, contended and
+   solo, served by the engine's own threads with a tracer under
+   torch.profiler for 0.5 s, the spans put on the profiler's clock by
+   ``obs.spans.on_profiler_clock`` (the two anchors, no fitted offset):
+   at least 99% of the device thread's ``cudaLaunchKernel`` and
+   ``cudaMemcpyAsync`` events lie inside a span that thread wrote, and as
+   many have their kernel or copy in the profiler's trace; the device's
+   idle gaps named by the innermost such span; 2 s more of serving without
+   the profiler, read by stage (ms per window, time off the CPU, the
+   stats wait); the summary in ``build/serve_clock.json``;
 5p. obs-serve -- 5h's contended run with the flight recorder (depth 256)
    and a tracer, beside a plain contended run in the same call:
    ``BENCH_serve.json``'s model outputs and QoS factor, launches per
    window, ring delivered totals == the ledger, a valid trace with spans on
-   ``spike-ingest``, ``spike-device`` and ``device`` and every window
-   instant among the ring's windows, a run directory with parsable
+   ``spike-ingest`` and ``spike-device``, window instants on ``device``
+   and every one among the ring's windows, a run directory with parsable
    metrics and both tenants; ms per served window, events/s and device
    functions per served window, instrumented and not;
 5i. kernel F's tenant form against both tenant loops, bit for bit on
@@ -2259,6 +2269,178 @@ def _serve_segment_profile(eng, seg: int):
             f"one served segment ({nw} windows, contended)", nw, "window")
 
 
+CLOCK_SHARE_MIN = 0.99          # runtime calls inside the thread's spans
+CLOCK_PASSES = 3                # profiler passes before the check fails
+CLOCK_SUMMARY = ROOT / "build" / "serve_clock.json"
+RUNTIME_CALLS = ("cudaLaunchKernel", "cudaMemcpyAsync")
+
+
+def _union(intervals) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _count_inside(union: list, events) -> int:
+    """How many of the complete ``events`` lie inside one interval of
+    ``union`` (sorted, disjoint)."""
+    import bisect
+    starts = [u[0] for u in union]
+    n = 0
+    for e in events:
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        n += i >= 0 and e["ts"] + e["dur"] <= union[i][1]
+    return n
+
+
+def _loop_stages(spans: list, track_of) -> dict:
+    """The device loop over ``spans`` (the tracer's complete events on its
+    own clock): host ms per served window of each stage and of the whole
+    dispatch, the dispatch's share off the CPU (its ``cpu_us`` against
+    its wall time), and the share of the device thread's loop (from its
+    first loop span to its last) spent waiting for the stats copy."""
+    dev = [e for e in spans if track_of(e) == "spike-device"
+           and e["name"] in ("device/staged_wait", "device/h2d",
+                             "device/dispatch", "device/stats_wait")]
+    seg = [e for e in dev if e["name"] == "device/dispatch"]
+    if not seg:
+        return {}
+    wins = len(seg) * SERVE_CFG["seg_windows"]
+    out = {"segments": len(seg),
+           "dispatch_ms_per_window": sum(e["dur"] for e in seg) / wins / 1e3}
+    for stage in ("window/exchange", "window/attribute"):
+        inside = [e["dur"] for e in spans if e["name"] == stage
+                  and any(d["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                          <= d["ts"] + d["dur"] for d in seg)]
+        out[stage.split("/")[1] + "_ms_per_window"] = sum(inside) / wins / 1e3
+    wall = sum(e["dur"] for e in seg)
+    out["dispatch_offcpu_pct"] = 100.0 * (
+        1.0 - sum(e["args"]["cpu_us"] for e in seg) / wall)
+    extent = max(e["ts"] + e["dur"] for e in dev) - min(e["ts"] for e in dev)
+    out["stats_wait_pct"] = 100.0 * sum(
+        e["dur"] for e in dev if e["name"] == "device/stats_wait") / extent
+    return out
+
+
+def serve_clock(hot: bool, seconds: float = 0.5, after_s: float = 2.0
+                ) -> dict:
+    """The deployment (``hot``: contended) served by the engine's own
+    threads with a tracer, torch.profiler over ``seconds`` of it, the
+    spans put on the profiler's clock -> the device thread's runtime calls
+    inside its spans, the share of them whose kernel or copy the profiler
+    recorded, the device's idle gaps named by the innermost span of that
+    thread running at their midpoint; then ``after_s`` more of serving
+    without the profiler, read by :func:`_loop_stages`."""
+    import collections
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import spans
+    tracer = spans.Tracer()
+    eng = serve_engine("cuda", hot, tracer=tracer)
+    eng.warmup()
+    torch.cuda.synchronize()
+    eng.start()
+    device_os = eng._device_t.native_id
+    time.sleep(0.5)                       # past the first segments
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(seconds)
+    profiled_to = tracer.now_us()
+    time.sleep(after_s)
+    eng.stop(drain=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/prof.json")
+        theirs = json.loads(Path(f"{tmp}/prof.json").read_text())
+    mine = tracer.to_dict()
+    names = spans.thread_names(mine)
+    after = _loop_stages([e for e in mine["traceEvents"] if e["ph"] == "X"
+                          and e["ts"] >= profiled_to],
+                         lambda e: names[e["tid"]])
+    merged = spans.on_profiler_clock(mine, theirs)
+    ours = [e for e in merged["traceEvents"] if e.get("ph") == "X"
+            and e.get("args", {}).get("os_tid") == device_os]
+    union = _union((e["ts"], e["ts"] + e["dur"]) for e in ours)
+    ids = {k: ours[0]["args"][k] for k in ("os_tid", "pthread_tid")}
+    runtime = [e for e in theirs["traceEvents"] if e.get("ph") == "X"
+               and e.get("name") in RUNTIME_CALLS]
+    by_tid = collections.Counter(e.get("tid") for e in runtime)
+    matched = [k for k, v in ids.items() if v in by_tid]
+    tid = ids[matched[0]] if matched else None
+    calls = [e for e in runtime if e.get("tid") == tid]
+    inside = _count_inside(union, calls)
+    device_ops = [e for e in theirs["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    recorded = {e["args"].get("correlation") for e in device_ops}
+    with_op = sum(e["args"].get("correlation") in recorded for e in calls)
+    busy = _union((e["ts"], e["ts"] + e.get("dur", 0.0)) for e in device_ops)
+    gaps: dict[str, float] = {}
+    for (_, a), (b, _) in zip(busy, busy[1:]):
+        mid = (a + b) / 2
+        held = [e for e in ours if e["ts"] <= mid <= e["ts"] + e["dur"]]
+        name = (min(held, key=lambda e: e["dur"])["name"] if held
+                else "no program span")
+        gaps[name] = gaps.get(name, 0.0) + (b - a) * 1e-6
+    stretch = (busy[-1][1] - busy[0][0]) * 1e-6 if busy else 0.0
+    return dict(
+        device_thread_ids=ids, profiler_tid=tid, matched_as=matched,
+        shift_us=(mine["otherData"]["epoch_origin_ns"]
+                  - theirs.get("baseTimeNanoseconds", 0)) / 1e3,
+        runtime_calls=len(calls), inside_spans=int(inside),
+        share_inside=inside / len(calls) if calls else None,
+        with_device_op=int(with_op),
+        share_with_device_op=with_op / len(calls) if calls else None,
+        program_spans_on_thread=len(ours),
+        device_stretch_s=stretch,
+        device_busy_s=sum(b - a for a, b in busy) * 1e-6,
+        idle_gaps_s=dict(sorted(gaps.items(), key=lambda kv: -kv[1])),
+        after_profile=after)
+
+
+def check_serve_clock(smi: str) -> dict:
+    """:func:`serve_clock` contended and solo: at least
+    ``CLOCK_SHARE_MIN`` of the device thread's runtime calls inside its
+    spans, with no fitted offset, and as large a share of them with their
+    kernel or copy in the profiler's trace.  A pass whose trace lost the
+    card's events (the profiler dropped nearly all of them in 3 of 15
+    passes on an H100) names its idle gaps by a few long ones between the
+    events it kept: it is counted and run again, ``CLOCK_PASSES`` times at
+    most.  Writes the summaries to ``CLOCK_SUMMARY``."""
+    out = {"device": smi, "torch": torch.__version__}
+    for label, hot in (("contended", True), ("solo", False)):
+        for lost in range(CLOCK_PASSES):
+            got = serve_clock(hot)
+            if (got["share_with_device_op"] or 0.0) >= CLOCK_SHARE_MIN:
+                break
+            print(f"[{smi}] serve clock, {label}: the profiler kept the "
+                  f"kernel or copy of {got['with_device_op']} of "
+                  f"{got['runtime_calls']} calls; again")
+        else:
+            lost = CLOCK_PASSES
+        got = out[label] = dict(got, passes_with_events_lost=lost)
+        print(f"[{smi}] program spans on the profiler's clock, {label}: "
+              f"{got['inside_spans']} of the device thread's "
+              f"{got['runtime_calls']} {' / '.join(RUNTIME_CALLS)} calls "
+              f"inside its spans (thread as {got['matched_as']}; shift "
+              f"{got['shift_us']:.3f} us from the anchors), "
+              f"{got['with_device_op']} with their kernel or copy "
+              f"recorded; device busy {got['device_busy_s']:.6f} of "
+              f"{got['device_stretch_s']:.6f} s; idle gaps by innermost "
+              f"span: " + ", ".join(f"{k} {v:.6f} s" for k, v in
+                                    got["idle_gaps_s"].items())
+              + f"; unprofiled after it: {got['after_profile']}")
+        if (not got["runtime_calls"]
+                or got["share_inside"] < CLOCK_SHARE_MIN
+                or got["share_with_device_op"] < CLOCK_SHARE_MIN):
+            raise AssertionError(f"serve clock, {label}: {got}")
+    CLOCK_SUMMARY.parent.mkdir(exist_ok=True)
+    CLOCK_SUMMARY.write_text(json.dumps(out, indent=1) + "\n")
+    return out
+
+
 def run_serve_main_path(smi: str):
     """Main path 4: the bench_serve deployment for 24 segments (192
     windows), solo, contended and contended under link_fault(0, x+) from
@@ -2340,6 +2522,7 @@ def run_serve_main_path(smi: str):
     eng.warmup()
     print(f"[{smi}]")
     _serve_segment_profile(eng, 4)
+    check_serve_clock(smi)
     total = {k: sum(v.get(k, 0) for v in launches.values())
              for k in ("admission", "wire_codec")}
     return total, captured, reports
@@ -2715,7 +2898,9 @@ def run_obs_serve(smi: str, solo):
     names = spans.thread_names(trace)
     tracks = {names[e["tid"]] for e in trace["traceEvents"]
               if e["ph"] == "X"}
-    if not {"spike-ingest", "spike-device", "device"} <= tracks:
+    if not {"spike-ingest", "spike-device"} <= tracks or "device" not in {
+            names[e["tid"]] for e in trace["traceEvents"]
+            if e["name"] == "window"}:
         raise AssertionError(f"obs-serve: spans on tracks {tracks}")
     windows = [e["args"]["window"] for e in trace["traceEvents"]
                if e["name"] == "window"]

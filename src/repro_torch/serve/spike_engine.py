@@ -33,10 +33,32 @@ Observability is opt-in.  ``recorder`` (an ``obs.RecorderConfig``) puts a
 drain segments included, records its per-tenant counters, credit slots,
 kernel F's per-link stall table and latency histogram
 (:meth:`SpikeEngine.recorder_rows`).  ``tracer`` (an ``obs.Tracer``)
-records the ingest and device threads' spans and, per segment, a
-``device/segment`` span over the host's wait for the stats copy plus one
-``window`` instant per window; no span waits on the device beyond what
-the engine already waits for.
+records host spans; none synchronizes, reads a tensor or launches work,
+so each measures the host's issue or wait, never device time:
+
+* ``spike-ingest`` track: ``ingest/slot_wait``, the wait for a free
+  staging slot (ingest's backpressure, one span per filled slot, however
+  many 50 ms polls it takes), and ``ingest/fill``, the slot's filling.
+* ``spike-device`` track (the device thread): ``device/staged_wait``, the
+  wait for a staged segment (ingest starving the card);
+  ``device/h2d``, the issue of the slot's copy; ``device/dispatch``, the
+  issue of a segment's windows, with ``cpu_us``, the thread's CPU time
+  over it (the rest is time off the CPU: the GIL, preemption, blocking
+  calls); ``device/stats_wait``, the wait in ``_absorb`` for the previous
+  segment's stats copy (the card, not the host, holding the loop back).
+* inside each window, on the issuing thread's track:
+  ``window/exchange``, the tenant torus exchange (F's tenant form, the
+  ring phases, the ``LinkStats`` build), and ``window/attribute``, the
+  receiver's decode and latency summary, each with ``window``; the rest
+  of ``device/dispatch`` is the merge, the encode, the recorder's record
+  and the issue of the stats copy.
+* ``device`` track: one ``window`` instant per window, stamped when its
+  stats reach the host, with the absolute index the wire words' meta lane
+  and the recorder's rows carry.
+
+During ``stop``'s drain the caller's thread runs the segments, so their
+``window/*`` and ``device/stats_wait`` spans lie on its track, and
+``drain/walk`` on ``spike-device``.
 
 Differences from the reference: the shard axis is a tensor dimension (no
 mesh; ``n_shards`` and ``device`` instead), event words are int32 bit
@@ -236,13 +258,15 @@ class SpikeEngine:
         if self.fault_schedule is not None:
             state = state._replace(link_down=fabric_faults.mask_at(
                 self.fault_schedule, win_abs))
-        out = self.transport.exchange(state, payload, cnt)
+        with self.tracer.span("window/exchange", window=win_abs):
+            out = self.transport.exchange(state, payload, cnt)
         keep = ~out.sent_mask
         ring = carry[4:]
         carry = (out.state, torch.where(keep[..., None], words, 0),
                  torch.where(keep[..., None], meta, 0),
                  torch.where(keep, cnt, 0))
-        summary, delivered = self._attribute(out, win_abs)
+        with self.tracer.span("window/attribute", window=win_abs):
+            summary, delivered = self._attribute(out, win_abs)
         st = out.stats
         if ring:
             carry += (obs_recorder.record(ring[0], win_abs, st, out.state,
@@ -352,12 +376,14 @@ class SpikeEngine:
 
     def _ingest_loop(self):
         seg = 0
+        t0 = None                   # when the wait for the next slot began
         try:
             while not self._stop_evt.is_set():
                 if (self._max_segments is not None
                         and seg >= self._max_segments):
                     break
-                t0 = self.tracer.now_us()
+                if t0 is None:
+                    t0 = self.tracer.now_us()
                 try:
                     slot = self._free_q.get(timeout=0.05)
                 except queue.Empty:
@@ -366,6 +392,7 @@ class SpikeEngine:
                                      self.tracer.now_us() - t0,
                                      track="spike-ingest", cat="host",
                                      slot=slot)
+                t0 = None
                 inj, clip = self._fill_segment(slot, seg)
                 self._staged_q.put((slot, inj, clip))
                 seg += 1
@@ -406,7 +433,8 @@ class SpikeEngine:
                         fw, fc_, copied = self._stage(slot)
                     win0 = self._win
                     with self.tracer.span("device/dispatch",
-                                          track="spike-device", win0=win0):
+                                          track="spike-device", win0=win0,
+                                          cpu_time=True):
                         self._carry, ws = self._segment(self._carry, fw,
                                                         fc_, win0)
                     if copied is not None:
@@ -431,20 +459,16 @@ class SpikeEngine:
         self._t1 = time.perf_counter()
 
     def _absorb(self, item, win0: int):
-        t0 = self.tracer.now_us()
-        ws = _tree_map(lambda x: x.numpy(), self._ready(item))
+        nw = self.cfg.seg_windows
+        with self.tracer.span("device/stats_wait", win0=win0, windows=nw):
+            host = self._ready(item)
+        ws = _tree_map(lambda x: x.numpy(), host)
         self.window_stats.append(ws)
         self.ledger.add_windows(ws.delivered, ws.shed, ws.latency.hist,
                                 ws.latency.max_us, ws.latency.mean_us)
         if self.tracer.enabled:
-            # the wait for the segment's stats copy is where the host sees
-            # the segment finish: it stands for the device segment, and
             # the window instants carry the absolute indices the wire
             # words' meta lane and the recorder's rows are stamped with
-            nw = self.cfg.seg_windows
-            self.tracer.complete("device/segment", t0,
-                                 self.tracer.now_us() - t0, track="device",
-                                 win0=win0, windows=nw)
             delivered = ws.delivered.sum(axis=(1, 2))      # (nw,)
             for i in range(nw):
                 self.tracer.instant("window", track="device", cat="device",

@@ -37,6 +37,8 @@ import logging
 import os
 import subprocess
 import sys
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -770,7 +772,13 @@ def test_engine_run_directory_report_matches_reference(ref, engine_runs,
 @pytest.mark.parametrize("label", list(ENGINES))
 def test_engine_trace_matches_reference(ref, engine_runs, label):
     """The trace validates; its spans per name and track equal the
-    reference's; every window instant is among the ring's windows."""
+    reference's, but for the port's own: the reference's ``device/segment``
+    on the ``device`` track is the port's ``device/stats_wait`` on the
+    absorbing thread's track (the device thread's for a served segment,
+    the caller's for a drain segment), and the port adds one
+    ``window/exchange`` and one ``window/attribute`` a window on the
+    thread that issues it; every window instant is among the ring's
+    windows."""
     eng, rep, run_dir, _ = engine_runs[label]
     got = eng.tracer.to_dict()
     want = json.loads(str(ref[f"eng.{label}.trace"]))
@@ -778,7 +786,17 @@ def test_engine_trace_matches_reference(ref, engine_runs, label):
     count = lambda tr: collections.Counter(
         (ev["name"], t_spans.thread_names(tr)[ev["tid"]])
         for ev in tr["traceEvents"] if ev["ph"] != "M")
-    assert count(got) == count(want)
+    want_n = count(want)
+    nw = ENGINES[label]["cfg"]["seg_windows"]
+    caller = threading.current_thread().name      # ran the fixture's stop
+    assert want_n.pop(("device/segment", "device")) == (
+        rep.windows + rep.drain_windows) // nw
+    want_n[("device/stats_wait", "spike-device")] += rep.windows // nw
+    want_n[("device/stats_wait", caller)] += rep.drain_windows // nw
+    for stage in ("window/exchange", "window/attribute"):
+        want_n[(stage, "spike-device")] += rep.windows
+        want_n[(stage, caller)] += rep.drain_windows
+    assert count(got) == want_n
     windows = [ev["args"]["window"] for ev in got["traceEvents"]
                if ev["name"] == "window"]
     assert set(windows) <= {r["window"] for r in eng.recorder_rows()}
@@ -810,6 +828,147 @@ def test_engine_without_recorder_keeps_its_carry(engine_runs):
     e = _engine("one")
     e.warmup()
     assert e._carry[4].cursor == 0 and int(e._carry[4].window.max()) == -1
+
+
+# ---------------------------------------------------------------------------
+# The engine's spans inside the served window, both sides of the staging
+# queue, and the program's spans on the profiler's clock.
+# ---------------------------------------------------------------------------
+
+def _four_shards(tracer=None, cls=t_se.SpikeEngine):
+    """The trace smoke's engine: 4 shards on a 2x2x1 torus, two tenants,
+    3-window segments."""
+    cfg = t_se.EngineConfig(capacity=8, link_credits=16, notify_latency=2,
+                            window_us=100.0, seg_windows=3, nx=2, ny=2, nz=1)
+    tenants = [t_ten.TenantSpec("a", reserve=8, rate_epw=16.0),
+               t_ten.TenantSpec("b", reserve=4, rate_epw=8.0)]
+    src = t_lg.PoissonLoadGen(11, [t_lg.TenantProfile("a", 16.0),
+                                   t_lg.TenantProfile("b", 8.0)], 4,
+                              cfg.capacity)
+    return cls(4, tenants, cfg, src, tracer=tracer, device="cpu")
+
+
+def test_engine_stage_spans_lie_inside_each_dispatch():
+    """Each ``device/dispatch`` holds exactly one ``window/exchange`` and
+    one ``window/attribute`` a window of its segment, and its ``cpu_us``
+    lies in [0, dur]; the stats wait is ``device/stats_wait`` on the
+    device thread's track; the OS thread ids and the wall-clock origin are
+    exported beside ``traceEvents``."""
+    tr = t_spans.Tracer()
+    eng = _four_shards(tr)
+    rep = eng.run(3)
+    d = tr.to_dict()
+    assert t_spans.validate_trace(d) == []
+    names = t_spans.thread_names(d)
+    spans = [dict(e, track=names[e["tid"]]) for e in d["traceEvents"]
+             if e["ph"] == "X"]
+    dispatch = [e for e in spans if e["name"] == "device/dispatch"]
+    assert len(dispatch) == 3 and rep.windows == 9
+    for seg in dispatch:
+        assert 0.0 <= seg["args"]["cpu_us"] <= seg["dur"]
+        a, b = seg["ts"], seg["ts"] + seg["dur"]
+        for stage in ("window/exchange", "window/attribute"):
+            inside = [e["args"]["window"] for e in spans
+                      if e["name"] == stage and a <= e["ts"]
+                      and e["ts"] + e["dur"] <= b]
+            assert inside == [seg["args"]["win0"] + i for i in range(3)]
+    assert {e["track"] for e in spans if e["name"].startswith("window/")
+            } == {"spike-device", threading.current_thread().name}
+    assert [e["track"] for e in spans if e["name"] == "device/stats_wait"
+            ].count("spike-device") == 3
+    assert not [e for e in spans if e["name"] == "device/segment"]
+    other = d["otherData"]
+    assert abs(other["epoch_origin_ns"] - time.time_ns()) < 600e9
+    assert len(other["event_os_threads"]) == len(d["traceEvents"])
+    me = threading.get_native_id()
+    assert dict(other["pthread_ids"])[me] == threading.get_ident()
+    device_os = {w for ev, w in zip(d["traceEvents"],
+                                    other["event_os_threads"])
+                 if ev["ph"] != "M" and names[ev["tid"]] == "spike-device"}
+    assert me in device_os and len(device_os) == 2
+    assert set(dict(other["pthread_ids"])) >= device_os
+    for ev, writer in zip(d["traceEvents"], other["event_os_threads"]):
+        if ev["ph"] == "M":
+            assert writer is None
+        elif ev["name"] == "device/dispatch":
+            assert writer in device_os and writer != me
+
+
+def test_disabled_tracer_reads_no_thread_clock(monkeypatch):
+    def no_clock():
+        raise AssertionError("thread_time_ns read by a disabled tracer")
+    monkeypatch.setattr(time, "thread_time_ns", no_clock)
+    with t_spans.NULL.span("device/dispatch", cpu_time=True) as sp:
+        pass
+    assert "cpu_us" not in sp.args and sp.dur_us >= 0
+
+
+def test_slot_wait_spans_a_whole_wait():
+    """Behind a device loop slowed to 0.2 s a segment, ingest waits for a
+    free slot across several 50 ms polls: one ``ingest/slot_wait`` of the
+    whole wait per filled slot."""
+    class Slow(t_se.SpikeEngine):
+        def _segment(self, *args):
+            time.sleep(0.2)
+            return super()._segment(*args)
+    tr = t_spans.Tracer()
+    _four_shards(tr, Slow).run(4)
+    d = tr.to_dict()
+    waits = [e["dur"] for e in d["traceEvents"]
+             if e["name"] == "ingest/slot_wait"]
+    assert len(waits) == 4
+    assert max(waits) >= 150e3
+
+
+def test_tracer_changes_no_engine_output():
+    runs = [_four_shards(tracer) for tracer in (t_spans.Tracer(), None)]
+    reps = [eng.run(3) for eng in runs]
+    for f in ("injected", "delivered", "shed", "clipped", "windows",
+              "drain_windows"):
+        assert np.array_equal(getattr(reps[0], f), getattr(reps[1], f)), f
+    for d1, d2 in zip(reps[0].tenants, reps[1].tenants):
+        assert np.array_equal(d1.hist, d2.hist)
+        assert (d1.max_us, d1.mean_us, d1.p50_us, d1.p99_us) == (
+            d2.max_us, d2.mean_us, d2.p50_us, d2.p99_us)
+    a, b = (eng.window_stats for eng in runs)
+    assert len(a) == len(b) == 3 + reps[0].drain_windows // 3
+    for x, y in zip(a, b):
+        fx, fy = convert.flatten(x), convert.flatten(y)
+        assert fx.keys() == fy.keys()
+        for key in fx:
+            assert np.array_equal(fx[key], fy[key]), key
+
+
+def test_spans_on_the_profilers_clock(tmp_path):
+    """A span around ATen calls on this thread, under ``torch.profiler``
+    (CPU), contains those calls once shifted by the two anchors alone."""
+    from torch.profiler import ProfilerActivity, profile
+    tr = t_spans.Tracer()
+    x = torch.randn(128, 128)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        time.sleep(0.005)
+        with tr.span("work"):
+            for _ in range(4):
+                x = torch.tanh(x @ x)
+        time.sleep(0.005)
+    prof.export_chrome_trace(str(tmp_path / "prof.json"))
+    theirs = json.loads((tmp_path / "prof.json").read_text())
+    merged = t_spans.on_profiler_clock(tr.to_dict(), theirs)
+    assert merged["baseTimeNanoseconds"] == theirs["baseTimeNanoseconds"]
+    me = threading.get_native_id()
+    ops = [e for e in merged["traceEvents"] if e.get("cat") == "cpu_op"
+           and e["name"] in ("aten::mm", "aten::tanh")]
+    assert len(ops) == 8 and {e["tid"] for e in ops} == {me}
+    work, = [e for e in merged["traceEvents"] if e["name"] == "work"]
+    low = threading.get_ident() & 0xFFFFFFFF
+    assert work["args"]["os_tid"] == me and work["args"]["pthread_tid"] == (
+        abs(low - (1 << 32) if low >> 31 else low))
+    assert work["pid"] not in {e.get("pid") for e in theirs["traceEvents"]}
+    for e in ops:
+        assert work["ts"] <= e["ts"] and (e["ts"] + e["dur"]
+                                          <= work["ts"] + work["dur"])
+    # 5 ms of sleep on either side: a shift off by that much would show
+    assert ops[0]["ts"] - work["ts"] < 5e3
 
 
 # ---------------------------------------------------------------------------
