@@ -1705,6 +1705,9 @@ def run_torus_main_path():
                 "lif_step": N_WINDOWS}
         if can_defer:           # kernel F once per credited window
             want["admission"] = N_WINDOWS
+        if fields["transport"] != "alltoall":
+            # the ring rotation once per exchange and drain (each decoded)
+            want["torus_exchange"] = want["wire_codec"]
         if launches[name] != want:
             raise AssertionError(f"{name}: launches {launches[name]} != "
                                  f"{want}")
@@ -2021,8 +2024,11 @@ def run_fault_matrix(part, spec):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t1) * 1e3 / N_WINDOWS
         launches = dict(dispatch.LAUNCHES)
+        # the ring rotation's kernel in the healthy windows and in the
+        # drain and the final flush; a masked window replays it
         want = {"flush_window": N_WINDOWS, "wire_codec": N_WINDOWS + 2,
-                "lif_step": N_WINDOWS, "admission": N_WINDOWS}
+                "lif_step": N_WINDOWS, "admission": N_WINDOWS,
+                "torus_exchange": 2 + (N_WINDOWS if sched is None else 0)}
         if launches != want:
             raise AssertionError(f"fault matrix {name}: launches "
                                  f"{launches} != {want}")
@@ -2477,18 +2483,25 @@ def run_serve_main_path(smi: str):
         # one replay, one encode and one decode a window (drain segments
         # included); the final walk encodes once and decodes twice
         n_win = rep.windows + rep.drain_windows
-        want = {"repro_admission_tenants": n_win,
+        # kernel H after F in every healthy credited window, none under
+        # the dead cable's mask; the final walk's two rotations
+        want = {"repro_admission_tenants": n_win, "repro_torus_rotate": 2,
                 "repro_wire_encode": n_win + 1,
                 "repro_wire_decode": n_win + 2}
+        if not fault:
+            want["repro_tenant_exchange"] = n_win
         if entries != want:
             raise AssertionError(f"{label}: launches by entry point "
                                  f"{entries} != {want}")
         print(f"{label}: {rep.windows} windows + {rep.drain_windows} drain "
               f"windows; launches per window: admission "
-              f"{entries['repro_admission_tenants'] / n_win:.0f}, encode "
-              f"{(entries['repro_wire_encode'] - 1) / n_win:.0f}, decode "
-              f"{(entries['repro_wire_decode'] - 2) / n_win:.0f} (+ the "
-              f"walk's 1 encode, 2 decodes); {launches[label]}")
+              f"{entries['repro_admission_tenants'] / n_win:.0f}, exchange "
+              f"epilogue (kernel H) "
+              f"{entries.get('repro_tenant_exchange', 0) / n_win:.0f}, "
+              f"encode {(entries['repro_wire_encode'] - 1) / n_win:.0f}, "
+              f"decode {(entries['repro_wire_decode'] - 2) / n_win:.0f} (+ "
+              f"the walk's 1 encode, 2 decodes, 2 rotations); "
+              f"{launches[label]}")
         print(f"{label} [{smi}]: {rep.events_per_s:.0f} events/s, "
               f"{rep.wall_s * 1e3 / rep.windows:.3f} ms per served window "
               f"(host clock, ingest start to last absorb), peak device "
@@ -2619,6 +2632,147 @@ def check_admission_tenants(captured, smi: str):
                 tenant_faulted_loop_ms=faulted_ms, tenant_steps=steps)
 
 
+def _same_fields(what: str, got, want) -> int:
+    """Every leaf of two trees of NamedTuples: same fields, dtypes and
+    shapes, integers and booleans equal, floats equal bit for bit ->
+    the number of leaves."""
+    from repro_torch.convert import flatten
+    a, b = flatten(got), flatten(want)
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: fields {sorted(set(a) ^ set(b))}")
+    for key in a:
+        x, y = a[key], b[key]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{what}: {key} {x.dtype} {x.shape} vs "
+                                 f"{y.dtype} {y.shape}")
+        if x.dtype == np.float32:
+            x, y = x.view(np.int32), y.view(np.int32)
+        if not np.array_equal(x, y):
+            raise AssertionError(f"{what}: {key} differs from the eager "
+                                 f"chain")
+    return len(a)
+
+
+def check_torus_exchange(smi: str) -> dict:
+    """Kernel H (the tenant exchange epilogue) and the shared ring rotation
+    against the eager chain on the card (the same kernel F before both;
+    the rotation replayed): every TransportOut, LinkStats and FabricState
+    field, integers bit for bit and floats exact, on a recorded contended
+    segment of main path 4's deployment (8 windows' states, payloads and
+    counts, captured at the transport), one launch of H a window; the
+    rotation at the serving (E = T) and microcircuit (E = 1) shapes; then
+    times per call: H and the rotation (CUDA graph, and eager from Python),
+    the window's exchange (F + H) against the eager chain."""
+    import copy
+    from repro_torch.kernels import admission as adm
+    from repro_torch.kernels import dispatch, torus_exchange as tx
+    from repro_torch.transport import torus as tt
+    eng = serve_engine("cuda", True)
+    eng.warmup()
+    tr = eng.transport
+    real, calls = tr.exchange, []
+    clone = lambda t: None if t is None else t.clone()
+
+    def spy(state, payload, counts, **kw):
+        if not kw:                               # credited windows
+            calls.append((type(state)(*(
+                type(x)(*map(clone, x)) if hasattr(x, "_fields")
+                else clone(x) for x in state)), payload.clone(),
+                counts.clone()))
+        return real(state, payload, counts, **kw)
+
+    tr.exchange = spy
+    try:
+        eng.run(3, timeout=600)
+    finally:
+        del tr.exchange
+    torch.cuda.synchronize()
+    seg = SERVE_CFG["seg_windows"]
+    recorded = calls[seg:2 * seg]                # the second segment
+    plain = copy.copy(tr)
+    plain._rotate = plain._rotate_plain
+    leaves = parked = resumed = deferred = 0      # leaves: of one window
+    for i, (state, payload, counts) in enumerate(recorded):
+        dispatch.reset_launches()
+        got = tr.exchange(state, payload, counts)
+        if dispatch.ENTRY_LAUNCHES != {"repro_admission_tenants": 1,
+                                       "repro_tenant_exchange": 1}:
+            raise AssertionError(f"window {i}: launches "
+                                 f"{dispatch.ENTRY_LAUNCHES}, want F and H "
+                                 f"once each")
+        want = plain._exchange_plain(state, payload, counts, True)
+        leaves = _same_fields(f"kernel H, contended window {i}", got, want)
+        cin = want.recv_counts.permute(2, 0, 1)
+        _same_fields(f"rotation, window {i}", tr._rotate(cin),
+                     tr._rotate_plain(cin))
+        parked += int(want.stats.parked_events.sum())
+        resumed += int(want.stats.unparked_events.sum())
+        deferred += int(want.stats.deferred_events.sum())
+    if not (parked and deferred):
+        raise AssertionError(f"the recorded segment parked {parked} and "
+                             f"deferred {deferred} events")
+    mc = tt.Torus3DTransport(8, nx=2, ny=2, nz=2, link_credits=124,
+                             notify_latency=4, max_row_events=124)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for hi in (20, 125, 400):
+        cnt = torch.randint(0, hi, (8, 8), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        _same_fields(f"rotation E = 1, counts < {hi}", mc._rotate(cnt),
+                     mc._rotate_plain(cnt))
+    # times at the recorded segment's last window
+    state, payload, counts = recorded[-1]
+    blocks = adm.admission_tenants_blocks(
+        counts.transpose(0, 1).contiguous(), state,
+        tr._dev(counts.device)["routes"])
+    h_call = lambda: tx.tenant_exchange(
+        counts, payload, state, blocks, dims=tr.dims, fmt=tr.wire_fmt,
+        link_credits=tr.link_credits, max_hops=tr.max_hops)
+    ms, eager_ms = time_ms(h_call)
+    cin = recorded[-1][2].permute(0, 2, 1)
+    rot_ms, rot_eager_ms = time_ms(lambda: tr._rotate(cin))
+    _, win_eager_ms = time_ms(lambda: tr.exchange(state, payload, counts))
+    chain = lambda: plain._exchange_plain(state, payload, counts, True)
+    chain_eager_ms = time_loop(chain, calls=10)
+    # the chain copies host scalars, so no CUDA graph: its device time is
+    # the profiler's sum over its kernels and copies, less F's
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            chain()
+        torch.cuda.synchronize()
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()}
+    f_us = sum(v for k, v in dev_us.items() if "admission" in k)
+    chain_ms = (sum(dev_us.values()) - f_us) / 10 / 1e3
+    out = h_call()
+    # what it reads once and its one output allocation
+    n_bytes = (sum(x.numel() * x.element_size() for x in (
+        counts, payload, state.parked_count, state.parked_payload,
+        state.bank.credits, state.bank.pending, *blocks[:3]))
+        + out.recv_payload.untyped_storage().nbytes())
+    bms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[{smi}] kernel H (tenant exchange epilogue): {len(recorded)} "
+          f"contended windows, {leaves} fields each window bit for bit "
+          f"against the eager chain (parked {parked}, unparked {resumed}, "
+          f"deferred {deferred}); the rotation at E = T and E = 1 likewise; "
+          f"H {ms * 1e3:.2f} us a call (CUDA graph), eager "
+          f"{eager_ms * 1e3:.1f} us; the rotation alone {rot_ms * 1e3:.2f} "
+          f"us (graph), eager {rot_eager_ms * 1e3:.1f} us; bound "
+          f"{bms * 1e3:.4f} us ({n_bytes} B); the window's exchange F + H "
+          f"eager {win_eager_ms:.4f} ms, the eager chain (F + its ATen "
+          f"calls) {chain_eager_ms:.4f} ms eager, its ATen calls "
+          f"{chain_ms * 1e3:.2f} us of device time (profiler, F left out)")
+    return dict(name="torus_exchange", route="cuda",
+                source="src/repro_torch/csrc/torus_exchange.cu",
+                replaces="none: no TPU kernel (the reference's ring phases "
+                         "and LinkStats chain, src/repro/transport/torus.py)",
+                max_abs_err=0.0, ms=ms, plain_ms=chain_ms, bound_ms=bms,
+                bound_by="bytes", library_ms=None, eager_ms=eager_ms,
+                plain_eager_ms=chain_eager_ms, rotate_ms=rot_ms,
+                rotate_eager_ms=rot_eager_ms, window_eager_ms=win_eager_ms,
+                parity=f"bit-exact ({len(recorded)} contended windows, "
+                       f"every field; the rotation at E = T and E = 1)")
+
+
 # ---------------------------------------------------------------------------
 # Observability: the recorded simulator (obs-sim) and the instrumented
 # spike engine (obs-serve).
@@ -2716,12 +2870,15 @@ def run_obs_sim(part, spec, smi: str):
     cfg = sim_config(part, **{**dict(e_max=1024, capacity=1024, residue=256),
                               **TORUS_RUNS["torus3d, binding credits"]})
     dims, S = (2, 2, 2), TORUS_SHARDS
-    want = {"flush_window": N_WINDOWS, "lif_step": N_WINDOWS,
-            "admission": N_WINDOWS, "wire_codec": N_WINDOWS + 2}
     total: dict = {}
     for label, fault in (("healthy", False), ("link_fault(0, x+)", True)):
         sched = (faults.link_fault(dims, N_WINDOWS, 0, 0, start=2,
                                    device="cuda") if fault else None)
+        # the ring rotation's kernel in the healthy windows, the drain and
+        # the final flush
+        want = {"flush_window": N_WINDOWS, "lif_step": N_WINDOWS,
+                "admission": N_WINDOWS, "wire_codec": N_WINDOWS + 2,
+                "torus_exchange": 2 + (0 if fault else N_WINDOWS)}
         runs, walls = {}, {False: [], True: []}
         # off, on, on, off: the host clock drifts within a call
         for on in (False, True, True, False):
@@ -2850,6 +3007,7 @@ def run_obs_serve(smi: str, solo):
         entries = dict(dispatch.ENTRY_LAUNCHES)
         n_win = rep.windows + rep.drain_windows
         want = {"repro_admission_tenants": n_win,
+                "repro_tenant_exchange": n_win, "repro_torus_rotate": 2,
                 "repro_wire_encode": n_win + 1,
                 "repro_wire_decode": n_win + 2}
         if entries != want:
@@ -2859,8 +3017,8 @@ def run_obs_serve(smi: str, solo):
         print(f"obs-serve {label} [{smi}]: {rep.events_per_s:.0f} events/s, "
               f"{rep.wall_s * 1e3 / rep.windows:.3f} ms per served window "
               f"(host clock), {rep.windows} + {rep.drain_windows} drain "
-              f"windows; launches per window: admission, encode, decode 1 "
-              f"each ({entries})")
+              f"windows; launches per window: admission, exchange "
+              f"epilogue, encode, decode 1 each ({entries})")
     eng, rep, launches = runs["instrumented"]
     plain = runs["plain"][1]
     for t, d in enumerate(rep.tenants):
@@ -5394,7 +5552,8 @@ def run_entry_microcircuit(net, smi: str) -> dict:
     its ``alltoall extoll`` run): seed-0 potentials and a background drive
     drawn on the card; a 1-window warm-up, then the 25-window run with its
     launches counted (flush_window 25, lif_step 25, wire_codec 26: a
-    decode per exchange and the final flush's), 0 overflows, and the first
+    decode per exchange and the final flush's; torus_exchange 26, the
+    ring rotation of each), 0 overflows, and the first
     windows card == CPU.  Returns its launches."""
     from repro_torch.examples import multiwafer_microcircuit as ex
     from repro_torch.kernels import dispatch
@@ -5413,7 +5572,7 @@ def run_entry_microcircuit(net, smi: str) -> dict:
                    device="cuda")
     launches = dict(dispatch.LAUNCHES)
     want = {"flush_window": N_WINDOWS, "lif_step": N_WINDOWS,
-            "wire_codec": N_WINDOWS + 1}
+            "wire_codec": N_WINDOWS + 1, "torus_exchange": N_WINDOWS + 1}
     if launches != want:
         raise AssertionError(f"{transport} {fmt}: launches {launches} != "
                              f"{want}")
@@ -5531,7 +5690,8 @@ def run_entry_trace_smoke(smi: str) -> dict:
         trace_smoke.obs_report.write_engine_run = write
     meta = json.loads((TRACE_SMOKE_DIR / "meta.json").read_text())
     n = meta["seg_windows"] + meta["windows"] + meta["drain_windows"]
-    want = {"repro_admission_tenants": n, "repro_wire_encode": n + 2,
+    want = {"repro_admission_tenants": n, "repro_tenant_exchange": n,
+            "repro_torus_rotate": 4, "repro_wire_encode": n + 2,
             "repro_wire_decode": n + 4}
     if entries != want:
         raise AssertionError(f"trace smoke: launches {entries} != {want}")
@@ -5708,6 +5868,10 @@ def main() -> int:
     f_record.update(check_admission_tenants(captured4,
                                             smi.splitlines()[0]))
     del captured4
+
+    banner("kernel H, the tenant exchange epilogue, and the ring rotation "
+           "against the eager chain")
+    records.append(check_torus_exchange(smi.splitlines()[0]))
 
     banner("kernel G, the cycle models, card vs CPU")
     check_cycle_small()

@@ -52,6 +52,10 @@ SIGNATURES = {
     "repro_bucket_trace": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_ring_run": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_torus_rotate": (_P, _L, _L, _L, _I, _I, _I, _I, _I, *(_I,) * 8,
+                           *(_P,) * 6, _P),
+    "repro_tenant_exchange": (*(_P,) * 22, _I, _I, _I, _I, _I, _F, _I, _I,
+                              _I, _I, *(_I,) * 8, _P),
 }
 
 _lock = threading.Lock()

@@ -24,7 +24,8 @@ every link's shared pool: :func:`admission_tenants` launches the same
 source's tenant kernel, one launch per window, and runs
 :func:`admission_tenants_plain` or :func:`admission_tenants_faulted_plain`
 on CPU tensors.  The single-tenant kernel and its loops are untouched by
-it.
+it.  :func:`admission_tenants_blocks` returns the kernel's packed output
+blocks as they are, for kernel H (``kernels/torus_exchange.py``) to read.
 
 With ``stall_lane=True`` both forms also return ``stalled_by_link``, the
 window's deferred events per physical egress link (reference
@@ -907,21 +908,27 @@ def admission(counts, state, tables: RouteTables,
     return AdmissionOut(**fields, stalled_by_link=out_stall)
 
 
-def admission_tenants(counts, state, tables: RouteTables,
-                      link_down: torch.Tensor | None = None, *,
-                      stall_lane: bool = False) -> TenantAdmissionOut:
-    """Kernel F's tenant form on CUDA tensors, one launch; on CPU tensors
-    the plain replay, healthy (:func:`admission_tenants_plain`) or under
-    the mask (:func:`admission_tenants_faulted_plain`).
+class TenantAdmissionBlocks(NamedTuple):
+    """Kernel F's tenant form as its packed output blocks (the fields of
+    :class:`TenantAdmissionOut` are their rows)."""
 
-    ``counts`` (T, S, S) int32; ``state`` a partitioned ``FabricState``
-    ((T, S, S) transit tables with ``parked_hold_shared``, ``(T+1)*K``
-    bank slots and ``parked_by_link``); ``tables`` the transport's
-    :class:`RouteTables`; ``link_down`` None or the (K,) bool mask of the
-    physical links; ``stall_lane`` adds ``stalled_by_link`` over the K
-    physical links (in the same launch on the card).  Operands of another
-    type or shape are refused on both paths.
-    """
+    i32: torch.Tensor               # (10, T, S, S) _TENANT_I32_FIELDS
+    bools: torch.Tensor             # (3, T, S, S) _BOOL_FIELDS
+    links: torch.Tensor             # (3, (T+1)*K) _LINK_FIELDS
+    stall: torch.Tensor | None      # (K,) or None (``stall_lane``)
+
+
+def tenant_fields(blocks: TenantAdmissionBlocks) -> TenantAdmissionOut:
+    """The blocks' rows as a :class:`TenantAdmissionOut` (views)."""
+    fields = dict(zip(_TENANT_I32_FIELDS, blocks.i32))
+    fields.update(zip(_BOOL_FIELDS, blocks.bools))
+    fields.update(zip(_LINK_FIELDS, blocks.links))
+    return TenantAdmissionOut(**fields, stalled_by_link=blocks.stall)
+
+
+def _tenant_checks(counts, state, tables: RouteTables, link_down):
+    """Refuse tenant-replay operands of another type or shape -> whether
+    they lie on CUDA."""
     operands = [counts, state.parked_count, state.parked_hop,
                 state.parked_age, state.parked_hold_shared,
                 state.bank.credits, state.bank.epoch, state.parked_by_link,
@@ -957,13 +964,54 @@ def admission_tenants(counts, state, tables: RouteTables,
             f"admission_tenants: {T} tenants, {ndim} axes, routes of {H2} "
             f"hops; the replay takes >= 1 tenant, 1..3 axes and at most "
             f"{MAX_HOPS} hops")
-    if not cuda:
-        if link_down is None:
-            return admission_tenants_plain(counts, state, tables,
+    return cuda
+
+
+def admission_tenants(counts, state, tables: RouteTables,
+                      link_down: torch.Tensor | None = None, *,
+                      stall_lane: bool = False) -> TenantAdmissionOut:
+    """Kernel F's tenant form on CUDA tensors, one launch; on CPU tensors
+    the plain replay, healthy (:func:`admission_tenants_plain`) or under
+    the mask (:func:`admission_tenants_faulted_plain`).
+
+    ``counts`` (T, S, S) int32; ``state`` a partitioned ``FabricState``
+    ((T, S, S) transit tables with ``parked_hold_shared``, ``(T+1)*K``
+    bank slots and ``parked_by_link``); ``tables`` the transport's
+    :class:`RouteTables`; ``link_down`` None or the (K,) bool mask of the
+    physical links; ``stall_lane`` adds ``stalled_by_link`` over the K
+    physical links (in the same launch on the card).  Operands of another
+    type or shape are refused on both paths.
+    """
+    if _tenant_checks(counts, state, tables, link_down):
+        return tenant_fields(_launch_tenants(counts, state, tables,
+                                             link_down, stall_lane))
+    if link_down is None:
+        return admission_tenants_plain(counts, state, tables,
+                                       stall_lane=stall_lane)
+    return admission_tenants_faulted_plain(counts, state, tables, link_down,
                                            stall_lane=stall_lane)
-        return admission_tenants_faulted_plain(counts, state, tables,
-                                               link_down,
-                                               stall_lane=stall_lane)
+
+
+def admission_tenants_blocks(counts, state, tables: RouteTables,
+                             link_down: torch.Tensor | None = None, *,
+                             stall_lane: bool = False
+                             ) -> TenantAdmissionBlocks:
+    """Kernel F's tenant form as its packed output blocks, which kernel H
+    (``kernels.torus_exchange.tenant_exchange``) reads as they are; CUDA
+    tensors only (operands as :func:`admission_tenants`)."""
+    if not _tenant_checks(counts, state, tables, link_down):
+        raise ValueError("admission_tenants_blocks takes CUDA tensors; on "
+                         "the CPU call admission_tenants")
+    return _launch_tenants(counts, state, tables, link_down, stall_lane)
+
+
+def _launch_tenants(counts, state, tables, link_down,
+                    stall_lane) -> TenantAdmissionBlocks:
+    T, n = counts.shape[0], counts.shape[1]
+    R = n * n
+    ndim = tables.seg.shape[0]
+    K = n * 2 * ndim
+    H2, Hs = tables.seq_alt.shape[-1], tables.seg.shape[-1]
     smem = shared_bytes(R, K, T, stall_lane=stall_lane)
     if smem > MAX_SHARED:
         raise ValueError(f"admission_tenants: {n} shards and {T} tenants "
@@ -988,7 +1036,4 @@ def admission_tenants(counts, state, tables: RouteTables,
         out_i32.data_ptr(), out_bool.data_ptr(), out_links.data_ptr(),
         None if out_stall is None else out_stall.data_ptr(), n, T, ndim, H2,
         Hs)
-    fields = dict(zip(_TENANT_I32_FIELDS, out_i32))
-    fields.update(zip(_BOOL_FIELDS, out_bool))
-    fields.update(zip(_LINK_FIELDS, out_links))
-    return TenantAdmissionOut(**fields, stalled_by_link=out_stall)
+    return TenantAdmissionBlocks(out_i32, out_bool, out_links, out_stall)

@@ -44,6 +44,14 @@ its rows carry a tenant axis, its admission is kernel F's tenant form, and
 each bundle of the rotation carries T count columns, one frame train per
 tenant.
 
+On the card, without a mask, the rotation is one launch
+(``kernels/torus_exchange.py``, ``csrc/torus_exchange.cu``) for every
+caller, and the tenant transport's credited window is two: kernel F's
+tenant form, then kernel H, which forms the shipped and delivered rows,
+the new state and every ``LinkStats`` field from F's outputs.  The eager
+chain below is their plain version: it runs on CPU tensors and, on the
+card, under a dead-link mask, whose ring phases flip bundles.
+
 ``stall_attribution=True`` (the flight recorder's per-link congestion
 table, reference ``_stall_attr``) has kernel F write one more output, the
 window's deferred events per physical egress link, in the same launch;
@@ -60,7 +68,7 @@ import torch
 from repro_torch.core import aggregator
 from repro_torch.core import flow_control as fc
 from repro_torch.core.torus import Torus
-from repro_torch.kernels import admission, dispatch
+from repro_torch.kernels import admission, dispatch, torus_exchange
 from repro_torch.transport import base
 from repro_torch.wire import framing as wire_framing
 from repro_torch.wire import latency as wire_latency
@@ -350,19 +358,37 @@ class TorusTransport(base.Transport):
                     acc["in_flight_phase"][a], occ)
         return recv
 
-    def _rotate(self, cnt: torch.Tensor, down: torch.Tensor | None = None):
+    def _rotate(self, cnt: torch.Tensor, down: torch.Tensor | None = None
+                ) -> torus_exchange.Rotation:
         """All dimension-ordered phases over the (S, S, *E) [src, dst, ...]
-        counts -> (rotation statistics, (S, S, *E) [dst, src, ...]
-        delivered counts)."""
-        z = torch.zeros((self.n_shards,), dtype=torch.int32,
-                        device=cnt.device)
+        counts -> the rotation's statistics and the (S, *E) events
+        delivered to each shard.  Healthy on the card: one launch
+        (``kernels.torus_exchange.rotate``); on the CPU or under a mask
+        the replay (:meth:`_rotate_plain`)."""
+        if down is None and dispatch.on_cuda(cnt):
+            return torus_exchange.rotate(cnt, self.dims, self.wire_fmt)
+        return self._rotate_plain(cnt, down)
+
+    def _rotate_plain(self, cnt: torch.Tensor,
+                      down: torch.Tensor | None = None
+                      ) -> torus_exchange.Rotation:
+        """The rotation's plain version: every phase's hops replayed."""
+        n = self.n_shards
+        z = torch.zeros((n,), dtype=torch.int32, device=cnt.device)
         acc = {"bytes": z, "owire": z, "hops": 0, "in_flight": z,
                "in_flight_phase": [z] * self.ndim}
         buf = cnt
         for a in range(self.ndim):
             buf = self._from_phase(
                 self._ring_phase(self._to_phase(buf, a), a, acc, down), a)
-        return acc, buf
+        # buf is [dst, src, ...]: every row at its destination
+        return torus_exchange.Rotation(
+            bytes=acc["bytes"], owire=acc["owire"],
+            hops=torch.full((n,), acc["hops"], dtype=torch.int32,
+                            device=cnt.device),
+            in_flight=acc["in_flight"],
+            in_flight_phase=torch.stack(acc["in_flight_phase"], -1),
+            delivered=buf.sum(1, dtype=torch.int32))
 
     @staticmethod
     def _deliver(payload: torch.Tensor, counts: torch.Tensor):
@@ -441,7 +467,7 @@ class TorusTransport(base.Transport):
             queue_us = park_wait_us = torch.zeros((n, n),
                                                   dtype=torch.float32,
                                                   device=device)
-        acc, rot = self._rotate(cnt_in, down)
+        rot = self._rotate(cnt_in, down)
         recv_payload, recv_counts = self._deliver(row_payload, cnt_in)
 
         # deferred rows histogrammed by their blocking hop, parked rows by
@@ -478,21 +504,20 @@ class TorusTransport(base.Transport):
                                        device=device)
             parked_by_hop = torch.zeros((n, H), dtype=torch.int32,
                                         device=device)
-            owire = acc["owire"]
+            owire = rot.owire
             dwell = torch.zeros((n,), dtype=torch.float32, device=device)
         stats = base.LinkStats(
             offered_events=offered,
             sent_events=sent,
             deferred_events=offered - sent - parked,
-            delivered_events=rot.sum(-1, dtype=torch.int32),
+            delivered_events=rot.delivered,
             credit_stalls=(stall_hop >= 0).sum(-1, dtype=torch.int32),
-            hops=torch.full((n,), acc["hops"], dtype=torch.int32,
-                            device=device),
-            forwarded_bytes=acc["bytes"],
+            hops=rot.hops,
+            forwarded_bytes=rot.bytes,
             bytes_on_wire=owire,
-            max_in_flight=acc["in_flight"],
+            max_in_flight=rot.in_flight,
             stalled_by_hop=stalled_by_hop,
-            max_in_flight_by_phase=torch.stack(acc["in_flight_phase"], -1),
+            max_in_flight_by_phase=rot.in_flight_phase,
             parked_events=parked,
             unparked_events=unparked,
             in_fabric_events=in_fabric,
@@ -537,7 +562,7 @@ class TorusTransport(base.Transport):
         payload = torch.where((pc > 0)[..., None], state.parked_payload,
                               torch.zeros((), dtype=torch.int32,
                                           device=device))
-        acc, rot = self._rotate(pc)
+        rot = self._rotate(pc)
         recv_payload, recv_counts = self._deliver(payload, pc)
         bank = fc.credit_tick(state.bank,
                               torch.zeros_like(state.bank.credits),
@@ -555,14 +580,13 @@ class TorusTransport(base.Transport):
                      -1, dtype=torch.int32)
         stats = base.zero_link_stats((n,), self.max_hops, self.ndim,
                                      device=device)._replace(
-            delivered_events=rot.sum(-1, dtype=torch.int32),
+            delivered_events=rot.delivered,
             unparked_events=pc.sum(-1, dtype=torch.int32),
-            hops=torch.full((n,), acc["hops"], dtype=torch.int32,
-                            device=device),
-            forwarded_bytes=acc["bytes"],
+            hops=rot.hops,
+            forwarded_bytes=rot.bytes,
             bytes_on_wire=owire,
-            max_in_flight=acc["in_flight"],
-            max_in_flight_by_phase=torch.stack(acc["in_flight_phase"], -1))
+            max_in_flight=rot.in_flight,
+            max_in_flight_by_phase=rot.in_flight_phase)
         zf = torch.zeros((n, n), dtype=torch.float32, device=device)
         full = torch.ones((n, n), dtype=torch.bool, device=device)
         return base.TransportOut(
@@ -741,42 +765,41 @@ class TenantTorusTransport(TorusTransport):
                            device=hop.device).scatter_add_(
             -1, torch.clamp(hop, 0, H - 1).long(), weight.to(torch.int32))
 
-    def _fabric_level(self, acc: dict):
+    def _fabric_level(self, rot: torus_exchange.Rotation):
         """Fabric-wide (non-decomposable) stats, (S,) per holder, put on
         tenant 0 so sums over tenants stay physical -> (S, T) each and
         (S, T, ndim)."""
         n, T = self.n_shards, self.n_tenants
-        device = acc["bytes"].device
 
         def on0(v):
             out = torch.zeros((n, T) + v.shape[1:], dtype=torch.int32,
-                              device=device)
+                              device=v.device)
             out[:, 0] = v
             return out
 
-        hops = torch.full((n,), acc["hops"], dtype=torch.int32,
-                          device=device)
-        return (on0(hops), on0(acc["bytes"]), on0(acc["in_flight"]),
-                on0(torch.stack(acc["in_flight_phase"], -1)))
+        return (on0(rot.hops), on0(rot.bytes), on0(rot.in_flight),
+                on0(rot.in_flight_phase))
 
     def _ship(self, row_payload: torch.Tensor, cnt: torch.Tensor,
               down: torch.Tensor | None = None):
         """Rotate the (S, T, S) [src, tenant, dst] counts with one count
-        column per tenant and deliver the rows -> (acc, recv_payload
-        (S, T, S, W), recv_counts (S, T, S), delivered (S, T))."""
-        acc, rot = self._rotate(cnt.permute(0, 2, 1), down)
+        column per tenant and deliver the rows -> (rotation with
+        ``delivered`` (S, T), recv_payload (S, T, S, W), recv_counts
+        (S, T, S))."""
+        rot = self._rotate(cnt.permute(0, 2, 1), down)
         recv = base.pack_payload(row_payload, cnt).permute(2, 1, 0, 3)
         recv_payload, recv_counts = base.unpack_payload(recv.contiguous())
-        return acc, recv_payload, recv_counts, rot.sum(1, dtype=torch.int32)
+        return rot, recv_payload, recv_counts
 
     # -- the full multi-tenant window --------------------------------------
     def exchange(self, state: base.LinkState, payload: torch.Tensor,
                  counts: torch.Tensor, *,
                  enforce_credits: bool = True) -> base.TransportOut:
         """Ship one window for every tenant: ``payload`` (S, T, S, W),
-        ``counts`` (S, T, S); see the class docstring for the result."""
-        T, n, H = self.n_tenants, self.n_shards, self.max_hops
-        device = payload.device
+        ``counts`` (S, T, S); see the class docstring for the result.
+        Healthy and credited on the card: :meth:`_exchange_card`; on the
+        CPU, under a mask or uncredited: :meth:`_exchange_plain`."""
+        T, n = self.n_tenants, self.n_shards
         counts = counts.to(torch.int32)
         if tuple(payload.shape[:3]) != (n, T, n) or tuple(
                 counts.shape) != (n, T, n):
@@ -784,23 +807,34 @@ class TenantTorusTransport(TorusTransport):
                 f"tenant transport wants payload (S={n}, T={T}, S, W) and "
                 f"counts (S, T, S); got {tuple(payload.shape)} / "
                 f"{tuple(counts.shape)}")
-        is_local = self._dev(device)["eye"][:, None, :]      # (S, 1, S)
-        zero_w = torch.zeros((), dtype=payload.dtype, device=device)
-        zero_q = torch.zeros((T, n, n), dtype=torch.float32, device=device)
         down = state.link_down
         if down is not None and not enforce_credits:
             raise ValueError("fault injection (FabricState.link_down) "
                              "requires credit flow control; "
                              "enforce_credits=False cannot reroute")
+        if enforce_credits and state.parked_payload.shape != payload.shape:
+            raise ValueError(
+                f"FabricState payload buffer "
+                f"{tuple(state.parked_payload.shape)} != offered "
+                f"payload {tuple(payload.shape)}: initialize with "
+                f"init_state(payload_width=W)")
+        if enforce_credits and down is None and dispatch.on_cuda(payload):
+            return self._exchange_card(state, payload, counts)
+        return self._exchange_plain(state, payload, counts, enforce_credits)
+
+    def _exchange_plain(self, state: base.FabricState, payload: torch.Tensor,
+                        counts: torch.Tensor,
+                        enforce_credits: bool) -> base.TransportOut:
+        """The window's plain version (kernel H's): the eager chain after
+        kernel F, on the CPU, under a dead-link mask and uncredited."""
+        T, n, H = self.n_tenants, self.n_shards, self.max_hops
+        device, down = payload.device, state.link_down
+        is_local = self._dev(device)["eye"][:, None, :]      # (S, 1, S)
+        zero_w = torch.zeros((), dtype=payload.dtype, device=device)
+        zero_q = torch.zeros((T, n, n), dtype=torch.float32, device=device)
         # (T, S, S) [tenant, src, dst] -> each source's (S, T, S) rows
         mine = lambda x: x.transpose(0, 1).contiguous()
         if enforce_credits:
-            if state.parked_payload.shape != payload.shape:
-                raise ValueError(
-                    f"FabricState payload buffer "
-                    f"{tuple(state.parked_payload.shape)} != offered "
-                    f"payload {tuple(payload.shape)}: initialize with "
-                    f"init_state(payload_width=W)")
             # the reference all-gathers the (T, n) counts of every shard;
             # on one card that is a transpose of the stacked counts
             adm = self._admit_tenants(state, mine(counts), down)
@@ -844,8 +878,8 @@ class TenantTorusTransport(TorusTransport):
                                               device=device)
             queue_us = park_wait_us = zero_q
 
-        acc, recv_payload, recv_counts, delivered = self._ship(
-            row_payload, cnt_in, down)
+        rot, recv_payload, recv_counts = self._ship(row_payload, cnt_in,
+                                                    down)
         stalled_by_hop = self._by_hop(
             stall_hop, torch.where(stall_hop >= 0, counts, 0))
         offered = counts.sum(-1, dtype=torch.int32)
@@ -861,8 +895,13 @@ class TenantTorusTransport(TorusTransport):
             c_row = torch.where(resumed, pc0, counts)
             owire = (wire_framing.frame_bytes(self.wire_fmt, c_row)
                      * mine(adm.links_traversed)).sum(-1, dtype=torch.int32)
-            dwell = torch.where(fresh_c | resumed,
-                                mine(queue_us + park_wait_us), 0.0).sum(-1)
+            # summed from the first destination to the last, the order
+            # kernel H adds in
+            dwell_row = torch.where(fresh_c | resumed,
+                                    mine(queue_us + park_wait_us), 0.0)
+            dwell = dwell_row[..., 0]
+            for d in range(1, n):
+                dwell = dwell + dwell_row[..., d]
             in_fabric = pk_cnt.sum(-1, dtype=torch.int32)
             rerouted = mine(adm.rerouted).sum(-1, dtype=torch.int32)
         else:
@@ -871,15 +910,15 @@ class TenantTorusTransport(TorusTransport):
             parked_by_hop = torch.zeros((n, T, H), dtype=torch.int32,
                                         device=device)
             owire = zt.clone()
-            owire[:, 0] = acc["owire"]
+            owire[:, 0] = rot.owire
             dwell = torch.zeros((n, T), dtype=torch.float32, device=device)
             in_fabric = mine(state.parked_count).sum(-1, dtype=torch.int32)
-        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(acc)
+        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(rot)
         stats = base.LinkStats(
             offered_events=offered,
             sent_events=sent,
             deferred_events=offered - sent - parked,
-            delivered_events=delivered,
+            delivered_events=rot.delivered,
             credit_stalls=(stall_hop >= 0).sum(-1, dtype=torch.int32),
             hops=hops_f,
             forwarded_bytes=bytes_f,
@@ -909,6 +948,39 @@ class TenantTorusTransport(TorusTransport):
             links_used=adm.links_done if down is not None else None,
         )
 
+    def _exchange_card(self, state: base.FabricState, payload: torch.Tensor,
+                       counts: torch.Tensor) -> base.TransportOut:
+        """The healthy credited window on the card in two launches: kernel
+        F's tenant form, then kernel H (``kernels.torus_exchange.
+        tenant_exchange``) on F's output blocks; every field as
+        :meth:`_exchange_plain` gives it."""
+        blocks = admission.admission_tenants_blocks(
+            counts.transpose(0, 1).contiguous(), state,
+            self._dev(payload.device)["routes"],
+            stall_lane=self.stall_attribution)
+        h = torus_exchange.tenant_exchange(
+            counts, payload, state, blocks, dims=self.dims,
+            fmt=self.wire_fmt, link_credits=self.link_credits,
+            max_hops=self.max_hops)
+        adm = admission.tenant_fields(blocks)
+        stats = base.LinkStats(
+            **{f: getattr(h, f) for f in torus_exchange.SHARD_FIELDS},
+            stalled_by_hop=h.stalled_by_hop,
+            max_in_flight_by_phase=h.max_in_flight_by_phase,
+            parked_by_hop=h.parked_by_hop, queue_dwell_us=h.queue_dwell_us,
+            stalled_by_link=self._stall_rows(adm))
+        return base.TransportOut(
+            state=base.FabricState(
+                bank=fc.CreditBank(h.credits, h.pending, h.epoch),
+                parked_count=adm.park_count, parked_hop=adm.park_hop,
+                parked_age=adm.park_age, parked_by_link=adm.parked_by_link,
+                parked_payload=h.parked_payload,
+                parked_hold_shared=adm.hold_shared),
+            recv_payload=h.recv_payload, recv_counts=h.recv_counts,
+            sent_mask=h.sent_mask, stats=stats, sent_now=h.sent_now,
+            queue_us=h.queue_us, unparked_now=h.unparked_now,
+            park_wait_us=h.park_wait_us)
+
     # -- end-of-run fabric walk --------------------------------------------
     def drain_fabric(self, state: base.LinkState,
                      payload_width: int | None = None) -> base.TransportOut:
@@ -924,8 +996,7 @@ class TenantTorusTransport(TorusTransport):
         row_payload = torch.where((pc > 0)[..., None], state.parked_payload,
                                   torch.zeros((), dtype=torch.int32,
                                               device=device))
-        acc, recv_payload, recv_counts, delivered = self._ship(row_payload,
-                                                               pc)
+        rot, recv_payload, recv_counts = self._ship(row_payload, pc)
         bank = fc.credit_tick(state.bank,
                               torch.zeros_like(state.bank.credits),
                               notify=state.parked_by_link)
@@ -941,12 +1012,12 @@ class TenantTorusTransport(TorusTransport):
         owire = (wire_framing.frame_bytes(self.wire_fmt, pc)
                  * torch.where(pc > 0, remaining, 0)).sum(-1,
                                                           dtype=torch.int32)
-        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(acc)
+        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(rot)
         zt = torch.zeros((n, T), dtype=torch.int32, device=device)
         zh = torch.zeros((n, T, H), dtype=torch.int32, device=device)
         stats = base.LinkStats(
             offered_events=zt, sent_events=zt, deferred_events=zt,
-            delivered_events=delivered, credit_stalls=zt,
+            delivered_events=rot.delivered, credit_stalls=zt,
             hops=hops_f, forwarded_bytes=bytes_f, bytes_on_wire=owire,
             max_in_flight=inflight_f, stalled_by_hop=zh,
             max_in_flight_by_phase=inflight_ph, parked_events=zt,

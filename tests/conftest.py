@@ -15,6 +15,11 @@ def pytest_configure(config):
         "a plain local `python -m pytest` still runs everything)")
     config.addinivalue_line(
         "markers",
+        "card: needs a CUDA card (a hand-written kernel with no CPU "
+        "build); skips with a reason where torch sees none. On the card: "
+        "`python -m pytest -m card tests/`")
+    config.addinivalue_line(
+        "markers",
         "timeout(seconds): hard wall-clock limit for the test call. "
         "Required on every test that starts threads (the serve engine's "
         "ingest/device loops): a deadlocked queue join would otherwise "
