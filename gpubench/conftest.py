@@ -40,31 +40,40 @@ TINY_CELLS = {
 }
 
 
-def make_tiny_root(dest: Path) -> Path:
-    """Copy the benchmark to ``dest`` and add the small cells."""
+def make_tiny_root(dest: Path, configs: dict | None = None,
+                   traffic: dict | None = None,
+                   cells: dict | None = None) -> Path:
+    """Copy the benchmark to ``dest`` and add the small cells, with
+    ``configs``, ``traffic`` and ``cells`` (specs shaped like
+    ``TINY_CONFIGS``, ``TINY_TRAFFIC`` and ``TINY_CELLS``) beside them.  A
+    cell joins every metric of the manifest's cell whose traffic its
+    traffic is made from."""
+    configs = {**TINY_CONFIGS, **(configs or {})}
+    traffic = {**TINY_TRAFFIC, **(traffic or {})}
+    cells = {**TINY_CELLS, **(cells or {})}
     shutil.copytree(ROOT / "gpubench", dest / "gpubench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     man = json.loads((ROOT / "BENCHMARK.json").read_text())
     bench = dest / "gpubench"
     files = {c["name"]: c["file"] for c in man["configs"]}
-    for name, spec in TINY_CONFIGS.items():
+    for name, spec in configs.items():
         cfg = json.loads((ROOT / files[spec["base"]]).read_text())
         cfg.update(spec["set"])
         path = f"gpubench/configs/{name}.json"
         (dest / path).write_text(json.dumps(cfg))
         man["configs"].append({"name": name, "source": "test",
                                "file": path, "reduced": [], "why": "test"})
-    for name, spec in TINY_TRAFFIC.items():
+    for name, spec in traffic.items():
         tr = json.loads((bench / "traffic" / f"{spec['base']}.json")
                         .read_text())
         tr.update(spec["set"])
         (bench / "traffic" / f"{name}.json").write_text(json.dumps(tr))
     by_traffic = {w["traffic"]: w["name"] for w in man["workloads"]}
-    for cell, (config, traffic) in TINY_CELLS.items():
+    for cell, (config, mix) in cells.items():
         man["workloads"].append({"name": cell, "config": config,
-                                 "traffic": traffic, "chips": 1,
+                                 "traffic": mix, "chips": 1,
                                  "why": "test"})
-        like = by_traffic[TINY_TRAFFIC[traffic]["base"]]
+        like = by_traffic[traffic[mix]["base"]]
         for m in man["end_to_end"] + man["per_layer"]:
             if like in m.get("workloads", ()):
                 m["workloads"].append(cell)

@@ -15,7 +15,22 @@ metric or kernel counter sits in a file of its own, found by name:
   (bytes, ops)``).
 
 So a later change adds a cell, a configuration, a mix or a metric by
-adding files and entries, and edits none.
+adding files and entries, and edits none:
+
+* a new kind is ``gpubench/kinds/<kind>.py`` with ``run(cell, *, seed,
+  seconds, trace, device, t_start, control)`` returning what
+  ``harness.runner.run_cell`` reads, and ``DRIVES``, the program that the
+  planted faults of ``test_gpubench_faults.py`` break (``"simulator"`` or
+  ``"engine"``);
+* a network kind hands its four parts (inputs, program, reference, the
+  carry's translation) to ``gpubench.kinds.microcircuit.run_network``,
+  which holds the set-up, the timed window and the check, and passes the
+  program's tracer spans in the profiled segments to the readers;
+* a new reference is a new file under ``gpubench/reference/`` that
+  imports nothing of the program (``test_gpubench_harness.py`` holds it);
+* a new cell joins an existing metric by appending its own name to that
+  metric's ``workloads`` list in ``BENCHMARK.json`` (as the tests'
+  ``make_tiny_root`` does).
 """
 from __future__ import annotations
 

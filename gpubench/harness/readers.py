@@ -12,6 +12,18 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 
+def program_spans(tracer) -> list:
+    """The complete events (``ph`` ``"X"``) of a ``repro_torch.obs.spans``
+    tracer, each with its track's name under ``track``."""
+    events = tracer.to_dict()["traceEvents"]
+    names = {e["tid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e["name"] == "thread_name"}
+    done = [e for e in events if e.get("ph") == "X"]
+    for e in done:
+        e["track"] = names.get(e.get("tid"))
+    return done
+
+
 class Context:
     """``trace`` a ``harness.trace.DeviceTrace`` (or None), ``sizes`` the
     cell's sizes as the program runs it (the counters in

@@ -2,6 +2,11 @@
 simulated window by window through the port's segment API
 (``repro_torch.snn.simulator.build_sharded_segments`` -> ``run_segment``).
 
+:func:`run_network` is the run and its check for any kind of network; a
+kind supplies its :class:`Parts` (the inputs drawn from the seed, the
+program built on them, the reference and the carry's translation to it).
+This kind's parts are :data:`DENSE`: a dense (N, N) weight matrix.
+
 Set-up (``setup_s``): the connectivity drawn on the card from the seed
 and moved to the host, where the program partitions it, the program's
 build (weights uploaded, routing tables, fabric), the initial potentials,
@@ -26,7 +31,9 @@ its end state are held to the program's.
 """
 from __future__ import annotations
 
+import functools
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ from gpubench.inputs import pd_connectivity as pd
 from gpubench.reference import (flow_control as rfc, lif as rlif,
                                 simulator as rsim, transport_base as rbase)
 
+DRIVES = "simulator"     # the program a planted fault breaks
 WARMUP_SEGMENTS = 2
 TRACE_START = 2          # the first traced segment of a --trace 1 run
 
@@ -96,9 +104,10 @@ def sim_fields(cell) -> dict:
 
 
 class Program:
-    """The port under test, built on ``inputs``."""
+    """The port under test, built on ``inputs``; the port's segments take
+    no tracer, so ``tracer`` is not used."""
 
-    def __init__(self, cell, inputs: Inputs, device):
+    def __init__(self, cell, inputs: Inputs, device, tracer=None):
         from repro_torch.snn import lif, network, simulator as sim
         f = sim_fields(cell)
         part = network.build_partition(inputs.weights.numpy(),
@@ -139,6 +148,49 @@ def to_reference(carry) -> rsim.Carry:
                       fab)
 
 
+def dense_reference(cell, inputs: Inputs, device, precision: str):
+    """The frozen reference in ``precision`` over the partition it works
+    out from ``inputs.weights``; the partition is made once, on the first
+    call, and the host's weight matrix is freed after it."""
+    if not hasattr(inputs, "net"):
+        inputs.net = rsim.partition(
+            inputs.weights.to(device),
+            torch.from_numpy(inputs.is_inh).to(device),
+            cell.config["n_shards"])
+        del inputs.weights
+    return rsim.Window(sim_fields(cell), inputs.net,
+                       rlif.LIFParams(**cell.config["lif"]), precision)
+
+
+class Parts(NamedTuple):
+    """What a network kind hands :func:`run_network`.
+
+    * ``inputs(config, seed, device)``: what the benchmark draws from the
+      seed for both sides, with ``v0`` (the initial potentials) and
+      ``drive(k, n_windows, window)`` (segment ``k``'s background current);
+    * ``program(cell, inputs, device, tracer)``: the port built on them,
+      with ``cfg`` (its ``SimConfig``), ``carry0`` and ``run_segment(carry,
+      n, drive=...) -> (carry, WindowStats)``; ``tracer`` is a
+      ``repro_torch.obs.spans.Tracer`` with ``--trace 1`` (its spans in
+      the profiled segments reach the readers), else the disabled
+      ``spans.NULL``;
+    * ``reference(cell, inputs, device, precision)``: the reference in
+      ``"f32"`` or in ``control``, with ``init(v0)`` and ``segment(carry,
+      drive) -> (carry, [WindowStats])``; called after the program's
+      ``run_segment`` is dropped;
+    * ``to_reference(carry)``: a copy of the program's carry as the
+      reference's types;
+    * ``control``: the precision of the control, one below the
+      configuration's.
+    """
+
+    inputs: Callable
+    program: Callable
+    reference: Callable
+    to_reference: Callable
+    control: str
+
+
 def identities(stats: dict, n_shards: int) -> int:
     """Windows x shards breaking the conservation and credit identities,
     over every window of the run (host numpy, (S, n) per field)."""
@@ -175,14 +227,19 @@ def flatten(tree, prefix="") -> dict:
     return out
 
 
-def run(cell, *, seed: int, seconds: float, trace: bool, device,
-        t_start: float, control: bool = False) -> dict:
+def run_network(parts: Parts, cell, *, seed: int, seconds: float,
+                trace: bool, device, t_start: float,
+                control: bool = False) -> dict:
+    """One run of ``cell`` with the network ``parts``: set-up, the timed
+    window, the check (the module's docstring)."""
+    from repro_torch.obs import spans
     device = torch.device(device)
     cuda = device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(device)) if cuda else (
         lambda: None)
-    inputs = Inputs(cell.config, seed, device)
-    prog = Program(cell, inputs, device)
+    inputs = parts.inputs(cell.config, seed, device)
+    tracer = spans.Tracer() if trace else spans.NULL
+    prog = parts.program(cell, inputs, device, tracer)
     nw, win = cell.traffic["segment_windows"], prog.cfg.window
     drive = lambda k: inputs.drive(k, nw, win)
     c = prog.carry0
@@ -212,9 +269,11 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device,
     k = 0
     while True:
         if trace and k == TRACE_START:
+            a = tracer.now_us()
             _, profiled = htrace.profile(
                 lambda: [step(k + j) for j in range(n_traced)],
                 n_traced * nw, device)
+            b = tracer.now_us()
             k += n_traced
         else:
             step(k)
@@ -229,8 +288,11 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device,
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     ctx = None
     if profiled is not None:
+        events = [e for e in readers.program_spans(tracer)
+                  if a <= e["ts"] and e["ts"] + e["dur"] <= b]
         ctx = readers.Context(profiled, sizes(
-            prog, stats[TRACE_START:TRACE_START + n_traced]), root=cell.root)
+            prog, stats[TRACE_START:TRACE_START + n_traced]), events,
+            root=cell.root)
     del prog.run_segment
 
     # -- the check ----------------------------------------------------
@@ -238,13 +300,9 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device,
     host = {name: v.cpu().numpy() for name, v in flatten(
         compare.cat_windows(stats)).items()}
     broken = identities(host, prog.cfg.n_shards)
-    f = sim_fields(cell)
-    net = rsim.partition(inputs.weights.to(device), torch.from_numpy(
-        inputs.is_inh).to(device), f["n_shards"])
-    del inputs.weights
-    params = rlif.LIFParams(**cell.config["lif"])
-    ref = rsim.Window(f, net, params, "f32")
-    ctrl = rsim.Window(f, net, params, "tf32") if control else None
+    ref = parts.reference(cell, inputs, device, "f32")
+    ctrl = (parts.reference(cell, inputs, device, parts.control)
+            if control else None)
     tally = compare.Tally()
     r0 = ref.init(inputs.v0)
     if not control:
@@ -252,7 +310,7 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device,
     sample = sorted(kept.kept)
     failed = 0
     for j in sample:
-        start = r0 if j == 0 else to_reference(kept.kept[j][0])
+        start = r0 if j == 0 else parts.to_reference(kept.kept[j][0])
         end, rows = ref.segment(start, drive(j))
         if control:
             got_end, got = ctrl.segment(start, drive(j))
@@ -278,6 +336,10 @@ def run(cell, *, seed: int, seconds: float, trace: bool, device,
         segment_ms=np.percentile(np.diff(seg_t) * 1e3,
                                  [0, 25, 50, 75, 100]).tolist(),
         check_s=time.perf_counter() - t_check)
+
+
+DENSE = Parts(Inputs, Program, dense_reference, to_reference, "tf32")
+run = functools.partial(run_network, DENSE)
 
 
 def sizes(prog: Program, traced_stats) -> dict:

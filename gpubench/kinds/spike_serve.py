@@ -40,6 +40,7 @@ from gpubench.inputs import loadgen
 from gpubench.reference import engine as reng, flow_control as rfc
 from gpubench.reference import transport_base as rbase
 
+DRIVES = "engine"        # the program a planted fault breaks
 TRACE_DELAY_S = 1.0      # serving before the traced stretch of --trace 1
 
 
@@ -244,19 +245,13 @@ def _check(cell, seed, eng, src, conserved, wall, setup_s, peak,
     ctx = None
     if profiled is not None:
         a, b = stretch
-        events = tracer.to_dict()["traceEvents"]
-        names = {e["tid"]: e["args"]["name"] for e in events
-                 if e.get("ph") == "M" and e["name"] == "thread_name"}
-        for e in events:
-            if e.get("ph") == "X":
-                e["track"] = names.get(e.get("tid"))
-        done = [e for e in events if e.get("ph") == "X"
-                and e["name"] == "device/dispatch"
+        events = readers.program_spans(tracer)
+        done = [e for e in events if e["name"] == "device/dispatch"
                 and a <= e["ts"] and e["ts"] + e["dur"] <= b]
         profiled.windows = max(len(done) * nw, 1)
         # the spans' own metrics read the serving after the profiled
         # stretch, which the profiler does not slow
-        events = [e for e in events if e.get("ph") == "X" and e["ts"] >= b]
+        events = [e for e in events if e["ts"] >= b]
         sizes = {k: v for k, v in c.items()
                  if isinstance(v, (int, float, str))}
         sizes.update(torus=list(c["torus"]), n_tenants=T)

@@ -129,7 +129,7 @@ class Window:
         self.cfg, self.net, self.params = cfg, net, params
         self.precision = precision
         S, C = cfg["n_shards"], cfg["capacity"]
-        dev = net.weights_t.device
+        dev = net.delays.device
         self.S, self.C, self.L = S, C, cfg["ring_len"]
         self.backend = create_transport(cfg, S)
         self.can_defer = (cfg["transport"] == "torus3d"

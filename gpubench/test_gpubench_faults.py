@@ -116,10 +116,13 @@ FAULTS = ["state_unchanged", "half_batch", "no_exchange", "answer_altered"]
 def plant(monkeypatch, root, cell, fault):
     """Plant ``fault`` in the program that ``cell`` of ``root`` runs."""
     c = manifest.load(root, cell)
-    if c.kind == "microcircuit":
+    drives = manifest.kind_module(c).DRIVES
+    if drives == "simulator":
         plant_sim(monkeypatch, fault, c.traffic["transport"])
-    else:
+    elif drives == "engine":
         plant_serve(monkeypatch, fault)
+    else:
+        raise ValueError(f"no faults to plant in a {drives!r} program")
 
 
 @pytest.mark.parametrize("cell", ["tiny_alltoall", "tiny_torus"])

@@ -18,8 +18,11 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 
 
-def test_manifest_names_only_files_that_exist():
-    man = json.loads((ROOT / "BENCHMARK.json").read_text())
+def check_manifest(root: Path) -> None:
+    """``root/BENCHMARK.json`` keeps to the contract and names only files
+    that exist: each configuration's kind is ``gpubench/kinds/<kind>.py``
+    with a ``run``, each per-layer metric has its reader."""
+    man = json.loads((root / "BENCHMARK.json").read_text())
     assert set(man) == {"command", "paths", "run_seconds", "configs",
                         "workloads", "end_to_end", "per_layer"}
     names = [x["name"] for k in ("configs", "workloads", "end_to_end",
@@ -28,14 +31,15 @@ def test_manifest_names_only_files_that_exist():
     assert all(NAME.match(n) for n in names)
     for c in man["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert (ROOT / c["file"]).is_file()
-        assert json.loads((ROOT / c["file"]).read_text())["kind"] in (
-            "microcircuit", "spike_serve")
+        assert (root / c["file"]).is_file()
+        kind = json.loads((root / c["file"]).read_text())["kind"]
+        assert (root / "gpubench" / "kinds" / f"{kind}.py").is_file(), kind
     e2e = {m["name"]: m for m in man["end_to_end"]}
     assert "setup_s" in e2e and all(0.01 <= m["bound"] <= 0.25
                                     for m in e2e.values())
     for w in man["workloads"]:
-        cell = manifest.load(ROOT, w["name"])
+        cell = manifest.load(root, w["name"])
+        assert callable(manifest.kind_module(cell).run), cell.kind
         assert w["chips"] == 1 and len(w["why"]) <= 200
         reported = {m["name"] for m in cell.end_to_end}
         assert "setup_s" in reported and len(reported) >= 2
@@ -44,12 +48,16 @@ def test_manifest_names_only_files_that_exist():
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in man["per_layer"]:
         assert m["moves"] in e2e
-        assert callable(manifest.metric_reader(ROOT, m["name"]))
+        assert callable(manifest.metric_reader(root, m["name"]))
         assert all(w in e2e[m["moves"]].get("workloads", [w])
                    for w in m["workloads"])
-    for path in (ROOT / "gpubench" / "rooflines").glob("*.py"):
-        counter = manifest.roofline(path.stem)
+    for path in (root / "gpubench" / "rooflines").glob("*.py"):
+        counter = manifest.roofline(path.stem, root)
         assert callable(counter.count) and re.compile(counter.PATTERN)
+
+
+def test_manifest_names_only_files_that_exist():
+    check_manifest(ROOT)
 
 
 def test_guard_compares_top_level_names_whole():
