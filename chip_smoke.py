@@ -16,7 +16,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    for bit for the flush window on every ``FusedWindow`` field, the
    per-row placement (on no path since the flush window) with and without
    its wire-encode epilogue, codec, the LIF step and the LIF window, and
-   bucket_scatter; rtol/atol 2e-4 for the SSD chunk, whose bf16 cases take
+   bucket_scatter (the delivery kernel at the full-scale store's shapes
+   in phase 5s); rtol/atol 2e-4 for the SSD chunk, whose bf16 cases take
    the tensor-core kernel and f32 cases the FMA kernel); device times per
    call (CUDA graph) of kernel and plain version; in turns: the flush
    window against the chain it replaced (route, sort, operands, per-row
@@ -94,6 +95,17 @@ Phases, each raising on failure (exit code != 0, no result line):
    deferrals, device functions per credited window off and on, and a run
    directory (``build/obs/``) whose report names the congested links
    and the ``link_down`` at window 2;
+5s. main path 16 -- the full-scale microcircuit (77,169 neurons, ~285 M
+   synapses) built as the example builds it, 8 shards of 9,647 in the
+   source address layout with a sparse store on the card; the delivery
+   kernel (``csrc/synapse_deliver.cu``) against its plain version on the
+   same card tensors over that store, rows of 124 and rings of 32 (the
+   full-scale cell's shapes), at the cell's load and with full rows:
+   rings, misses and the synapse counter bit for bit, its time (CUDA
+   graph) and bound from the run's synapses and events; then 25 windows
+   on the crossbar and on the cell's credited torus3d (124-event rows,
+   124 credits, notify 4): launches (delivery once an exchange and
+   drain), the identities, ms a window;
 5g. a small serve run (the deployment of 5h for 3 segments, solo and
    contended) on the card against the same run on the CPU: every
    ``EngineReport`` integer, every per-window ``WindowServeStats`` integer
@@ -301,7 +313,8 @@ Phases, each raising on failure (exit code != 0, no result line):
    to 0 just before that path: A-C and F from main path 3, F and B also
    from main path 4's three runs, A-C and F from obs-sim's recorded runs
    and F and B from obs-serve's instrumented run, A-C from main path 1
-   and the entry points' torus run, A and G from the quickstart and F and B
+   and the entry points' torus run, A-C, F, H's rotation and delivery
+   from main path 16's two runs, A and G from the quickstart and F and B
    from the trace smoke (the per-row placement 0: it is on no path), D
    from the exchange,
    E's tensor-core kernel from main paths 2 and 12, E's FMA kernel from
@@ -334,6 +347,11 @@ BF16_OPS_PER_S = 989e12           # H100 SXM dense bf16 on the tensor cores
 SCALE = 0.2
 N_SHARDS = 4
 N_WINDOWS = 25
+FULL_SCALE = 1.0               # the whole microcircuit: 77,169 neurons
+FULL_SHARDS = 8
+FULL_PER = 9647                # its neurons a shard over 8 shards
+FULL_E_MAX = 16384             # the example's and the benchmark's e_max
+FULL_CELL_C = 124              # the full-scale benchmark cell's rows
 
 
 T_START = time.perf_counter()
@@ -499,7 +517,8 @@ def check_placement(gen, cfg, n_lut):
     require_equal("fused_aggregate card vs CPU", [
         (a.cpu(), b) for a, b in zip(
             list(fw_gpu.buckets) + list(fw_gpu[1:]),
-            list(fw_cpu.buckets) + list(fw_cpu[1:]))])
+            list(fw_cpu.buckets) + list(fw_cpu[1:]))
+        if a is not None or b is not None])
 
     ops = operands(S, n_main, S, C, False, True)
     first, counts, swords_pad, aux = ops
@@ -597,11 +616,15 @@ def check_flush_window(gen, cfg, n_lut):
     residue + e_max * max_fan events, the destination table and meta per
     event), the credited torus's with its held rows (8 windows of 8 x C +
     residue + e_max x 8 events), the exchange's routed shape (8 x 4096, D 8,
-    C 256, both tables), then ragged cases (n 0 and 1, C 1, D 13, no
+    C 256, both tables), the full-scale source layout's (8 windows of 8 x
+    124 held rows + residue + 16,384 x 8 events, a destination and meta
+    per event), then ragged cases (n 0 and 1, C 1, D 13, no
     residue, a residue longer than n or shorter than the overflow, two
     overflowing destinations, every event to one destination, a window
     split over a cluster of 8 blocks) in all four operand combinations;
-    each in three word formats and none.  Then, in turns at the crossbar
+    each in three word formats and none; wherever the destinations are per
+    event, with the residue's destinations (``with_residue_dest``, the
+    source layout's lane).  Then, in turns at the crossbar
     and torus shapes, the kernel against the chain it replaced (the route
     and ``fused_aggregate``), each chain's device functions counted."""
     from repro_torch.core import events as ev
@@ -616,7 +639,10 @@ def check_flush_window(gen, cfg, n_lut):
         ("torus with held rows", (8, n_torus, 8, C, R), FLUSH_MODES[1:2],
          "biased", n_lut, 70),
         ("exchange", (8, 4096, 8, 256, 0), FLUSH_MODES[2:3], "uniform",
-         1024, 64)]
+         1024, 64),
+        ("full-scale source layout", (8, 8 * FULL_CELL_C + R
+                                      + FULL_E_MAX * 8, 8, FULL_CELL_C, R),
+         FLUSH_MODES[0:1], "biased", FULL_PER, 70)]
     shapes += [(f"ragged {case}", case, FLUSH_MODES, how, 200, 70)
                for case, how in (((2, 0, 4, 8, 5), "uniform"),
                                  ((2, 1, 4, 8, 5), "uniform"),
@@ -630,7 +656,8 @@ def check_flush_window(gen, cfg, n_lut):
     for label, (b, n, d, c, r), modes, how, lut_n, guid_n in shapes:
         for mode in modes:
             words, kw = _flush_inputs(gen, b, n, d, mode, how, lut_n, guid_n)
-            kw.update(residue_len=r, with_residue_meta=mode[1] == "meta")
+            kw.update(residue_len=r, with_residue_meta=mode[1] == "meta",
+                      with_residue_dest=mode[0] == "dest")
             for f in FLUSH_FMTS:
                 fmt = None if f is None else codec.WireWordFormat(*f)
                 got = frb.flush_window(words, d, c, wire_fmt=fmt, **kw)
@@ -667,8 +694,12 @@ def check_flush_window(gen, cfg, n_lut):
                "chain": lambda: _route_chain(words, lut, meta, d, C, R, fmt)}
         for (name, a), (_, e) in zip(_window_fields(fns["kernel"]()),
                                      _window_fields(fns["chain"]())):
-            require_equal(f"flush_window vs the chain at {label}: {name}",
-                          [(a, e)])
+            if (a is None) != (e is None):
+                raise AssertionError(f"flush_window vs the chain at {label}:"
+                                     f" {name} present in one")
+            if a is not None:
+                require_equal(f"flush_window vs the chain at {label}: "
+                              f"{name}", [(a, e)])
         times = {k: [] for k in fns}
         for order in (("kernel", "chain"), ("chain", "kernel")):
             for k in order:
@@ -710,9 +741,11 @@ def check_flush_window(gen, cfg, n_lut):
                 torus_ms=timed["torus"]["kernel"][0],
                 torus_chain_ms=timed["torus"]["chain"][0],
                 parity=f"bit-exact on every FusedWindow field ({n_cases} "
-                       f"cases: 3 path shapes, 8 ragged in 4 operand "
-                       f"combinations, 3 word formats and none); timed at "
-                       f"the crossbar shape")
+                       f"cases: 4 path shapes, the full-scale source "
+                       f"layout's among them, 8 ragged in 4 operand "
+                       f"combinations, 3 word formats and none; the "
+                       f"residue's destinations wherever destinations are "
+                       f"per event); timed at the crossbar shape")
 
 
 def check_codec(gen, cfg):
@@ -1761,6 +1794,216 @@ F_TORI = (("torus2d 2x4", "torus2d", (2, 4)),
 # boost clock (data sheet)
 SHARED_ROUND_TRIP_CYCLES = 30
 SM_CLOCK_HZ = 1.98e9
+
+
+# ---------------------------------------------------------------------------
+# Main path 16: the full-scale microcircuit over a sparse synapse store.
+# ---------------------------------------------------------------------------
+
+FULL_RUNS = {
+    "alltoall": dict(transport="alltoall"),
+    # the full-scale benchmark cell's fabric: 124-event rows, a link's
+    # credits one row, returned 4 windows after they are spent
+    "torus3d, binding credits": dict(transport="torus3d", torus_nx=2,
+                                     torus_ny=2, torus_nz=2,
+                                     capacity=FULL_CELL_C,
+                                     link_credits=FULL_CELL_C,
+                                     notify_latency=4),
+}
+
+
+def full_scale_network():
+    """The microcircuit example's network at full scale, built as the
+    example builds it: ``MicrocircuitSpec.synapses`` drawn on the host,
+    partitioned on the card over 8 shards in the source layout."""
+    from repro_torch.examples import multiwafer_microcircuit as ex
+    t0 = time.perf_counter()
+    net = ex.build_network(FULL_SCALE, device="cuda")
+    torch.cuda.synchronize()
+    part = net.part
+    if (part.n_shards, part.per_shard) != (FULL_SHARDS, FULL_PER):
+        raise AssertionError(f"full scale: {part.n_shards} shards x "
+                             f"{part.per_shard}, want {FULL_SHARDS} x "
+                             f"{FULL_PER}")
+    store_gb = sum(t.numel() * t.element_size() for t in part.store) / 1e9
+    print(f"full scale: {net.spec.n_neurons} neurons, {net.n_synapses} "
+          f"synapses, {part.n_shards} shards x {part.per_shard}, max "
+          f"fan-out {part.fanout.shape[1]}; drawn and partitioned in "
+          f"{time.perf_counter() - t0:.1f} s; store {store_gb:.2f} GB")
+    return net
+
+
+def _deliver_window(gen, S, C, per, t, fill):
+    """One received window of the source layout for delivery at ``t``:
+    (S, S, C) words whose addresses are local ids (1 in 64 past ``per``,
+    which carries no synapse), timestamps from 3 steps late (deadline
+    misses) to 30 ahead of ``t``, 10% with the valid bit clear, and (S, S)
+    counts: ``fill`` "cell" 0-40 live a row (the full-scale cell delivers
+    ~1,240 events a window), "full" every slot."""
+    from repro_torch.core import events as ev
+    dev = gen.device
+    shape = (S, S, C)
+    addr = torch.randint(0, per + per // 64, shape, generator=gen,
+                         device=dev)
+    slack = torch.randint(-3, 31, shape, generator=gen, device=dev)
+    valid = torch.rand(shape, generator=gen, device=dev) < 0.9
+    words = ev.pack(addr, (t + slack) & ev.TS_MASK, valid=valid)
+    if fill == "full":
+        counts = torch.full((S, S), C, dtype=torch.int32, device=dev)
+    else:
+        counts = torch.randint(0, 41, (S, S), generator=gen, device=dev,
+                               dtype=torch.int32)
+    return words, counts
+
+
+def check_synapse_deliver(gen, part):
+    """Delivery in event order (``kernels/synapse_deliver.py``) against its
+    plain version on the card, on the same card tensors, at the full-scale
+    cell's shapes: the full-scale store ``part`` (8 shards of 9,647, ~285 M
+    synapses), rows of 124, rings of 32 slots; windows of the cell's load
+    (0-40 live a row) and full rows (992 events a shard), at t 1,000, past
+    the 15-bit timestamp wrap and past 2^16: both rings, the deadline
+    misses and the store's counter bit for bit, one launch a call.  Its
+    time (CUDA graph) at the cell's load against the bound of that
+    window's synapses (8 B each: target and weight) and event words (4 B
+    each), both counted in the run."""
+    from repro_torch.kernels import dispatch, synapse_deliver as sd
+    S, per, C, L = part.n_shards, part.per_shard, FULL_CELL_C, 32
+    store = part.store
+    dev = store.targets.device
+    inh = torch.from_numpy(part.is_inh).to(dev)
+    n_cases, sizes, timed = 0, {}, None
+    for fill in ("cell", "full"):
+        for t in (1000, (1 << 15) - 5, (1 << 16) + 7):
+            words, counts = _deliver_window(gen, S, C, per, t, fill)
+            rings = [torch.randn((L, S, per), generator=gen, device=dev)
+                     * 50 for _ in range(2)]
+            got, want = [r.clone() for r in rings], [r.clone() for r in rings]
+            torch.cuda.synchronize()
+            c0 = int(store.count)
+            dispatch.reset_launches()
+            miss = sd.synapse_deliver(*got, words, counts, t, store, inh,
+                                      per)
+            if dispatch.LAUNCHES != {"synapse_deliver": 1}:
+                raise AssertionError(f"synapse_deliver: launches "
+                                     f"{dispatch.LAUNCHES}, want one")
+            c1 = int(store.count)
+            miss_p = sd.synapse_deliver_plain(*want, words, counts, t,
+                                              store, inh, per)
+            n_syn, n_ev = c1 - c0, int(counts.sum())
+            what = f"synapse_deliver {fill} t {t}"
+            require_equal(what, [(got[0], want[0]), (got[1], want[1]),
+                                 (miss, miss_p)])
+            if int(store.count) - c1 != n_syn or n_syn == 0:
+                raise AssertionError(f"{what}: the kernel counted {n_syn} "
+                                     f"synapses, the plain version "
+                                     f"{int(store.count) - c1}")
+            if int(miss.sum()) == 0:
+                raise AssertionError(f"{what}: no deadline miss tested")
+            sizes[fill] = (n_syn, n_ev)
+            n_cases += 1
+            if timed is None:
+                timed = (got, words, counts, t, n_syn, n_ev)
+    got, words, counts, t, n_syn, n_ev = timed
+    ms, eager_ms = time_ms(lambda: sd.synapse_deliver(
+        *got, words, counts, t, store, inh, per))
+    plain = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sd.synapse_deliver_plain(*got, words, counts, t, store, inh, per)
+        end.record()
+        end.synchronize()
+        plain.append(start.elapsed_time(end))
+    plain_ms = statistics.median(plain)
+    bms, by = bound_ms(8 * n_syn + 4 * n_ev, n_syn)
+    full_bms, _ = bound_ms(8 * sizes["full"][0] + 4 * sizes["full"][1],
+                           sizes["full"][0])
+    print(f"synapse_deliver at the full-scale cell's load: {n_ev} events, "
+          f"{n_syn} synapses: kernel {ms:.4f} ms (CUDA graph), bound "
+          f"{bms:.6f} ms ({by}), plain {plain_ms:.2f} ms (eager, one call); "
+          f"full rows: {sizes['full'][1]} events, {sizes['full'][0]} "
+          f"synapses, bound {full_bms:.6f} ms")
+    return dict(name="synapse_deliver", route="cuda",
+                source="src/repro_torch/csrc/synapse_deliver.cu",
+                replaces="none: no TPU kernel (the reference delivers "
+                         "through a dense weight matrix, "
+                         "src/repro/snn/simulator.py:_apply_events)",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, eager_ms=eager_ms,
+                plain_eager_ms=plain_ms,
+                parity=f"bit-exact on both rings, the deadline misses and "
+                       f"the synapse counter ({n_cases} cases: the "
+                       f"full-scale store, the cell's load and full rows "
+                       f"of 124, 3 times t); timed at the cell's load, the "
+                       f"plain version eager")
+
+
+def run_full_scale_path(net, smi: str) -> dict:
+    """Main path 16: the full-scale network (``full_scale_network``) on
+    the crossbar and on the full-scale cell's credited torus3d 2x2x2
+    (``FULL_RUNS``), 25 windows each after a 1-window warm-up from seed-0
+    potentials: launches counted from 0 just before each run (the flush
+    window, the LIF window and kernel F once a window, delivery and the
+    decode once an exchange and drain, the ring rotation with each decode
+    on the torus), finite potentials, no deadline miss or overflow on the
+    crossbar, the backpressure identities on the torus.  Returns the
+    launches of both runs, summed."""
+    from repro_torch.convert import flatten
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import simulator as sim
+    part, spec = net.part, net.spec
+    total = {}
+    for name, fields in FULL_RUNS.items():
+        cfg = sim_config(part, **{**dict(e_max=FULL_E_MAX,
+                                         capacity=FULL_E_MAX,
+                                         residue=256), **fields})
+        init, run = sim.build_sharded_sim(cfg, part, spec.bg_rates(),
+                                          device="cuda")
+        state = init(seed=0)
+        run(state, 1)                 # warm-up (the same draws in both)
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t1 = time.perf_counter()
+        state, st = run(state, N_WINDOWS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(dispatch.LAUNCHES)
+        s = flatten(st)
+        can_defer = fields.get("link_credits", 0) > 0
+        exchanges = N_WINDOWS + 1 + int(can_defer)
+        want = {"flush_window": N_WINDOWS, "lif_step": N_WINDOWS,
+                "wire_codec": exchanges, "synapse_deliver": exchanges}
+        if can_defer:
+            want["admission"] = N_WINDOWS
+        if fields["transport"] != "alltoall":
+            want["torus_exchange"] = exchanges
+        if launches != want:
+            raise AssertionError(f"full scale, {name}: launches {launches} "
+                                 f"!= {want}")
+        if not torch.isfinite(state.neuron.v).all():
+            raise AssertionError(f"full scale, {name}: non-finite "
+                                 f"membrane potentials")
+        if can_defer:
+            check_backpressure_chain(f"full scale, {name}", s, part.n_shards)
+        elif int(s["deadline_miss"].sum()) or int(s["overflow"].sum()):
+            raise AssertionError(f"full scale, {name}: deadline misses or "
+                                 f"overflows on the crossbar")
+        spikes = int(s["spikes"].sum())
+        rate = spikes / (spec.n_neurons * N_WINDOWS * cfg.window
+                         * cfg.params.dt * 1e-3)
+        print(f"full scale, {name} [{smi}]: {wall * 1e3 / N_WINDOWS:.3f} ms "
+              f"a window ({N_WINDOWS} windows and the final flush, host "
+              f"clock); {spikes} spikes ({rate:.1f} Hz), offered {int(s['offered'].sum())}, sent "
+              f"{int(s['events_sent'].sum())}, deferred "
+              f"{int(s['deferred'].sum())}, dropped or lost "
+              f"{int(s['overflow'].sum())}, "
+              f"delivered {int(s['link.delivered_events'].sum())}, deadline "
+              f"misses {int(s['deadline_miss'].sum())}; launches {launches}")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 def capture_admission(fn, wrapper: str = "admission", every: int = 1):
@@ -5849,6 +6092,16 @@ def main() -> int:
     obs_launches = run_obs_sim(part3, spec3, smi.splitlines()[0])
     del part3, captured
 
+    banner("main path 16: the full-scale microcircuit over a sparse store")
+    net16 = full_scale_network()
+    banner("the delivery kernel against its plain version on the "
+           "full-scale store")
+    records.append(check_synapse_deliver(gen, net16.part))
+    paths["microcircuit, full scale"] = run_full_scale_path(
+        net16, smi.splitlines()[0])
+    del net16
+    torch.cuda.empty_cache()
+
     banner("serve slice, card vs CPU")
     check_serve_slice_small()
 
@@ -5963,11 +6216,13 @@ def main() -> int:
     # F and B also run on main path 4 (its three runs), A, B, C and F on
     # the observability phases (obs-sim's recorded runs, obs-serve's
     # instrumented run), A, B and C on main path 1 (the microcircuit
-    # example's alltoall extoll run) and A, B, C, F and G on the entry
-    # points' phase (the example on torus3d ethernet, the quickstart, the
-    # trace smoke)
+    # example's alltoall extoll run), A, B, C, F, H and delivery (its only
+    # path) on main path 16 (the full-scale network's two runs) and A, B,
+    # C, F and G on the entry points' phase (the example on torus3d
+    # ethernet, the quickstart, the trace smoke)
     for counts in (serve_launches, obs_launches,
-                   paths["microcircuit, alltoall"], entry_launches):
+                   paths["microcircuit, alltoall"],
+                   paths["microcircuit, full scale"], entry_launches):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     paths["spike serving (3 runs)"] = serve_launches

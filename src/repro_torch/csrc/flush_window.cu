@@ -30,8 +30,9 @@
 //   is destination-major, as the reference's stable sort of the overflow
 //   flag over the destination-sorted window leaves it.  It is written if
 //   the position is below r = min(residue_len, n), with its meta when
-//   residue_meta is given; positions from deferred to residue_len are
-//   zero;
+//   residue_meta is given and its destination d when residue_dest is
+//   given (the source address layout, whose words do not name their
+//   destination); positions from deferred to residue_len are zero;
 // * scalars: counts = min(count, C); offered, overflow, deferred =
 //   min(overflow, r), dropped = overflow - deferred.
 //
@@ -73,6 +74,7 @@ struct Args {
   int32_t* counts;           // (B, D)
   uint32_t* residue;         // (B, R)
   int32_t* residue_meta;     // (B, R), or null
+  int32_t* residue_dest;     // (B, R), or null
   int32_t* scalars;          // (4, B): offered, overflow, deferred, dropped
   int64_t n, n_lut, lut_stride, n_guid, guid_stride, residue_len, chunk;
   int n_dest, capacity;
@@ -178,6 +180,7 @@ flush_window_kernel(const Args a) {
       if (pos < r) {
         a.residue[b * R + pos] = w;
         if (a.residue_meta) a.residue_meta[b * R + pos] = s_meta[l];
+        if (a.residue_dest) a.residue_dest[b * R + pos] = d;
       }
     }
   }
@@ -202,6 +205,7 @@ flush_window_kernel(const Args a) {
   for (int64_t p = deferred + first; p < R; p += stride) {
     a.residue[b * R + p] = 0;
     if (a.residue_meta) a.residue_meta[b * R + p] = 0;
+    if (a.residue_dest) a.residue_dest[b * R + p] = 0;
   }
   if (c.rank == 0) {
     for (int d = threadIdx.x; d < D; d += rk::kThreads)
@@ -228,10 +232,10 @@ extern "C" int repro_flush_window(
     const void* words, const void* dest, const void* dest_lut,
     const void* meta, const void* guid_lut, void* data, void* meta_out,
     void* payload, void* counts, void* residue, void* residue_meta,
-    void* scalars, int batch, int64_t n, int n_dest, int capacity,
-    int64_t residue_len, int64_t n_lut, int64_t lut_stride, int64_t n_guid,
-    int64_t guid_stride, int ts_bits, int label_bits, int meta_bits,
-    void* stream) {
+    void* residue_dest, void* scalars, int batch, int64_t n, int n_dest,
+    int capacity, int64_t residue_len, int64_t n_lut, int64_t lut_stride,
+    int64_t n_guid, int64_t guid_stride, int ts_bits, int label_bits,
+    int meta_bits, void* stream) {
   if (batch == 0) return 0;
   // The wrapper passes one of dest and dest_lut and one of meta and
   // guid_lut; a per-event operand of an empty window has no storage
@@ -252,6 +256,7 @@ extern "C" int repro_flush_window(
   a.counts = static_cast<int32_t*>(counts);
   a.residue = static_cast<uint32_t*>(residue);
   a.residue_meta = static_cast<int32_t*>(residue_meta);
+  a.residue_dest = static_cast<int32_t*>(residue_dest);
   a.scalars = static_cast<int32_t*>(scalars);
   a.n = n;
   a.n_lut = n_lut;

@@ -19,10 +19,17 @@ Run:  PYTHONPATH=src python -m repro_torch.examples.multiwafer_microcircuit \\
 (the transport and wire profile as in the reference: ``torus2d`` walks a
 2x2 torus, ``torus3d`` a 1x2x2 one whose Z rings are the wafer axis.
 ``--scale`` is the microcircuit's, default the reference's 0.004; 0.2,
-15,431 neurons, is the widest whose event addresses fit 14 bits.  From
-scale ``WIDE_FROM`` (0.05) up the buffers are ``WIDE_SIZES``, at which
-nothing overflows at 0.2, not the reference's ``SIZES``; the run prints
-them.
+15,431 neurons, is the widest whose dense replica layout fits the 14-bit
+address over 4 shards.  From scale ``WIDE_FROM`` (0.05) up the buffers
+are ``WIDE_SIZES``, at which nothing overflows at 0.2, not the
+reference's ``SIZES``, and above 0.2 ``SPARSE_SIZES``; the run prints
+them.  Above scale ``DENSE_UP_TO`` (0.2) the network is drawn sparsely
+(``MicrocircuitSpec.synapses``) into a ``network.SparsePartition`` on the
+device, with source labels in the 14-bit address, over ``SPARSE_SHARDS``
+(8) shards: at full scale (1.0, 77,169 neurons, ~285 M synapses) 9,647
+neurons a shard; asked for 4 shards (``main(n_shards=4)``, 19,293 a
+shard) the address does not fit, and the run refuses before drawing
+anything.
 Without ``--device cpu`` it runs on the card and raises without one.)
 
 ``main`` also takes a prebuilt network (``build_network``: at scale 0.2
@@ -40,6 +47,8 @@ import sys
 import time
 from typing import NamedTuple
 
+import torch
+
 from repro_torch import examples
 from repro_torch.configs import brainscales
 from repro_torch.core import aggregator
@@ -54,13 +63,19 @@ N_SHARDS = 4
 N_WINDOWS = 25                 # 25 x 8 x 0.1 ms = 20 ms biological
 SIZES = dict(e_max=512, capacity=512)          # the reference's
 WIDE_SIZES = dict(e_max=1024, capacity=1024)  # no overflow at scale 0.2
+# above DENSE_UP_TO: a neuron fires at most once a window (its 2 ms
+# refractory time is longer than a window), so neither the compaction nor
+# a bucket row can hold more than the 9,647 neurons of a full-scale shard
+SPARSE_SIZES = dict(e_max=16384, capacity=16384)
 WIDE_FROM = 0.05               # scales from which WIDE_SIZES apply
+DENSE_UP_TO = 0.2              # above it the network is drawn sparsely
+SPARSE_SHARDS = 8              # shards of a sparse network by default
 
 
 class Network(NamedTuple):
     spec: mc.MicrocircuitSpec
     n_synapses: int
-    part: network.Partition
+    part: network.Partition | network.SparsePartition
 
 
 class Result(NamedTuple):
@@ -70,14 +85,30 @@ class Result(NamedTuple):
     wall_s: float                  # the run, host clock, synchronised
 
 
-def build_network(scale: float = REFERENCE_SCALE) -> Network:
-    """The microcircuit at ``scale`` partitioned over the 4 shards (host
-    numpy; the dense weight matrix is dropped once partitioned)."""
+def build_network(scale: float = REFERENCE_SCALE, n_shards: int | None = None,
+                  *, device=None) -> Network:
+    """The microcircuit at ``scale`` partitioned over ``n_shards`` shards
+    (default ``N_SHARDS``, above ``DENSE_UP_TO`` ``SPARSE_SHARDS``): up to
+    ``DENSE_UP_TO`` from the dense weight matrix (host numpy, dropped once
+    partitioned), above it drawn sparsely and partitioned on ``device``.
+    Raises before drawing when the layout's addresses do not fit 14 bits."""
     spec = mc.MicrocircuitSpec(scale=scale)
-    w, is_inh = spec.weight_matrix()
-    n_synapses = int((w != 0).sum())
-    part = network.build_partition(w, is_inh, n_shards=N_SHARDS)
-    return Network(spec, n_synapses, part)
+    n_shards = n_shards or (N_SHARDS if scale <= DENSE_UP_TO
+                            else SPARSE_SHARDS)
+    # either layout needs an address a neuron of a shard: refuse before
+    # the draw (the replica layout's own check follows it)
+    network.check_address_layout("source", -(-spec.n_neurons // n_shards))
+    if scale <= DENSE_UP_TO:
+        w, is_inh = spec.weight_matrix()
+        n_synapses = int((w != 0).sum())
+        part = network.build_partition(w, is_inh, n_shards=n_shards)
+        return Network(spec, n_synapses, part)
+    device = dispatch.resolve_device(device)
+    src, tgt, weight, is_inh = spec.synapses()
+    as_t = lambda a: torch.from_numpy(a).to(device)
+    part = network.build_sparse_partition(as_t(src), as_t(tgt),
+                                          as_t(weight), is_inh, n_shards)
+    return Network(spec, part.n_synapses, part)
 
 
 def sim_config(net: Network, transport: str = "alltoall",
@@ -89,9 +120,10 @@ def sim_config(net: Network, transport: str = "alltoall",
     part = net.part
     bs = dataclasses.replace(brainscales.CONFIG, transport=transport,
                              wire_format=wire_format)
-    sizes = WIDE_SIZES if net.spec.scale >= WIDE_FROM else SIZES
+    sizes = (SPARSE_SIZES if net.spec.scale > DENSE_UP_TO else
+             WIDE_SIZES if net.spec.scale >= WIDE_FROM else SIZES)
     return sim.SimConfig(
-        n_shards=N_SHARDS, per_shard=part.per_shard,
+        n_shards=part.n_shards, per_shard=part.per_shard,
         max_fan=part.fanout.shape[1],
         window=8,                  # <= min axonal delay (deadline flush)
         ring_len=32, **sizes, **bs.transport_fields())
@@ -100,11 +132,13 @@ def sim_config(net: Network, transport: str = "alltoall",
 def main(transport: str = "alltoall", wire_format: str = "extoll", *,
          scale: float = REFERENCE_SCALE, net: Network | None = None,
          state: sim.ShardState | None = None, drive=None,
-         n_windows: int = N_WINDOWS, device=None) -> Result:
+         n_windows: int = N_WINDOWS, device=None,
+         n_shards: int | None = None) -> Result:
     """Simulate ``n_windows`` windows and print the reference's summary.
-    ``net`` (else built at ``scale``), ``state`` (else drawn from seed 0)
-    and ``drive`` (else drawn from the state's generator) as in the module
-    docstring; ``device`` ``None`` / ``"cuda"`` is the card."""
+    ``net`` (else built at ``scale`` over ``n_shards``), ``state`` (else
+    drawn from seed 0) and ``drive`` (else drawn from the state's
+    generator) as in the module docstring; ``device`` ``None`` /
+    ``"cuda"`` is the card."""
     device = dispatch.resolve_device(device)
     if transport not in TRANSPORTS:
         raise ValueError(f"transport must be one of {TRANSPORTS}, got "
@@ -112,23 +146,28 @@ def main(transport: str = "alltoall", wire_format: str = "extoll", *,
     if wire_format not in WIRE_FORMATS:
         raise ValueError(f"wire_format must be one of {WIRE_FORMATS}, got "
                          f"{wire_format!r}")
-    net = net or build_network(scale)
+    net = net or build_network(scale, n_shards, device=device)
     spec, part = net.spec, net.part
+    n_shards = part.n_shards
     print(f"microcircuit: {spec.n_neurons} neurons, "
           f"{net.n_synapses} synapses (scale={spec.scale})")
-    print(f"partition: {N_SHARDS} wafer shards x {part.per_shard} neurons, "
+    print(f"partition: {n_shards} wafer shards x {part.per_shard} neurons, "
           f"max fan-out {part.fanout.shape[1]} shards/source")
+    if isinstance(part, network.SparsePartition):
+        print("layout: source labels in the 14-bit address, sparse "
+              "synapse store, delivery in event order")
 
     cfg = sim_config(net, transport, wire_format)
     if spec.scale >= WIDE_FROM:
         print(f"buffers: e_max {cfg.e_max}, capacity {cfg.capacity} "
               f"(the reference's are {SIZES['e_max']} and "
-              f"{SIZES['capacity']}; wider from scale {WIDE_FROM} up)")
+              f"{SIZES['capacity']}; wider from scale {WIDE_FROM} up, "
+              f"wider still above {DENSE_UP_TO})")
     if transport == "torus2d":
-        print(f"transport: {transport} {wafer_torus_shape(N_SHARDS)} torus")
+        print(f"transport: {transport} {wafer_torus_shape(n_shards)} torus")
     elif transport == "torus3d":
         print(f"transport: {transport} "
-              f"{wafer_torus_shape(N_SHARDS, ndim=3)} torus")
+              f"{wafer_torus_shape(n_shards, ndim=3)} torus")
     else:
         print(f"transport: {transport}")
     init, run = sim.build_sharded_sim(cfg, part, spec.bg_rates(),
@@ -194,9 +233,11 @@ def cli(argv=None) -> int:
                     choices=WIRE_FORMATS)
     ap.add_argument("--scale", type=float, default=REFERENCE_SCALE,
                     help="microcircuit scale (0.2: 15,431 neurons, the "
-                         "widest the 14-bit address carries; from 0.05 up "
-                         "the buffers are 1,024 wide, not the reference's "
-                         "512)")
+                         "widest whose dense replica layout the 14-bit "
+                         "address carries over 4 shards; above it the "
+                         "sparse store over 8 shards, 1.0 the full 77,169 "
+                         "neurons; from 0.05 up the buffers are 1,024 "
+                         "wide, not the reference's 512)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without one)")
     args = ap.parse_args(argv)

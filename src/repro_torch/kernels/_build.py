@@ -38,8 +38,10 @@ SIGNATURES = {
                          _L, _L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F,
                          _F, _F, _F, _P),
     "repro_flush_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _L, _I, _I, _L, _L, _L, _L, _L, _I, _I, _I,
-                           _P),
+                           _P, _I, _L, _I, _I, _L, _L, _L, _L, _L, _I, _I,
+                           _I, _P),
+    "repro_synapse_deliver": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _L, _L, _L, _P),
     "repro_bucket_scatter": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
     "repro_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                         _I, _P),

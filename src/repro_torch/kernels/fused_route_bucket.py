@@ -19,7 +19,9 @@ formulation (one-hot ranks, overflow bases, no sort), on CPU tensors:
                   row's words and meta), the payload the transport ships;
 4. **residue** -- events of rank >= C are compacted, destination-major,
                   into a fixed-size buffer that is offered again next
-                  window.
+                  window, and when asked each one's destination beside
+                  it (the source address layout routes by a per-event
+                  destination, which the word does not carry).
 
 The reference's sort-based chain stays beside it as
 :func:`fused_aggregate` / :func:`fused_route_aggregate`: a stable
@@ -62,6 +64,9 @@ class FusedWindow(NamedTuple):
                   None unless ``with_residue_meta``
     payload:      (..., D, 2C) int32 ``encode_planar(buckets.data,
                   buckets.guids, wire_fmt)``, or None unless ``wire_fmt``
+    residue_dest: (..., residue_len) int32 the deferred events'
+                  destinations, 0-padded, or None unless
+                  ``with_residue_dest``
     """
 
     buckets: Buckets
@@ -71,6 +76,7 @@ class FusedWindow(NamedTuple):
     offered: torch.Tensor
     residue_meta: torch.Tensor | None = None
     payload: torch.Tensor | None = None
+    residue_dest: torch.Tensor | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +138,8 @@ def _table_lookup(table, words):
 def flush_window_plain(words, n_dest: int, capacity: int, *, dest=None,
                        dest_lut=None, meta=None, guid_lut=None,
                        residue_len: int = 0, with_residue_meta: bool = False,
-                       wire_fmt: codec.WireWordFormat | None = None
-                       ) -> FusedWindow:
+                       wire_fmt: codec.WireWordFormat | None = None,
+                       with_residue_dest: bool = False) -> FusedWindow:
     """Plain PyTorch flush window, in the kernel's formulation.
 
     words: (B, n) or (n,) int32 event words.  The destination of each event
@@ -185,20 +191,24 @@ def flush_window_plain(words, n_dest: int, capacity: int, *, dest=None,
     pos = torch.where(valid & (rank >= C) & (pos < r), pos, r).long()
     pad = torch.zeros((b, residue_len - r), dtype=torch.int32, device=dev)
     residue = torch.cat([scatter(words, pos, r), pad], dim=-1)
-    res_meta = None
+    res_meta = res_dest = None
     if with_residue_meta:
         res_meta = torch.cat([scatter(meta, pos, r), pad], dim=-1)
+    if with_residue_dest:
+        res_dest = torch.cat([scatter(d_of.to(torch.int32), pos, r), pad],
+                             dim=-1)
     deferred = torch.clamp(overflow, max=r)
     fw = FusedWindow(Buckets(data, gmeta, accepted, overflow), residue,
                      deferred, overflow - deferred, offered, res_meta,
-                     payload)
+                     payload, res_dest)
     return _one_window(fw) if single else fw
 
 
 def flush_window(words, n_dest: int, capacity: int, *, dest=None,
                  dest_lut=None, meta=None, guid_lut=None,
                  residue_len: int = 0, with_residue_meta: bool = False,
-                 wire_fmt: codec.WireWordFormat | None = None) -> FusedWindow:
+                 wire_fmt: codec.WireWordFormat | None = None,
+                 with_residue_dest: bool = False) -> FusedWindow:
     """The flush window of every window of the batch: one launch of
     ``csrc/flush_window.cu`` on CUDA tensors, :func:`flush_window_plain`
     (same arguments and results) on CPU tensors."""
@@ -208,7 +218,8 @@ def flush_window(words, n_dest: int, capacity: int, *, dest=None,
         return flush_window_plain(
             words, n_dest, capacity, dest=dest, dest_lut=dest_lut, meta=meta,
             guid_lut=guid_lut, residue_len=residue_len,
-            with_residue_meta=with_residue_meta, wire_fmt=wire_fmt)
+            with_residue_meta=with_residue_meta, wire_fmt=wire_fmt,
+            with_residue_dest=with_residue_dest)
     single, words, dest, dest_lut, meta, guid_lut = _window_operands(
         words, dest, dest_lut, meta, guid_lut, n_dest, with_residue_meta)
     words, dest, dest_lut, meta, guid_lut = (
@@ -231,6 +242,7 @@ def flush_window(words, n_dest: int, capacity: int, *, dest=None,
     counts, scalars = new(b, n_dest), new(4, b)
     residue = new(b, residue_len)
     res_meta = new(b, residue_len) if with_residue_meta else None
+    res_dest = new(b, residue_len) if with_residue_dest else None
     payload = new(b, n_dest, 2 * capacity) if wire_fmt is not None else None
     fmt = wire_fmt if wire_fmt is not None else codec.DEFAULT_WORD
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -240,12 +252,13 @@ def flush_window(words, n_dest: int, capacity: int, *, dest=None,
         dispatch.launch("flush_window", "repro_flush_window", ptr(words),
                         ptr(dest), ptr(dest_lut), ptr(meta), ptr(guid_lut),
                         ptr(data), ptr(gmeta), ptr(payload), ptr(counts),
-                        ptr(residue), ptr(res_meta), ptr(scalars), b, n,
+                        ptr(residue), ptr(res_meta), ptr(res_dest),
+                        ptr(scalars), b, n,
                         n_dest, capacity, residue_len, *table(dest_lut),
                         *table(guid_lut), *fmt.validate()[:3])
     offered, overflow, deferred, dropped = scalars
     fw = FusedWindow(Buckets(data, gmeta, counts, overflow), residue,
-                     deferred, dropped, offered, res_meta, payload)
+                     deferred, dropped, offered, res_meta, payload, res_dest)
     return _one_window(fw) if single else fw
 
 

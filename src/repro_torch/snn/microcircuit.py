@@ -90,6 +90,39 @@ class MicrocircuitSpec:
                 w[off[i]:off[i + 1], off[j]:off[j + 1]] = np.where(mask, ww, 0.0)
         return w, is_inh
 
+    def synapses(self, chunk_rows: int = 2048
+                 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """The same rule drawn sparsely: a Bernoulli draw per (target,
+        source) pair with the population pair's probability and, for each
+        synapse drawn, a normal weight as in :meth:`weight_matrix`, in
+        chunks of ``chunk_rows`` target rows, so no (N, N) array exists.
+        Its own stream of the spec's seed: the same distribution as the
+        dense draw, not the same draws.  Returns COO arrays (source id
+        int32, target id int32, weight f32 [pA]; by chunk of target rows)
+        and the inhibitory-source flags."""
+        rng = np.random.default_rng(self.seed)
+        sizes, off = self.sizes, self.offsets()
+        is_inh = np.repeat([p.endswith("I") for p in POPULATIONS], sizes)
+        srcs, tgts, ws = [], [], []
+        for i in range(len(POPULATIONS)):
+            for r0 in range(0, sizes[i], chunk_rows):
+                rows = min(chunk_rows, sizes[i] - r0)
+                for j, src in enumerate(POPULATIONS):
+                    p = CONN_PROB[i, j]
+                    if p <= 0:
+                        continue
+                    base = W_EXC_PA * (G_INH if src.endswith("I") else 1.0)
+                    if i == 0 and j == 2:        # L4E -> L23E doubled
+                        base = base * W_L4E_L23E
+                    ti, sj = np.nonzero(rng.random((rows, sizes[j]),
+                                                   dtype=np.float32) < p)
+                    srcs.append((off[j] + sj).astype(np.int32))
+                    tgts.append((off[i] + r0 + ti).astype(np.int32))
+                    ws.append(rng.normal(base, abs(base) * W_REL_SD,
+                                         len(ti)).astype(np.float32))
+        return (np.concatenate(srcs), np.concatenate(tgts),
+                np.concatenate(ws), is_inh)
+
     def bg_rates(self) -> np.ndarray:
         """Per-neuron background Poisson rate [Hz]."""
         sizes = self.sizes

@@ -54,6 +54,17 @@ Differences from the reference, all of form:
   reference sums through an einsum in another order, so ring currents and
   ``v`` agree within the LIF tolerances while all integer outputs agree
   exactly.
+
+A ``network.SparsePartition`` (no reference counterpart) runs the same
+window in the *source* address layout with a sparse synapse store: a
+spike's event word carries its local id, and each replica k travels with
+its destination ``fanout[id, k]`` as a per-event operand of the flush
+window (held rows re-enter with their row's destination, the residue keeps
+its destinations in ``SourcePendingWindow.residue_dest``).  The receiver's
+source is ``src_base + address``.  Delivery walks the live events in order
+(``kernels/synapse_deliver.py``, one launch a window), each synapse one
+f32 add into the rings, inside a ``window/deliver`` span of the segments'
+tracer.
 """
 from __future__ import annotations
 
@@ -70,7 +81,8 @@ from repro_torch.fabric import faults as fabric_faults
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import fused_route_bucket as frb
 from repro_torch.kernels.lif_step import lif_window
-from repro_torch.obs import recorder as obs_recorder
+from repro_torch.kernels.synapse_deliver import synapse_deliver
+from repro_torch.obs import recorder as obs_recorder, spans
 from repro_torch.snn import lif, network
 
 
@@ -118,6 +130,19 @@ class PendingWindow(NamedTuple):
     payload: torch.Tensor       # (S, S, 2C) int32 wire lanes (lo | hi)
 
 
+class SourcePendingWindow(NamedTuple):
+    """:class:`PendingWindow` of the source address layout: the residue's
+    words do not name their destinations, so they travel beside them."""
+
+    data: torch.Tensor
+    meta: torch.Tensor
+    counts: torch.Tensor
+    residue: torch.Tensor
+    residue_meta: torch.Tensor
+    payload: torch.Tensor
+    residue_dest: torch.Tensor  # (S, residue) int32 destination shards
+
+
 class WindowStats(NamedTuple):
     """Per-shard statistics of one window (``run`` stacks them to
     ``(S, n_windows)``).  ``deadline_miss``, ``link`` and ``latency`` of
@@ -157,7 +182,8 @@ def _stack(rows):
 
 
 def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
-                      recorder=None):
+                      recorder=None, sparse: bool = False,
+                      tracer: spans.Tracer = spans.NULL):
     """Build the pipelined per-window machinery.
 
     ``fault_schedule`` (a ``fabric.faults.FaultSchedule``; credited torus
@@ -167,8 +193,14 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     every window into it, stamped with the exchanged window's index
     (``t // window - 1``: row 0 is the empty bootstrap exchange, -1).
 
+    ``sparse`` runs the source address layout with a sparse store (the
+    module docstring): ``body``'s ``tables`` is then the fan-out (S, per,
+    max_fan) int32, and ``weights_t`` (of ``body`` and ``drain``) a
+    ``network.SynapseStore``; delivery is recorded as ``window/deliver``
+    spans on ``tracer``, on the issuing thread's track.
+
     Returns ``(init_pending, init_link, body, drain)``:
-      init_pending()  -> empty PendingWindow
+      init_pending()  -> empty PendingWindow (sparse: SourcePendingWindow)
       init_link()     -> transport fabric state
       body(carry, t, tables, weights_t, inh_src, delays, drive)
                       -> (carry', WindowStats) for carry (state, pending,
@@ -214,13 +246,17 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     src_base = (torch.arange(S, dtype=torch.int32, device=device)[:, None]
                 * cfg.per_shard)
     shard_ix = torch.arange(S, device=device)[:, None]
+    row_dest = torch.arange(S, dtype=torch.int32, device=device)[
+        None, :, None].expand(S, S, C).reshape(S, -1) if sparse else None
 
-    def init_pending() -> PendingWindow:
+    def init_pending():
         z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
                                        device=device)
-        return PendingWindow(z(S, S, C), z(S, S, C), z(S, S),
-                             z(S, cfg.residue), z(S, cfg.residue),
-                             z(S, S, 2 * C))
+        pend = (z(S, S, C), z(S, S, C), z(S, S), z(S, cfg.residue),
+                z(S, cfg.residue), z(S, S, 2 * C))
+        if sparse:
+            return SourcePendingWindow(*pend, z(S, cfg.residue))
+        return PendingWindow(*pend)
 
     def init_link() -> tp.LinkState:
         return backend.init_state(2 * C, device=device)
@@ -257,6 +293,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                       inh_src):
         """Scatter the weighted input of received events (S, S_src, C) into
         the delay rings (in place); returns (S,) deadline misses."""
+        if sparse:
+            with tracer.span("window/deliver", window=t // cfg.window):
+                return synapse_deliver(ring_exc, ring_inh, words, counts, t,
+                                       weights_t, inh_src, cfg.per_shard)
         live = slots < counts[..., None]
         src = src_base + ev.address(words) // cfg.max_fan
         slack = ev.ts_slack(ev.timestamp(words), t & ev.TS_MASK)
@@ -281,11 +321,13 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         return lif_window(neuron, cfg.params, ring_exc, ring_inh, t0,
                           drive.contiguous())
 
-    def _spikes_to_events(spikes, t0: int, delays):
+    def _spikes_to_events(spikes, t0: int, delays, fanout=None):
         """Compact the (S, window, per) raster into <= e_max spikes per
         shard, each replicated to ``max_fan`` event words (addr = id * fan
-        + k), with each replica's injection step, the spikes lost and the
-        (S,) spike counts."""
+        + k; with the (S, per, max_fan) ``fanout`` of the source layout
+        addr = id, and each replica's destination beside it), with each
+        replica's injection step, the spikes lost, the (S,) spike counts
+        and the destinations (None in the replica layout)."""
         _, w, per = spikes.shape
         flat = spikes.reshape(S, w * per)
         # stable compaction: spiking slots first, window order kept
@@ -297,12 +339,17 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         fired = flat.sum(-1, dtype=torch.int32)
         lost = torch.clamp(fired - cfg.e_max, min=0)
         ts = (t0 + sel_step + torch.gather(delays, 1, sel_id)) & ev.TS_MASK
-        addr = (sel_id.to(torch.int32)[..., None] * cfg.max_fan
-                + fan).reshape(S, -1)
+        if fanout is None:
+            addr = (sel_id.to(torch.int32)[..., None] * cfg.max_fan
+                    + fan).reshape(S, -1)
+            dest = None
+        else:
+            addr = sel_id.to(torch.int32).repeat_interleave(cfg.max_fan, -1)
+            dest = fanout[shard_ix, sel_id].reshape(S, -1)
         words = ev.pack(addr, ts.repeat_interleave(cfg.max_fan, -1),
                         valid=sel.repeat_interleave(cfg.max_fan, -1))
         inject = (t0 + sel_step).repeat_interleave(cfg.max_fan, -1)
-        return words, inject, lost, fired
+        return words, inject, lost, fired, dest
 
     def body(carry, t: int, tables: RoutingTables, weights_t, inh_src,
              delays, drive):
@@ -323,20 +370,32 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                                          state.ring_inh, t, drive)
         # 3. route + aggregate: transport-deferred rows first, then the
         #    residue, then fresh spikes (oldest deadlines win bucket slots)
-        words, inject, lost, fired = _spikes_to_events(spikes, t, delays)
+        words, inject, lost, fired, dest = _spikes_to_events(
+            spikes, t, delays, tables if sparse else None)
         if can_defer:
             held = (~sent_mask[..., None]) & (slots < pend.counts[..., None])
             words = torch.cat([torch.where(held, pend.data, 0).reshape(S, -1),
                                pend.residue, words], dim=-1)
             inject = torch.cat([torch.where(held, pend.meta, 0).reshape(
                 S, -1), pend.residue_meta, inject], dim=-1)
+            if sparse:                    # a held row's destination: its row
+                dest = torch.cat([row_dest, pend.residue_dest, dest], dim=-1)
         else:
             words = torch.cat([pend.residue, words], dim=-1)
             inject = torch.cat([pend.residue_meta, inject], dim=-1)
-        fw = frb.flush_window(words, S, C, dest_lut=tables.dest_of_addr,
-                              meta=inject, residue_len=cfg.residue,
-                              with_residue_meta=True,
-                              wire_fmt=wire.DEFAULT_WORD)
+            if sparse:
+                dest = torch.cat([pend.residue_dest, dest], dim=-1)
+        if sparse:
+            fw = frb.flush_window(words, S, C, dest=dest, meta=inject,
+                                  residue_len=cfg.residue,
+                                  with_residue_meta=True,
+                                  with_residue_dest=True,
+                                  wire_fmt=wire.DEFAULT_WORD)
+        else:
+            fw = frb.flush_window(words, S, C, dest_lut=tables.dest_of_addr,
+                                  meta=inject, residue_len=cfg.residue,
+                                  with_residue_meta=True,
+                                  wire_fmt=wire.DEFAULT_WORD)
         b = fw.buckets
         cost = aggregator.window_cost(b.counts.masked_fill(own, 0))
         stats = WindowStats(
@@ -352,8 +411,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         )
         state = ShardState(neuron, state.ring_exc, state.ring_inh,
                            state.t + cfg.window, state.generator)
-        pend = PendingWindow(b.data, b.guids, b.counts, fw.residue,
-                             fw.residue_meta, fw.payload)
+        pend = (b.data, b.guids, b.counts, fw.residue, fw.residue_meta,
+                fw.payload)
+        pend = (SourcePendingWindow(*pend, fw.residue_dest) if sparse
+                else PendingWindow(*pend))
         if recorder is not None:
             ring = obs_recorder.record(carry[3], t // cfg.window - 1, lstats,
                                        lstate, latency.hist)
@@ -382,12 +443,18 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     return init_pending, init_link, body, drain
 
 
-def build_sharded_segments(cfg: SimConfig, part: network.Partition,
+def build_sharded_segments(cfg: SimConfig,
+                           part: network.Partition | network.SparsePartition,
                            bg_rates: np.ndarray, bg_weight: float = 87.8,
                            fault_schedule=None, recorder=None, *,
-                           device=None):
+                           device=None, tracer: spans.Tracer = spans.NULL):
     """Segment-granular simulator of all ``cfg.n_shards`` shards on one
     device (``None`` = CUDA, raising without one).
+
+    ``part`` is a dense ``network.Partition`` (the replica layout, its
+    weights uploaded as an (S, N, per) matrix) or a
+    ``network.SparsePartition`` (the source layout; its store and fan-out
+    moved to ``device``, its delivery spans recorded on ``tracer``).
 
     Returns ``(init, run_segment, finish)``:
       init(seed)                     -> SimCarry: potentials drawn from a
@@ -406,18 +473,25 @@ def build_sharded_segments(cfg: SimConfig, part: network.Partition,
     With ``recorder`` the carry holds a ``TelemetryRing`` with a leading
     shard axis (``SimCarry.ring``), which each segment records into.
     """
+    sparse = isinstance(part, network.SparsePartition)
     init_pending, init_link, body, drain = make_pipeline_fns(
-        cfg, device=device, fault_schedule=fault_schedule, recorder=recorder)
+        cfg, device=device, fault_schedule=fault_schedule, recorder=recorder,
+        sparse=sparse, tracer=tracer)
     device = dispatch.resolve_device(device)
     S, per, n_tot = cfg.n_shards, cfg.per_shard, part.n_neurons
-    w_local, _fan, delay_local = network.shard_arrays(part)
-    weights_t = torch.from_numpy(np.ascontiguousarray(w_local)).to(
-        device).transpose(1, 2).contiguous()                 # (S, N, per)
+    if sparse:
+        weights_t = network.SynapseStore(*(x.to(device)
+                                           for x in part.store))
+        tables = part.fanout.to(device).reshape(S, per, -1)
+        delay_local = part.delays_steps.reshape(S, per)
+    else:
+        w_local, _fan, delay_local = network.shard_arrays(part)
+        weights_t = torch.from_numpy(np.ascontiguousarray(w_local)).to(
+            device).transpose(1, 2).contiguous()             # (S, N, per)
+        tables = stack_tables([network.routing_tables_for_shard(
+            part, s, device=device) for s in range(S)], device=device)
     inh_src = torch.from_numpy(part.is_inh).to(device)
     delays = torch.from_numpy(delay_local.astype(np.int32)).to(device)
-    tables = stack_tables([network.routing_tables_for_shard(part, s,
-                                                            device=device)
-                           for s in range(S)], device=device)
     bg = torch.from_numpy(np.pad(bg_rates, (0, n_tot - len(bg_rates)))
                           .reshape(S, per).astype(np.float32)).to(device)
     drive_shape = (cfg.window, S, per)

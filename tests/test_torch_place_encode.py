@@ -100,8 +100,9 @@ def test_payload_of_a_batch_and_without_a_format():
                                   residue_len=32, with_residue_meta=True)
     assert dispatch.LAUNCHES == {}             # CPU tensors: plain version
     assert plain.payload is None
-    for a, b in zip(list(got.buckets) + list(got[1:-1]),
-                    list(plain.buckets) + list(plain[1:-1])):
+    rest = ("residue", "deferred", "dropped", "offered", "residue_meta")
+    for a, b in zip(list(got.buckets) + [getattr(got, f) for f in rest],
+                    list(plain.buckets) + [getattr(plain, f) for f in rest]):
         assert torch.equal(a, b)
     assert tuple(got.payload.shape) == (3, 4, 32)
     w, m = t_codec.decode_planar(got.payload, fmt)
