@@ -106,6 +106,15 @@ Phases, each raising on failure (exit code != 0, no result line):
    on the crossbar and on the cell's credited torus3d (124-event rows,
    124 credits, notify 4): launches (delivery once an exchange and
    drain), the identities, ms a window;
+5t. main path 17 -- the window loop at the three microcircuit cells'
+   shapes (scale 0.2 on torus3d with 124-event rows and 124 credits,
+   notify 4, and on the crossbar at capacity 1,024; main path 16's
+   network on the same torus): an eager loop of ``make_pipeline_fns``'
+   window body against ``run_segment``'s replayed CUDA graph, 6 segments
+   of 16 windows a turn from one start and the same drives, in turns
+   eager, graph, graph, eager, timed with CUDA events: ms a window each
+   turn, the segment counter, launches equal, and every WindowStats field
+   and the end carry of the graph's turns bit for bit the eager turns';
 5g. a small serve run (the deployment of 5h for 3 segments, solo and
    contended) on the card against the same run on the CPU: every
    ``EngineReport`` integer, every per-window ``WindowServeStats`` integer
@@ -2002,6 +2011,117 @@ def run_full_scale_path(net, smi: str) -> dict:
               f"delivered {int(s['link.delivered_events'].sum())}, deadline "
               f"misses {int(s['deadline_miss'].sum())}; launches {launches}")
         for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+GRAPH_SEGMENTS = 6          # segments of 16 windows a turn of main path 17
+
+
+def graph_loop_cells(part, bg_rates, full_part, full_bg_rates) -> list:
+    """Main path 17's cells: (label, SimConfig, partition, background
+    rates) of the three microcircuit benchmark cells' shapes, from the
+    scale-0.2 dense partition and the full-scale sparse one."""
+    cell = dict(transport="torus3d", torus_nx=2, torus_ny=2, torus_nz=2,
+                capacity=FULL_CELL_C, link_credits=FULL_CELL_C,
+                notify_latency=4)
+    return [
+        ("scale 0.2, torus3d c124", sim_config(
+            part, e_max=1024, residue=256, **cell), part, bg_rates),
+        ("scale 0.2, alltoall c1024", sim_config(
+            part, e_max=1024, residue=256, transport="alltoall",
+            capacity=1024), part, bg_rates),
+        ("full scale, torus3d c124", sim_config(
+            full_part, e_max=FULL_E_MAX, residue=256, **cell), full_part,
+         full_bg_rates)]
+
+
+def run_graph_loops(cells, smi: str) -> dict:
+    """Main path 17 (module docstring) on ``graph_loop_cells``; returns
+    the launches of one graph turn of each cell, summed."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import lif, network
+    from repro_torch.snn import simulator as sim
+    total = {}
+    for label, cfg, part, bg_rates in cells:
+        S, per, nw = cfg.n_shards, cfg.per_shard, 16
+        init, run_segment, _ = sim.build_sharded_segments(
+            cfg, part, bg_rates, device="cuda")
+        _, _, body, _ = sim.make_pipeline_fns(
+            cfg, device="cuda",
+            sparse=isinstance(part, network.SparsePartition))
+        wi = sim.window_inputs(cfg, part, bg_rates, device="cuda")
+        c0 = init(0)
+        c0 = c0._replace(state=c0.state._replace(generator=None))
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        drives = [lif.poisson_input(wi.bg.expand(nw, cfg.window, S, per),
+                                    87.8, cfg.params.dt, generator=gen)
+                  for _ in range(GRAPH_SEGMENTS)]
+
+        def eager():
+            st0 = c0.state
+            loop = (st0._replace(ring_exc=st0.ring_exc.clone(),
+                                 ring_inh=st0.ring_inh.clone()),
+                    c0.pending, c0.link)
+            out = []
+            for d in drives:
+                rows = []
+                for k in range(nw):
+                    loop, st = body(loop, None, *wi[:4], d[k])
+                    rows.append(st)
+                out.append(sim.stack_windows(rows))
+            return loop, out
+
+        def graph():
+            c, out = c0, []
+            for d in drives:
+                c, st = run_segment(c, nw, drive=d)
+                out.append(st)
+            return tuple(c)[:3], out
+
+        eager()
+        first_s = []                      # the first call, the capture
+        for _ in range(2):
+            t1 = time.perf_counter()
+            run_segment(c0, nw, drive=drives[0])
+            torch.cuda.synchronize()
+            first_s.append(time.perf_counter() - t1)
+        sim.reset_segments()
+        results, ms = {}, {"eager": [], "graph": []}
+        for name in ("eager", "graph", "graph", "eager"):
+            dispatch.reset_launches()
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda.synchronize()
+            a.record()
+            res = (eager if name == "eager" else graph)()
+            b.record()
+            torch.cuda.synchronize()
+            ms[name].append(a.elapsed_time(b) / (nw * GRAPH_SEGMENTS))
+            results.setdefault(name, (res, dispatch.launch_counts()))
+        (want, want_l), (got, got_l) = results["eager"], results["graph"]
+        n_equal = 0
+        for x, y in zip(sim.tensors_of((got[0], *got[1])),
+                        sim.tensors_of((want[0], *want[1])), strict=True):
+            if not torch.equal(x, y):
+                raise AssertionError(f"window loop, {label}: the graph's "
+                                     f"turn differs from the eager turn")
+            n_equal += 1
+        if got_l != want_l:
+            raise AssertionError(f"window loop, {label}: launches {got_l} "
+                                 f"!= the eager loop's {want_l}")
+        if sim.SEGMENTS != {"eager": 0, "replayed": 2 * GRAPH_SEGMENTS,
+                            "captured": 0}:
+            raise AssertionError(f"window loop, {label}: segments "
+                                 f"{sim.SEGMENTS}")
+        fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
+        print(f"window loop, {label} [{smi}]: ms a window (CUDA events, "
+              f"{GRAPH_SEGMENTS} x {nw} windows a turn, turns eager, "
+              f"graph, graph, eager): eager {fmt(ms['eager'])}, graph "
+              f"{fmt(ms['graph'])}; segments {dict(sim.SEGMENTS)}; "
+              f"{n_equal} tensors equal bit for bit; launches a turn "
+              f"{got_l[0]}; host s of run_segment's first call (eager) "
+              f"{first_s[0]:.3f}, of its capture {first_s[1]:.3f}")
+        for k, n in got_l[0].items():
             total[k] = total.get(k, 0) + n
     return total
 
@@ -6090,7 +6210,7 @@ def main() -> int:
 
     banner("obs-sim: the flight recorder on main path 3's network")
     obs_launches = run_obs_sim(part3, spec3, smi.splitlines()[0])
-    del part3, captured
+    del captured
 
     banner("main path 16: the full-scale microcircuit over a sparse store")
     net16 = full_scale_network()
@@ -6099,7 +6219,13 @@ def main() -> int:
     records.append(check_synapse_deliver(gen, net16.part))
     paths["microcircuit, full scale"] = run_full_scale_path(
         net16, smi.splitlines()[0])
-    del net16
+
+    banner("main path 17: the window loop, eager against its CUDA graph, "
+           "at the microcircuit cells' shapes")
+    paths["window loop, one graph turn a cell"] = run_graph_loops(
+        graph_loop_cells(part3, spec3.bg_rates(), net16.part,
+                         net16.spec.bg_rates()), smi.splitlines()[0])
+    del net16, part3
     torch.cuda.empty_cache()
 
     banner("serve slice, card vs CPU")

@@ -39,6 +39,11 @@
 // __fadd_rn(ring, drive), so nvcc cannot contract anything into FMAs and
 // the kernel agrees with the plain version bit for bit.  The propagators
 // come from the wrapper, computed as the plain version computes them.
+// The window's first step comes by value (t0, already reduced to the
+// ring) or, for a caller that keeps its step count on the card (the
+// simulator's window loop, replayed as a CUDA graph), through a device
+// pointer t_at: the kernel then reduces *t_at to the ring itself, as
+// Python's % does, so both forms read the same slots.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -80,7 +85,11 @@ __global__ void lif_window_kernel(
     float* __restrict__ v_out, float* __restrict__ ie_out,
     float* __restrict__ ii_out, int32_t* __restrict__ rf_out,
     bool* __restrict__ raster, int64_t n, int64_t per, int n_steps, int t0,
-    int ring_len, bool clear, Params p) {
+    const int32_t* __restrict__ t_at, int ring_len, bool clear, Params p) {
+  if (t_at) {
+    const int r = *t_at % ring_len;
+    t0 = r < 0 ? r + ring_len : r;
+  }
   const float ext_term = __fmul_rn(p.tau_c, p.i_ext);
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
@@ -135,13 +144,14 @@ __global__ void lif_window_kernel(
 }  // namespace
 
 // ring_exc / ring_inh: (ring_len, n) f32; drive: (n_steps, n) f32 or null;
-// t0 in [0, ring_len); state (n,) in, (n,) out; raster (n / per, n_steps,
-// per) bool.
+// t0 in [0, ring_len), or t_at a device int32 step (t0 then unused);
+// state (n,) in, (n,) out; raster (n / per, n_steps, per) bool.
 extern "C" int repro_lif_window(
     const void* v, const void* ie, const void* ii, const void* rf,
     void* ring_exc, void* ring_inh, const void* drive, void* v_out,
     void* ie_out, void* ii_out, void* rf_out, void* raster, int64_t n,
-    int64_t per, int n_steps, int t0, int ring_len, int clear, float i_ext,
+    int64_t per, int n_steps, int t0, const void* t_at, int ring_len,
+    int clear, float i_ext,
     float pm, float ps, float pv, int ref_steps, float e_l, float v_th,
     float v_reset, float tau_c, void* stream) {
   if (n == 0 || n_steps == 0) return 0;
@@ -156,7 +166,8 @@ extern "C" int repro_lif_window(
       static_cast<const float*>(drive), static_cast<float*>(v_out),          \
       static_cast<float*>(ie_out), static_cast<float*>(ii_out),              \
       static_cast<int32_t*>(rf_out), static_cast<bool*>(raster), n, per,     \
-      n_steps, t0, ring_len, clear != 0, p
+      n_steps, t0, static_cast<const int32_t*>(t_at), ring_len, clear != 0,  \
+      p
 #define REPRO_LIF_CASE(W)                                                    \
   case W:                                                                    \
     lif_window_kernel<W><<<blocks, kThreads, 0, s>>>(REPRO_LIF_ARGS);        \

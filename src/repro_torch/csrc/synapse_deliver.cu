@@ -21,7 +21,10 @@
 // Every (target, slot) sees its adds in that event order, so the result
 // is a fixed sequence of f32 additions, bit for bit the plain version's.
 // An address at or past per carries no synapse.  The synapses delivered
-// are added into a one-element counter.
+// are added into a one-element counter.  The window's step t comes by
+// value or, for a caller that keeps its step count on the card (the
+// simulator's window loop, replayed as a CUDA graph), through a device
+// pointer to an int32, read by each block before its walk.
 //
 // Bound on an H100 (3.35 TB/s): bytes, ~0.7 M synapses x 8 B + the
 // event words, ~1.7 us a window.  In fact latency-bound: the adds into
@@ -75,6 +78,7 @@ struct Args {
   float* ring_inh;           // (L, S, per)
   int32_t* miss;             // (S,)
   unsigned long long* count; // (1,)
+  const int32_t* t_at;       // the step on the device, or null: t
   int n_shards, n_src, capacity, per, ring_len, tile;
   int64_t t, count_s, count_src;
 };
@@ -167,6 +171,7 @@ synapse_deliver_kernel(const Args a) {
   const int32_t* counts = a.counts + s * a.count_s;
   const int64_t* row_ptr = a.row_ptr + s * (n_src_ids + 1);
   const int tid = threadIdx.x;
+  const int64_t t = a.t_at ? static_cast<int64_t>(*a.t_at) : a.t;
   // a window of at most kEvents slots is read once: the rows it touches
   // and its misses come out of the walk's own reads; a longer one is
   // scanned for them first
@@ -181,11 +186,11 @@ synapse_deliver_kernel(const Args a) {
     const int src = p / C;
     if (p - src * C >= counts[src * a.count_src]) return e;
     const uint32_t w = words[p];
-    const int slack = slack_of(w, a.t);
+    const int slack = slack_of(w, t);
     const int addr = static_cast<int>((w >> kTsBits) & kAddrMask);
     const int64_t g = static_cast<int64_t>(src) * a.per + addr;
     const bool has = addr < a.per;
-    e.row = static_cast<int>((a.t + max(slack, 0)) % L) +
+    e.row = static_cast<int>((t + max(slack, 0)) % L) +
             (has && a.inh_src[g] ? L : 0);
     if (mark) {
       if (blockIdx.x == 0 && slack < 0) atomicAdd(&n_miss, 1);
@@ -325,7 +330,7 @@ extern "C" int repro_synapse_deliver(
     const void* targets, const void* weights, const void* inh_src,
     void* ring_exc, void* ring_inh, void* miss, void* count, int n_shards,
     int n_src, int capacity, int per, int ring_len, int64_t t,
-    int64_t count_s, int64_t count_src, void* stream) {
+    const void* t_at, int64_t count_s, int64_t count_src, void* stream) {
   if (n_shards == 0 || per == 0) return 0;
   if (ring_len < 1 || 2 * ring_len > kMaxRows || capacity < 1 ||
       per > static_cast<int>(kAddrMask) + 1 || t < 0)
@@ -371,6 +376,7 @@ extern "C" int repro_synapse_deliver(
   a.ring_inh = static_cast<float*>(ring_inh);
   a.miss = static_cast<int32_t*>(miss);
   a.count = static_cast<unsigned long long*>(count);
+  a.t_at = static_cast<const int32_t*>(t_at);
   a.n_shards = n_shards;
   a.n_src = n_src;
   a.capacity = capacity;

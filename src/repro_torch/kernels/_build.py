@@ -35,13 +35,13 @@ SIGNATURES = {
     "repro_wire_encode": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
     "repro_wire_decode": (_P, _L, _P, _P, _L, _I, _I, _I, _I, _P),
     "repro_lif_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _L, _L, _I, _I, _I, _I, _F, _F, _F, _F, _I, _F,
-                         _F, _F, _F, _P),
+                         _L, _L, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I,
+                         _F, _F, _F, _F, _P),
     "repro_flush_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _L, _I, _I, _L, _L, _L, _L, _L, _I, _I,
                            _I, _P),
     "repro_synapse_deliver": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, _L, _L, _L, _P),
+                              _I, _I, _I, _I, _L, _P, _L, _L, _P),
     "repro_bucket_scatter": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
     "repro_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                         _I, _P),

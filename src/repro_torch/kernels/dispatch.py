@@ -13,7 +13,9 @@
 * :data:`LAUNCHES` counts kernel launches by kernel name, so a run can
   show that its main path went through the kernels;
   :data:`ENTRY_LAUNCHES` counts the same launches by C entry point (a
-  kernel source with several, e.g. the codec's encode and decode).
+  kernel source with several, e.g. the codec's encode and decode).  A
+  CUDA graph's launches count once per replay, as the eager calls it
+  replays would (:func:`take_launches`, :func:`count_launches`).
 """
 from __future__ import annotations
 
@@ -52,6 +54,38 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def step_on_host(t) -> int:
+    """A step count given as an int or as a tensor (its first element) as
+    an int: for the plain versions, which run on the CPU, where reading a
+    tensor costs no wait for a device."""
+    return int(t.reshape(-1)[0]) if isinstance(t, torch.Tensor) else t
+
+
+def launch_counts() -> tuple[dict, dict]:
+    """A copy of (:data:`LAUNCHES`, :data:`ENTRY_LAUNCHES`)."""
+    return dict(LAUNCHES), dict(ENTRY_LAUNCHES)
+
+
+def take_launches(before: tuple[dict, dict]) -> tuple[dict, dict]:
+    """Take back the launches counted since ``before`` (a
+    :func:`launch_counts`) and return them.  A CUDA graph's capture counts
+    nothing: each replay counts its launches (:func:`count_launches`)."""
+    taken = []
+    for counts, then in zip((LAUNCHES, ENTRY_LAUNCHES), before):
+        taken.append({k: v - then.get(k, 0) for k, v in counts.items()
+                      if v != then.get(k, 0)})
+        counts.clear()
+        counts.update(then)
+    return tuple(taken)
+
+
+def count_launches(launched: tuple[dict, dict]) -> None:
+    """Count the launches of a replayed CUDA graph (:func:`take_launches`)."""
+    for counts, add in zip((LAUNCHES, ENTRY_LAUNCHES), launched):
+        for k, v in add.items():
+            counts[k] = counts.get(k, 0) + v
 
 
 def launch(kernel: str, symbol: str, *args) -> None:

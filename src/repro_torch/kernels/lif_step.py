@@ -10,7 +10,10 @@ as ``lif_step``.  On CPU tensors they run :func:`lif_window_plain` and
 repeats in the same order, so the two agree bit for bit.  The kernel
 covers the ragged tail itself, so there is no padding to the TPU's
 1024-neuron tiles; it takes the external current as one scalar (the
-simulator's is 0).
+simulator's is 0).  The window's first step is a Python int or, for a
+caller that keeps its step count on the card (the simulator, whose window
+loop is replayed as a CUDA graph), an int32 tensor that the kernel reads
+through its pointer, so the host never waits for it.
 """
 from __future__ import annotations
 
@@ -34,9 +37,12 @@ def _check(what: str, named, shape, dtype) -> None:
 
 
 def _launch(state: LIFState, p: LIFParams, ring_exc, ring_inh,
-            ring_len: int, t0: int, drive, n_steps: int, clear: bool,
+            ring_len: int, t0, drive, n_steps: int, clear: bool,
             i_ext: float):
-    """Launch the window kernel -> (state, raster (..., n_steps, per))."""
+    """Launch the window kernel -> (state, raster (..., n_steps, per));
+    ``t0`` the first step's ring slot, or an int32 tensor holding the
+    step, which the kernel reduces to the ring."""
+    t_at = t0.data_ptr() if isinstance(t0, torch.Tensor) else None
     shape = tuple(state.v.shape)
     per = shape[-1] if shape else 1
     pm, ps, pv, ref_steps, tau_c = lif.propagators(p)
@@ -51,9 +57,9 @@ def _launch(state: LIFState, p: LIFParams, ring_exc, ring_inh,
                     None if drive is None else drive.data_ptr(),
                     v.data_ptr(), i_exc.data_ptr(), i_inh.data_ptr(),
                     refrac.data_ptr(), raster.data_ptr(), state.v.numel(),
-                    per, n_steps, t0, ring_len, int(clear),
-                    float(i_ext), pm, ps, pv, ref_steps, p.e_l, p.v_th,
-                    p.v_reset, tau_c)
+                    per, n_steps, t0 if t_at is None else 0, t_at,
+                    ring_len, int(clear), float(i_ext), pm, ps, pv,
+                    ref_steps, p.e_l, p.v_th, p.v_reset, tau_c)
     return LIFState(v, i_exc, i_inh, refrac), raster
 
 
@@ -76,11 +82,12 @@ def lif_step(state: LIFState, p: LIFParams, exc_in: torch.Tensor,
 
 
 def lif_window_plain(neuron: LIFState, p: LIFParams, ring_exc: torch.Tensor,
-                     ring_inh: torch.Tensor, t0: int, drive: torch.Tensor,
+                     ring_inh: torch.Tensor, t0, drive: torch.Tensor,
                      clear: bool = True):
     """Plain PyTorch window: ``drive.shape[0]`` steps off the delay rings
     (the consumed slots cleared in place when ``clear``) -> (neuron,
     spikes (..., n_steps, per) bool)."""
+    t0 = dispatch.step_on_host(t0)
     ring_len = ring_exc.shape[0]
     spikes = []
     for k in range(drive.shape[0]):
@@ -95,7 +102,7 @@ def lif_window_plain(neuron: LIFState, p: LIFParams, ring_exc: torch.Tensor,
 
 
 def lif_window(neuron: LIFState, p: LIFParams, ring_exc: torch.Tensor,
-               ring_inh: torch.Tensor, t0: int, drive: torch.Tensor,
+               ring_inh: torch.Tensor, t0, drive: torch.Tensor,
                clear: bool = True):
     """A flush window of LIF steps off the delay rings in one launch.
 
@@ -103,9 +110,12 @@ def lif_window(neuron: LIFState, p: LIFParams, ring_exc: torch.Tensor,
     ..., per) f32 scheduled currents, contiguous; ``drive``: (n_steps, ...,
     per) f32 background current added to the excitatory input of each
     step; step k reads ring slot ``(t0 + k) % ring_len`` and, when
-    ``clear``, zeroes it in place.  -> (neuron, spikes (..., n_steps, per)
-    bool).  Kernel on CUDA tensors, :func:`lif_window_plain` on CPU
-    tensors; the operands are checked on both."""
+    ``clear``, zeroes it in place.  ``t0`` is an int, or an int32 tensor
+    on the neurons' device whose first element is the step (the
+    simulator's ``ShardState.t``), read on the device by the kernel.
+    -> (neuron, spikes (..., n_steps, per) bool).  Kernel on CUDA tensors,
+    :func:`lif_window_plain` on CPU tensors; the operands are checked on
+    both."""
     shape = tuple(neuron.v.shape)
     if not shape or drive.dim() != len(shape) + 1 or drive.shape[0] < 1:
         raise ValueError(f"lif_window: want (..., per) neurons and an "
@@ -122,8 +132,14 @@ def lif_window(neuron: LIFState, p: LIFParams, ring_exc: torch.Tensor,
            torch.float32)
     if ring_len < 1:
         raise ValueError("lif_window: empty delay ring")
-    if not dispatch.on_cuda(*neuron, ring_exc, ring_inh, drive):
+    on_step = isinstance(t0, torch.Tensor)
+    if on_step and (t0.dtype != torch.int32 or t0.numel() < 1):
+        raise ValueError(f"lif_window: a step tensor must be int32 with an "
+                         f"element, got {t0.dtype} {tuple(t0.shape)}")
+    if not dispatch.on_cuda(*neuron, ring_exc, ring_inh, drive,
+                            *((t0,) if on_step else ())):
         return lif_window_plain(neuron, p, ring_exc, ring_inh, t0, drive,
                                 clear)
-    return _launch(neuron, p, ring_exc, ring_inh, ring_len, t0 % ring_len,
-                   drive, n_steps, clear, 0.0)
+    return _launch(neuron, p, ring_exc, ring_inh, ring_len,
+                   t0 if on_step else t0 % ring_len, drive, n_steps, clear,
+                   0.0)

@@ -25,7 +25,10 @@ weight matrix, ``src/repro/snn/simulator.py:_apply_events``).
 
 The rings are updated in place; returns the (S,) int32 deadline misses.
 A list holds at most one synapse per target (the store's contract), so
-the adds of one event never meet.
+the adds of one event never meet.  The window's step ``t`` is a Python
+int or, for a caller that keeps its step count on the card (the
+simulator, whose window loop is replayed as a CUDA graph), an int32
+tensor whose first element the kernel reads through its pointer.
 """
 from __future__ import annotations
 
@@ -75,6 +78,7 @@ def synapse_deliver_plain(ring_exc, ring_inh, words, counts, t: int, store,
     words = words.contiguous()
     S, n_src, C, L = _operands(ring_exc, ring_inh, words, counts, store,
                                inh_src, per)
+    t = dispatch.step_on_host(t)
     dev = words.device
     slot_ix = torch.arange(C, dtype=torch.int32, device=dev)
     live = (slot_ix < counts[..., None]).reshape(S, -1)
@@ -111,22 +115,29 @@ def synapse_deliver_plain(ring_exc, ring_inh, words, counts, t: int, store,
     return miss
 
 
-def synapse_deliver(ring_exc, ring_inh, words, counts, t: int, store,
+def synapse_deliver(ring_exc, ring_inh, words, counts, t, store,
                     inh_src, per: int):
     """Deliver ``words`` (S, S_src, C) int32 received events with their
     ``counts`` (S, S_src) into the rings (ring_len, S, per) f32 through
-    ``store`` (``snn.network.SynapseStore``) -> (S,) int32 deadline
-    misses.  Kernel on CUDA tensors, :func:`synapse_deliver_plain` on CPU
-    tensors (the module docstring's semantics)."""
+    ``store`` (``snn.network.SynapseStore``) at step ``t`` (an int, or an
+    int32 tensor on the card) -> (S,) int32 deadline misses.  Kernel on
+    CUDA tensors, :func:`synapse_deliver_plain` on CPU tensors (the module
+    docstring's semantics)."""
+    t_at = t if isinstance(t, torch.Tensor) else None
+    if t_at is not None and (t_at.dtype != torch.int32 or t_at.numel() < 1):
+        raise ValueError(f"synapse_deliver: a step tensor must be int32 "
+                         f"with an element, got {t_at.dtype} "
+                         f"{tuple(t_at.shape)}")
     operands = (ring_exc, ring_inh, words, counts, store.row_ptr,
-                store.targets, store.weights, store.count, inh_src)
+                store.targets, store.weights, store.count, inh_src,
+                *(() if t_at is None else (t_at,)))
     if not dispatch.on_cuda(*operands):
         return synapse_deliver_plain(ring_exc, ring_inh, words, counts, t,
                                      store, inh_src, per)
     words = words.contiguous()
     S, n_src, C, L = _operands(ring_exc, ring_inh, words, counts, store,
                                inh_src, per)
-    if L > MAX_RING or t < 0:
+    if L > MAX_RING or (t_at is None and t < 0):
         raise ValueError(f"synapse_deliver: the kernel takes rings of at "
                          f"most {MAX_RING} slots and t >= 0, got {L} and "
                          f"{t}")
@@ -138,5 +149,7 @@ def synapse_deliver(ring_exc, ring_inh, words, counts, t: int, store,
                         store.weights.data_ptr(), inh_src.data_ptr(),
                         ring_exc.data_ptr(), ring_inh.data_ptr(),
                         miss.data_ptr(), store.count.data_ptr(), S, n_src, C,
-                        per, L, int(t), *counts.stride())
+                        per, L, 0 if t_at is not None else int(t),
+                        None if t_at is None else t_at.data_ptr(),
+                        *counts.stride())
     return miss

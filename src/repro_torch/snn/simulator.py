@@ -28,6 +28,17 @@ pipelined as in the reference: iteration k
 One ``drain`` after the last window walks the fabric's transit buffers
 empty and then flushes the last window's buckets, credits bypassed.
 
+A window reads its step count from the card (``ShardState.t``), never from
+the host, so a segment's windows can be replayed as one CUDA graph: on a
+CUDA device, without a fault schedule or a recorder, ``run_segment``'s
+first call for a number of windows runs them eagerly (which warms every
+lazy table and library), the next captures them into a graph with its own
+memory pool, and every later call copies the carry and the drive into the
+graph's buffers, replays it and clones its outputs out, so what a call
+returns is the caller's.  The faulted and recorded windows index their
+schedule and ring by window on the host and stay eager.  :data:`SEGMENTS`
+counts how segments ran.
+
 ``recorder`` (an ``obs.RecorderConfig``) turns on the flight recorder: the
 carry gains a ``TelemetryRing`` and every window records its exchange's
 counters, credit occupancy, the per-link stall table (kernel F's stall
@@ -84,6 +95,17 @@ from repro_torch.kernels.lif_step import lif_window
 from repro_torch.kernels.synapse_deliver import synapse_deliver
 from repro_torch.obs import recorder as obs_recorder, spans
 from repro_torch.snn import lif, network
+
+
+SEGMENTS: dict[str, int] = {"eager": 0, "replayed": 0, "captured": 0}
+"""Segments run by every ``run_segment``: ``eager`` window by window from
+Python, ``replayed`` by replaying a captured CUDA graph; ``captured``
+counts the graphs captured (one per simulator and number of windows)."""
+
+
+def reset_segments() -> None:
+    for k in SEGMENTS:
+        SEGMENTS[k] = 0
 
 
 class SimConfig(NamedTuple):
@@ -170,13 +192,34 @@ class SimCarry(NamedTuple):
     ring: obs_recorder.TelemetryRing | None = None
 
 
-def _stack(rows):
+def tensors_of(tree) -> list:
+    """The tensors of a nest of tuples (a carry, its stats), in order;
+    other leaves skipped."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, tuple):
+        return [x for sub in tree for x in tensors_of(sub)]
+    return []
+
+
+def _refill(tree, tensors):
+    """``tree`` with its tensors taken in order from the iterator
+    ``tensors``."""
+    if isinstance(tree, torch.Tensor):
+        return next(tensors)
+    if isinstance(tree, tuple):
+        subs = [_refill(sub, tensors) for sub in tree]
+        return type(tree)(*subs) if hasattr(tree, "_fields") else tuple(subs)
+    return tree
+
+
+def stack_windows(rows):
     """Stack per-window (S,)-leaved NamedTuples into (S, n_windows, ...)."""
     first = rows[0]
     if first is None:
         return None
     if hasattr(first, "_fields"):
-        return type(first)(*(_stack([r[i] for r in rows])
+        return type(first)(*(stack_windows([r[i] for r in rows])
                              for i in range(len(first))))
     return torch.stack(rows, dim=1)
 
@@ -204,9 +247,13 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
       init_link()     -> transport fabric state
       body(carry, t, tables, weights_t, inh_src, delays, drive)
                       -> (carry', WindowStats) for carry (state, pending,
-                         link) at global step ``t`` (a Python int equal to
-                         ``state.t``); ``drive`` (window, S, per) f32 is
-                         the background current of the window's steps
+                         link) at the global step ``state.t``, read on the
+                         device; ``t`` is the same step on the host, or
+                         None in a captured window: the fault schedule and
+                         the recorder need it, and with it the sparse
+                         delivery's span is recorded; ``drive`` (window,
+                         S, per) f32 is the background current of the
+                         window's steps
       drain(state, pending, link, t, weights_t, inh_src)
                       -> (S,) deadline misses of the final flush: the
                          fabric's parked rows, then the pending buckets
@@ -275,28 +322,36 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         return (recv, recv_meta, out.recv_counts, out.sent_mask, out.stats,
                 out.state, out.queue_us.T, links)
 
-    def _window_latency(t: int, recv_meta, counts, queue_us, links=None):
-        """Wire latency of the events just delivered: waiting since each
-        event's injection step + the row's per-link switch and
-        serialization charges + the queueing dwell.  ``links`` (fault
-        injection only) are the links each row actually crossed, so
-        detour hops are charged."""
+    def _window_latency(t, recv_meta, counts, queue_us, links=None):
+        """Wire latency of the events just delivered at the (S,) steps
+        ``t``: waiting since each event's injection step + the row's
+        per-link switch and serialization charges + the queueing dwell.
+        ``links`` (fault injection only) are the links each row actually
+        crossed, so detour hops are charged."""
         live = slots < counts[..., None]
-        wait_us = (t - recv_meta).to(torch.float32) * cfg.step_us
+        wait_us = (t[:, None, None] - recv_meta).to(torch.float32) \
+            * cfg.step_us
         hop_us = wire.hop_latency_us(fmt, counts,
                                      hops if links is None else links) \
             + queue_us
         lat = torch.clamp(wait_us, min=0.0) + hop_us[..., None]
         return wire.summarize_latency(lat, live, batch_dims=1)
 
-    def _apply_events(ring_exc, ring_inh, words, counts, t: int, weights_t,
-                      inh_src):
+    def _apply_events(ring_exc, ring_inh, words, counts, t, weights_t,
+                      inh_src, window=None):
         """Scatter the weighted input of received events (S, S_src, C) into
-        the delay rings (in place); returns (S,) deadline misses."""
+        the delay rings (in place) at the (S,) steps ``t``; returns (S,)
+        deadline misses.  ``window`` (the window's index on the host, or
+        None) labels the sparse delivery's span; without it none is
+        recorded."""
         if sparse:
-            with tracer.span("window/deliver", window=t // cfg.window):
+            if window is None:
                 return synapse_deliver(ring_exc, ring_inh, words, counts, t,
                                        weights_t, inh_src, cfg.per_shard)
+            with tracer.span("window/deliver", window=window):
+                return synapse_deliver(ring_exc, ring_inh, words, counts, t,
+                                       weights_t, inh_src, cfg.per_shard)
+        t = t[:, None, None]
         live = slots < counts[..., None]
         src = src_base + ev.address(words) // cfg.max_fan
         slack = ev.ts_slack(ev.timestamp(words), t & ev.TS_MASK)
@@ -315,20 +370,22 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         ring_inh += acc[:, L:].transpose(0, 1)
         return miss
 
-    def _simulate_steps(neuron, ring_exc, ring_inh, t0: int, drive):
+    def _simulate_steps(neuron, ring_exc, ring_inh, t0, drive):
         """``window`` LIF steps off the rings (consumed slots cleared in
         place) -> (neuron, spikes (S, window, per) bool)."""
         return lif_window(neuron, cfg.params, ring_exc, ring_inh, t0,
                           drive.contiguous())
 
-    def _spikes_to_events(spikes, t0: int, delays, fanout=None):
-        """Compact the (S, window, per) raster into <= e_max spikes per
+    def _spikes_to_events(spikes, t0, delays, fanout=None):
+        """Compact the (S, window, per) raster of the window starting at
+        the (S,) steps ``t0`` into <= e_max spikes per
         shard, each replicated to ``max_fan`` event words (addr = id * fan
         + k; with the (S, per, max_fan) ``fanout`` of the source layout
         addr = id, and each replica's destination beside it), with each
         replica's injection step, the spikes lost, the (S,) spike counts
         and the destinations (None in the replica layout)."""
         _, w, per = spikes.shape
+        t0 = t0[:, None]
         flat = spikes.reshape(S, w * per)
         # stable compaction: spiking slots first, window order kept
         order = torch.sort((~flat).to(torch.uint8), dim=-1,
@@ -351,9 +408,13 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         inject = (t0 + sel_step).repeat_interleave(cfg.max_fan, -1)
         return words, inject, lost, fired, dest
 
-    def body(carry, t: int, tables: RoutingTables, weights_t, inh_src,
-             delays, drive):
+    def body(carry, t: int | None, tables: RoutingTables, weights_t,
+             inh_src, delays, drive):
         state, pend, lstate = carry[:3]
+        now = state.t
+        if t is None and (fault_schedule is not None or recorder is not None):
+            raise ValueError("a fault schedule or a recorder needs the "
+                             "window's step on the host")
         # 1. exchange + decode window k-1 (state.t == that window's end),
         #    under this window's dead-link mask when faults are injected
         #    (the exchange returns a state without it)
@@ -362,16 +423,17 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                 fault_schedule, t // cfg.window))
         recv, rmeta, counts, sent_mask, lstats, lstate, qcol, links = \
             _exchange(pend, lstate, enforce_credits=True)
-        latency = _window_latency(t, rmeta, counts, qcol, links)
+        latency = _window_latency(now, rmeta, counts, qcol, links)
         miss = _apply_events(state.ring_exc, state.ring_inh, recv, counts,
-                             t, weights_t, inh_src)
+                             now, weights_t, inh_src,
+                             None if t is None else t // cfg.window)
         # 2. simulate window k
         neuron, spikes = _simulate_steps(state.neuron, state.ring_exc,
-                                         state.ring_inh, t, drive)
+                                         state.ring_inh, now, drive)
         # 3. route + aggregate: transport-deferred rows first, then the
         #    residue, then fresh spikes (oldest deadlines win bucket slots)
         words, inject, lost, fired, dest = _spikes_to_events(
-            spikes, t, delays, tables if sparse else None)
+            spikes, now, delays, tables if sparse else None)
         if can_defer:
             held = (~sent_mask[..., None]) & (slots < pend.counts[..., None])
             words = torch.cat([torch.where(held, pend.data, 0).reshape(S, -1),
@@ -410,7 +472,7 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
             latency=latency,
         )
         state = ShardState(neuron, state.ring_exc, state.ring_inh,
-                           state.t + cfg.window, state.generator)
+                           now + cfg.window, state.generator)
         pend = (b.data, b.guids, b.counts, fw.residue, fw.residue_meta,
                 fw.payload)
         pend = (SourcePendingWindow(*pend, fw.residue_dest) if sparse
@@ -425,22 +487,61 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
               weights_t, inh_src):
         """Deliver every row still parked in the fabric (``drain_fabric``),
         then flush the last window's buckets with credits bypassed, into
-        the rings; the final residue stays deferred.  The drain's link
-        statistics are not reported (they would break the per-window
-        identities); its deadline misses are."""
+        the rings, at the step ``state.t`` (``t`` on the host); the final
+        residue stays deferred.  The drain's link statistics are not
+        reported (they would break the per-window identities); its
+        deadline misses are."""
         miss = torch.zeros((S,), dtype=torch.int32, device=device)
+        window = t // cfg.window
         if can_defer:
             fab = backend.drain_fabric(lstate)
             recv_f, _ = wire.decode_planar(fab.recv_payload)
             miss = miss + _apply_events(state.ring_exc, state.ring_inh,
-                                        recv_f, fab.recv_counts, t,
-                                        weights_t, inh_src)
+                                        recv_f, fab.recv_counts, state.t,
+                                        weights_t, inh_src, window)
             lstate = fab.state
         recv, _, counts, *_ = _exchange(pend, lstate, enforce_credits=False)
         return miss + _apply_events(state.ring_exc, state.ring_inh, recv,
-                                    counts, t, weights_t, inh_src)
+                                    counts, state.t, weights_t, inh_src,
+                                    window)
 
     return init_pending, init_link, body, drain
+
+
+class WindowInputs(NamedTuple):
+    """What ``body`` reads besides its carry and drive, on the device."""
+
+    tables: RoutingTables | torch.Tensor  # sparse: the (S, per, F) fan-out
+    weights_t: torch.Tensor | network.SynapseStore  # dense: (S, N, per)
+    inh_src: torch.Tensor        # (N,) bool inhibitory sources
+    delays: torch.Tensor         # (S, per) int32 axonal delays in steps
+    bg: torch.Tensor             # (S, per) f32 background rates [Hz]
+
+
+def window_inputs(cfg: SimConfig,
+                  part: network.Partition | network.SparsePartition,
+                  bg_rates: np.ndarray, *, device=None) -> WindowInputs:
+    """``part``'s weights, tables, delays and background rates on
+    ``device``: a dense partition's weights as an (S, N, per) matrix, a
+    sparse one's store and fan-out moved."""
+    device = dispatch.resolve_device(device)
+    S, per, n_tot = cfg.n_shards, cfg.per_shard, part.n_neurons
+    if isinstance(part, network.SparsePartition):
+        weights_t = network.SynapseStore(*(x.to(device)
+                                           for x in part.store))
+        tables = part.fanout.to(device).reshape(S, per, -1)
+        delay_local = part.delays_steps.reshape(S, per)
+    else:
+        w_local, _fan, delay_local = network.shard_arrays(part)
+        weights_t = torch.from_numpy(np.ascontiguousarray(w_local)).to(
+            device).transpose(1, 2).contiguous()             # (S, N, per)
+        tables = stack_tables([network.routing_tables_for_shard(
+            part, s, device=device) for s in range(S)], device=device)
+    inh_src = torch.from_numpy(part.is_inh).to(device)
+    delays = torch.from_numpy(delay_local.astype(np.int32)).to(device)
+    bg = torch.from_numpy(np.pad(bg_rates, (0, n_tot - len(bg_rates)))
+                          .reshape(S, per).astype(np.float32)).to(device)
+    return WindowInputs(tables, weights_t, inh_src, delays, bg)
 
 
 def build_sharded_segments(cfg: SimConfig,
@@ -472,28 +573,22 @@ def build_sharded_segments(cfg: SimConfig,
 
     With ``recorder`` the carry holds a ``TelemetryRing`` with a leading
     shard axis (``SimCarry.ring``), which each segment records into.
+
+    On CUDA without ``fault_schedule`` and ``recorder``, ``run_segment``
+    replays a CUDA graph of its windows from the second call for a number
+    of windows on (the module docstring), recording a ``segment/capture``
+    and ``segment/replay`` span on ``tracer``; the kernel launches of each
+    replay are counted in ``dispatch.LAUNCHES`` as the eager loop would
+    count them, and no window records a ``window/deliver`` span.
     """
     sparse = isinstance(part, network.SparsePartition)
     init_pending, init_link, body, drain = make_pipeline_fns(
         cfg, device=device, fault_schedule=fault_schedule, recorder=recorder,
         sparse=sparse, tracer=tracer)
     device = dispatch.resolve_device(device)
-    S, per, n_tot = cfg.n_shards, cfg.per_shard, part.n_neurons
-    if sparse:
-        weights_t = network.SynapseStore(*(x.to(device)
-                                           for x in part.store))
-        tables = part.fanout.to(device).reshape(S, per, -1)
-        delay_local = part.delays_steps.reshape(S, per)
-    else:
-        w_local, _fan, delay_local = network.shard_arrays(part)
-        weights_t = torch.from_numpy(np.ascontiguousarray(w_local)).to(
-            device).transpose(1, 2).contiguous()             # (S, N, per)
-        tables = stack_tables([network.routing_tables_for_shard(
-            part, s, device=device) for s in range(S)], device=device)
-    inh_src = torch.from_numpy(part.is_inh).to(device)
-    delays = torch.from_numpy(delay_local.astype(np.int32)).to(device)
-    bg = torch.from_numpy(np.pad(bg_rates, (0, n_tot - len(bg_rates)))
-                          .reshape(S, per).astype(np.float32)).to(device)
+    S, per = cfg.n_shards, cfg.per_shard
+    tables, weights_t, inh_src, delays, bg = window_inputs(
+        cfg, part, bg_rates, device=device)
     drive_shape = (cfg.window, S, per)
 
     def init(seed: int = 0) -> SimCarry:
@@ -515,6 +610,62 @@ def build_sharded_segments(cfg: SimConfig,
         return state._replace(ring_exc=state.ring_exc.clone(),
                               ring_inh=state.ring_inh.clone())
 
+    def _windows(loop, n_windows: int, drive_of, t: int | None):
+        """``n_windows`` windows of ``body`` from ``loop``; ``t`` the step
+        on the host, or None in a captured segment."""
+        rows = []
+        for k in range(n_windows):
+            loop, stats = body(loop, t, tables, weights_t, inh_src, delays,
+                               drive_of(k))
+            rows.append(stats)
+            if t is not None:
+                t += cfg.window
+        return SimCarry(*loop), stack_windows(rows)
+
+    def _draw(gen) -> torch.Tensor:
+        return lif.poisson_input(bg.expand(drive_shape), bg_weight,
+                                 cfg.params.dt, generator=gen)
+
+    graphable = (device.type == "cuda" and fault_schedule is None
+                 and recorder is None)
+    # by number of windows: None once a segment ran eagerly, then its graph
+    graphs: dict[int, _SegmentGraph | None] = {}
+
+    def _capture(carry: SimCarry, n_windows: int) -> _SegmentGraph:
+        """Capture ``n_windows`` windows into a graph whose inputs are
+        copies of ``carry``'s tensors and a drive buffer."""
+        inputs = [x.clone() for x in tensors_of(carry)]
+        drive_buf = torch.empty((n_windows,) + drive_shape,
+                                dtype=torch.float32, device=device)
+        loop = _refill(carry, iter(inputs))[:3]
+        before = dispatch.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with tracer.span("segment/capture", windows=n_windows):
+            with torch.cuda.graph(graph):
+                out = _windows(loop, n_windows, lambda k: drive_buf[k], None)
+        launched = dispatch.take_launches(before)
+        SEGMENTS["captured"] += 1
+        return _SegmentGraph(graph, inputs, drive_buf, out, launched)
+
+    def _replay(carry: SimCarry, n_windows: int, drive):
+        g = graphs[n_windows]
+        if g is None:
+            g = graphs[n_windows] = _capture(carry, n_windows)
+        for dst, src in zip(g.inputs, tensors_of(carry), strict=True):
+            dst.copy_(src)
+        if drive is not None:
+            g.drive.copy_(drive)
+        else:                   # the eager loop's draws, in its order
+            for k in range(n_windows):
+                g.drive[k].copy_(_draw(carry.state.generator))
+        with tracer.span("segment/replay", windows=n_windows):
+            g.graph.replay()
+        dispatch.count_launches(g.launched)
+        SEGMENTS["replayed"] += 1
+        end, stats = _refill(g.out, (x.clone() for x in tensors_of(g.out)))
+        return end._replace(state=end.state._replace(
+            generator=carry.state.generator)), stats
+
     def run_segment(carry: SimCarry, n_windows: int, drive=None):
         if n_windows < 1:
             raise ValueError(f"n_windows must be >= 1, got {n_windows}")
@@ -526,21 +677,19 @@ def build_sharded_segments(cfg: SimConfig,
                 raise ValueError(f"drive must be {(n_windows,) + drive_shape}"
                                  f", got {tuple(drive.shape)}")
             drive = drive.to(device=device, dtype=torch.float32)
+        if graphable:
+            if n_windows in graphs:
+                return _replay(carry, n_windows, drive)
+            graphs[n_windows] = None
         state = _own_rings(carry.state)
         loop = (state, carry.pending, carry.link)
         if recorder is not None:
             loop += (obs_recorder.ring_clone(carry.ring),)
         t = int(state.t[0])               # all shards share the step count
-        rows = []
-        for k in range(n_windows):
-            d = (drive[k] if drive is not None else lif.poisson_input(
-                bg.expand(drive_shape), bg_weight, cfg.params.dt,
-                generator=loop[0].generator))
-            loop, stats = body(loop, t, tables, weights_t, inh_src, delays,
-                               d)
-            rows.append(stats)
-            t += cfg.window
-        return SimCarry(*loop), _stack(rows)
+        SEGMENTS["eager"] += 1
+        return _windows(loop, n_windows, (
+            (lambda k: drive[k]) if drive is not None
+            else lambda k: _draw(loop[0].generator)), t)
 
     def finish(carry: SimCarry):
         state = _own_rings(carry.state)
@@ -549,6 +698,19 @@ def build_sharded_segments(cfg: SimConfig,
         return state, miss
 
     return init, run_segment, finish
+
+
+class _SegmentGraph(NamedTuple):
+    """A captured segment: its graph, the input tensors it reads (the
+    carry's, in ``tensors_of`` order, and the drive), the ``(SimCarry,
+    WindowStats)`` it writes, and the kernel launches its capture counted
+    (``dispatch.take_launches``)."""
+
+    graph: torch.cuda.CUDAGraph
+    inputs: list
+    drive: torch.Tensor
+    out: tuple
+    launched: tuple
 
 
 def stack_tables(tabs, *, device=None) -> RoutingTables:

@@ -8,6 +8,7 @@ p50/p99/max/mean; leading axes of the inputs give one digest each.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -52,6 +53,15 @@ def queueing_latency_us(fmt: WireFormat, queued_events) -> torch.Tensor:
         fmt.bytes_per_us
 
 
+@functools.lru_cache(maxsize=None)
+def _bin_edges(device: torch.device) -> torch.Tensor:
+    """``LATENCY_BIN_EDGES_US`` as an f32 tensor on ``device``, made once:
+    a copy from the host each call could not be captured in a CUDA
+    graph."""
+    return torch.tensor(LATENCY_BIN_EDGES_US, dtype=torch.float32,
+                        device=device)
+
+
 def percentile_from_hist(hist, q: float) -> float:
     """Host-side quantile from a ``LATENCY_BIN_EDGES_US`` histogram: the
     upper edge of the bin holding the ``ceil(q * total)``-th event (twice
@@ -91,9 +101,7 @@ def summarize_latency(lat_us: torch.Tensor, weights: torch.Tensor, *,
         val = torch.gather(lat_s, -1, idx[..., None])[..., 0]
         return torch.where(total > 0, val, zero)
 
-    edges = torch.tensor(LATENCY_BIN_EDGES_US, dtype=torch.float32,
-                         device=lat.device)
-    bins = torch.searchsorted(edges, lat, right=True)
+    bins = torch.searchsorted(_bin_edges(lat.device), lat, right=True)
     hist = torch.zeros(batch + (N_LATENCY_BINS,), dtype=torch.int32,
                        device=lat.device).scatter_add_(-1, bins, w)
     mean = (lat * w.to(torch.float32)).sum(-1) / torch.clamp(total, min=1)
