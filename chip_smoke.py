@@ -66,15 +66,15 @@ Phases, each raising on failure (exit code != 0, no result line):
    exact, deadline misses printed as the model's output); launch counts
    (the admission kernel F once per credited window), ms per window, a
    torch.profiler pass;
-5d. kernel F -- the admission replay (``csrc/admission.cu``) against both
-   plain loops, bit for bit on every field and its stall lane
+5d. kernel F -- the admission replay (``csrc/admission.cu``) against the
+   plain replay, bit for bit on every field and its stall lane
    (``stall_lane=True``: deferred events per egress link, summing to the
    window's deferrals): on the states of 8 more windows of main path 3's
-   binding run (no mask, and an all-false mask against both loops), and on
-   transport runs of 8 windows on torus2d 2x4 and torus3d 2x2x2 under the
-   fault matrix's four schedules and chaos seeds 0-4 (credits 24), each
-   also card == CPU; its time without and with the lane, bound and both
-   loops' times;
+   binding run (no mask, and an all-false mask against the healthy and the
+   masked replay), and on transport runs of 8 windows on torus2d 2x4 and
+   torus3d 2x2x2 under the fault matrix's four schedules and chaos seeds
+   0-4 (credits 24), each also card == CPU; its time without and with the
+   lane, bound and the plain replay's times;
 5e. a small fault run (scale 0.004, torus3d 2x2x2, chaos seed 0) on the
    card against the CPU;
 5f. the fault matrix of ``benchmarks/bench_microcircuit.py`` (none, a dead
@@ -148,11 +148,11 @@ Phases, each raising on failure (exit code != 0, no result line):
    and every one among the ring's windows, a run directory with parsable
    metrics and both tenants; ms per served window, events/s and device
    functions per served window, instrumented and not;
-5i. kernel F's tenant form against both tenant loops, bit for bit on
+5i. kernel F's tenant form against the plain replay, bit for bit on
    every field and the stall lane, on the states of every 6th window of
    each of 5h's runs (without a mask also under an all-false mask against
-   both loops); its time (CUDA graph) without and with the lane against
-   its chain bound, and the loops' times;
+   the healthy and the masked replay); its time (CUDA graph) without and
+   with the lane against its chain bound, and the replay's times;
 5q. kernel G (``csrc/cycle_models.cu``) on small traces that reach the
    bucket model's corners (the clipped append, invalid words and negative
    destinations, the 15-bit wrap, a queue of 1, 32 arrivals a cycle, 40
@@ -2126,28 +2126,34 @@ def run_graph_loops(cells, smi: str) -> dict:
     return total
 
 
-def capture_admission(fn, wrapper: str = "admission", every: int = 1):
-    """Run ``fn`` with every ``every``-th call of the admission wrapper
-    ``wrapper`` (``admission`` or ``admission_tenants``) recorded: ->
-    ([(call index, counts, FabricState, RouteTables, link_down)], each
-    tensor a copy; ``fn``'s result)."""
+def capture_admission(fn, wrappers=("admission",), every: int = 1):
+    """Run ``fn`` with every ``every``-th call of the admission wrappers
+    ``wrappers`` recorded (``admission``; for the tenant transport both
+    ``admission_tenants`` and ``admission_tenants_blocks``, which its
+    healthy credited windows on the card call): -> ([(call index, counts,
+    FabricState, RouteTables, link_down)], each tensor a copy; ``fn``'s
+    result)."""
     from repro_torch.kernels import admission
-    real, calls, seen = getattr(admission, wrapper), [], [0]
+    reals, calls, seen = {w: getattr(admission, w) for w in wrappers}, [], [0]
 
-    def spy(counts, state, tables, link_down=None, **kw):
-        if seen[0] % every == 0:
-            copy = lambda t: None if t is None else t.clone()
-            calls.append((seen[0], counts.clone(), type(state)(*(
-                type(x)(*map(copy, x)) if hasattr(x, "_fields") else copy(x)
-                for x in state)), tables, copy(link_down)))
-        seen[0] += 1
-        return real(counts, state, tables, link_down, **kw)
+    def spy(real):
+        def call(counts, state, tables, link_down=None, **kw):
+            if seen[0] % every == 0:
+                copy = lambda t: None if t is None else t.clone()
+                calls.append((seen[0], counts.clone(), type(state)(*(
+                    type(x)(*map(copy, x)) if hasattr(x, "_fields")
+                    else copy(x) for x in state)), tables, copy(link_down)))
+            seen[0] += 1
+            return real(counts, state, tables, link_down, **kw)
+        return call
 
-    setattr(admission, wrapper, spy)
+    for w, real in reals.items():
+        setattr(admission, w, spy(real))
     try:
         out = fn()
     finally:
-        setattr(admission, wrapper, real)
+        for w, real in reals.items():
+            setattr(admission, w, real)
     torch.cuda.synchronize()
     return calls, out
 
@@ -2161,29 +2167,38 @@ def check_stall_lane(what, got, counts):
                              f"deferred {deferred}")
 
 
+def plain_single(counts, state, tables, down=None, **kw):
+    """The plain replay of a single-tenant window on its operands' device:
+    the fabric as one tenant with reserve 0, as ``admission`` runs it on
+    CPU tensors."""
+    from repro_torch.kernels import admission as adm
+    K = counts.shape[0] * 2 * tables.seg.shape[0]
+    return adm._single_tenant(adm.admission_tenants_plain(
+        *adm._one_tenant(counts, state), tables, down, **kw), K)
+
+
 def check_admission_case(what, counts, state, tables, down):
-    """Kernel F against the plain loops on one window, every field and the
+    """Kernel F against the plain replay on one window, every field and the
     stall lane (``stall_lane=True`` on both): with no mask against the
-    healthy loop, and with an all-false mask against both loops; with a
-    mask against the faulted loop."""
+    healthy replay, and with an all-false mask against the healthy and the
+    masked replay; with a mask against the masked replay."""
     from repro_torch.kernels import admission as adm
     got = adm.admission(counts, state, tables, down, stall_lane=True)
     check_stall_lane(what, got, counts)
     if down is None:
-        plain = adm.admission_plain(counts, state, tables, stall_lane=True)
-        require_equal(f"{what}: kernel F vs the healthy loop",
+        plain = plain_single(counts, state, tables, stall_lane=True)
+        require_equal(f"{what}: kernel F vs the healthy replay",
                       list(zip(got, plain)))
         off = torch.zeros_like(state.parked_by_link, dtype=torch.bool)
         masked = adm.admission(counts, state, tables, off, stall_lane=True)
-        for name, want in (("healthy", plain), ("faulted", (
-                adm.admission_faulted_plain(counts, state, tables, off,
-                                            stall_lane=True)))):
+        for name, want in (("healthy", plain), ("masked", plain_single(
+                counts, state, tables, off, stall_lane=True))):
             require_equal(f"{what}: kernel F, all-false mask, vs the "
-                          f"{name} loop", list(zip(masked, want)))
+                          f"{name} replay", list(zip(masked, want)))
         return got
-    require_equal(f"{what}: kernel F vs the faulted loop",
-                  list(zip(got, adm.admission_faulted_plain(
-                      counts, state, tables, down, stall_lane=True))))
+    require_equal(f"{what}: kernel F vs the masked replay",
+                  list(zip(got, plain_single(counts, state, tables, down,
+                                             stall_lane=True))))
     return got
 
 
@@ -2231,12 +2246,12 @@ def _fault_transport_run(backend, dims, sched, seed, device):
 
 
 def check_admission(captured):
-    """Kernel F against both plain loops, bit for bit on every field: on
+    """Kernel F against the plain replay, bit for bit on every field: on
     the healthy states captured from main path 3's binding-credit run, and
     on transport runs of 8 windows under the fault matrix's schedules and
     chaos seeds 0-4 on torus2d 2x4 and torus3d 2x2x2 (credits 24, traffic
     from traffic_rng / draw_counts), each also card == CPU; then times
-    kernel F, both loops, on a captured state."""
+    kernel F and the plain replay on a captured state."""
     from repro_torch.convert import flatten
     from repro_torch.kernels import admission as adm
     cases = 0
@@ -2275,11 +2290,9 @@ def check_admission(captured):
     ms, eager_ms = time_ms(lambda: adm.admission(counts, state, tables))
     lane_ms, lane_eager_ms = time_ms(lambda: adm.admission(
         counts, state, tables, stall_lane=True))
-    healthy_ms = time_loop(lambda: adm.admission_plain(counts, state,
-                                                       tables))
+    healthy_ms = time_loop(lambda: plain_single(counts, state, tables))
     off = torch.zeros_like(state.parked_by_link, dtype=torch.bool)
-    faulted_ms = time_loop(lambda: adm.admission_faulted_plain(
-        counts, state, tables, off))
+    faulted_ms = time_loop(lambda: plain_single(counts, state, tables, off))
     # without a mask the kernel reads only combo 0 of the route tables and
     # never the axis segments
     n_bytes = (sum(x.numel() * x.element_size() for x in (
@@ -2298,11 +2311,12 @@ def check_admission(captured):
         ((counts > 0) & ~eye).sum())
     t_chain = steps * SHARED_ROUND_TRIP_CYCLES / SM_CLOCK_HZ * 1e3
     bms, by = max((t_bytes, "bytes"), (t_chain, "operations"))
-    print(f"admission: {cases} windows bit for bit against the loops "
-          f"({seen}); at main path 3's shape (8 shards, 48 links): kernel "
-          f"{ms:.4f} ms (CUDA graph), eager {eager_ms:.4f} ms; the healthy "
-          f"loop {healthy_ms:.3f} ms and the faulted loop {faulted_ms:.3f} "
-          f"ms a call (eager, events around 5 calls); bound {bms:.6f} ms "
+    print(f"admission: {cases} windows bit for bit against the plain "
+          f"replay ({seen}); at main path 3's shape (8 shards, 48 links): "
+          f"kernel {ms:.4f} ms (CUDA graph), eager {eager_ms:.4f} ms; the "
+          f"plain replay {healthy_ms:.3f} ms healthy and {faulted_ms:.3f} "
+          f"ms under an all-false mask a call (eager, events around 5 "
+          f"calls); bound {bms:.6f} ms "
           f"({'the chain: ' if by == 'operations' else ''}"
           f"{steps} dependent steps of {2 * n * n} rows x "
           f"{SHARED_ROUND_TRIP_CYCLES} cycles at "
@@ -2318,8 +2332,8 @@ def check_admission(captured):
                 bound_by=by, library_ms=None, eager_ms=eager_ms,
                 plain_eager_ms=healthy_ms, faulted_loop_ms=faulted_ms,
                 lane_ms=lane_ms,
-                parity=f"bit-exact ({cases} windows, both loops, the stall "
-                       f"lane included)")
+                parity=f"bit-exact ({cases} windows, the plain replay "
+                       f"healthy and masked, the stall lane included)")
 
 
 def time_loop(fn, calls: int = 5) -> float:
@@ -2532,8 +2546,8 @@ SERVE_SMALL_SEGMENTS = 3
 QOS_P99_BOUND = 4.0                # benchmarks/bench_serve.py:35
 SERVE_FAULT_START = 2              # link_fault(0, x+) from window 2
 # every how many windows of each main-path-4 run phase 5i checks the
-# admission state against both loops (they take ~0.3-0.4 s a call on the
-# card): 32-36 windows a run, spread over it and its drain
+# admission state against the plain replay (eager on the card): 32-36
+# windows a run, spread over it and its drain
 SERVE_CAPTURE_EVERY = 6
 
 
@@ -2831,7 +2845,8 @@ def run_serve_main_path(smi: str):
         dispatch.reset_launches()
         calls, rep = capture_admission(
             lambda: eng.run(SERVE_SEGMENTS, timeout=900),
-            "admission_tenants", SERVE_CAPTURE_EVERY)
+            ("admission_tenants", "admission_tenants_blocks"),
+            SERVE_CAPTURE_EVERY)
         launches[label] = dict(dispatch.LAUNCHES)
         entries = dict(dispatch.ENTRY_LAUNCHES)
         captured += [(label, *c) for c in calls]
@@ -2910,12 +2925,13 @@ def n_links(counts, tables) -> int:
 
 
 def check_admission_tenants(captured, smi: str):
-    """Kernel F's tenant form against both tenant loops, bit for bit on
+    """Kernel F's tenant form against the plain replay, bit for bit on
     every TenantAdmissionOut field, on the states main path 4 captured
     (solo, contended and faulted runs): without a mask against the healthy
-    loop, and with an all-false mask against both; with a mask against the
-    faulted loop.  Then F's time per call (CUDA graph) at the last
-    contended state against its chain bound, and both loops' times."""
+    replay, and with an all-false mask against the healthy and the masked
+    replay; with a mask against the masked replay.  Then F's time per call
+    (CUDA graph) at the last contended state against its chain bound, and
+    the replay's times."""
     from repro_torch.kernels import admission as adm
     seen = dict(hold_shared=0, parked=0, deferred=0, rerouted=0, masked=0,
                 stalled=0)
@@ -2927,20 +2943,20 @@ def check_admission_tenants(captured, smi: str):
         if down is None:
             plain = adm.admission_tenants_plain(counts, state, tables,
                                                 stall_lane=True)
-            require_equal(f"{what}: tenant F vs the healthy loop",
+            require_equal(f"{what}: tenant F vs the healthy replay",
                           list(zip(got, plain)))
             off = torch.zeros(n_links(counts, tables), dtype=torch.bool,
                               device=counts.device)
             masked = adm.admission_tenants(counts, state, tables, off,
                                            stall_lane=True)
             for name, want in (("healthy", plain), (
-                    "faulted", adm.admission_tenants_faulted_plain(
+                    "masked", adm.admission_tenants_plain(
                         counts, state, tables, off, stall_lane=True))):
                 require_equal(f"{what}: tenant F, all-false mask, vs the "
-                              f"{name} loop", list(zip(masked, want)))
+                              f"{name} replay", list(zip(masked, want)))
         else:
-            require_equal(f"{what}: tenant F vs the faulted loop", list(zip(
-                got, adm.admission_tenants_faulted_plain(
+            require_equal(f"{what}: tenant F vs the masked replay", list(zip(
+                got, adm.admission_tenants_plain(
                     counts, state, tables, down, stall_lane=True))))
             seen["masked"] += 1
         seen["hold_shared"] += int((got.hold_shared > 0).sum())
@@ -2964,7 +2980,7 @@ def check_admission_tenants(captured, smi: str):
         counts, state, tables))
     off = torch.zeros(n_links(counts, tables), dtype=torch.bool,
                       device=counts.device)
-    faulted_ms = time_loop(lambda: adm.admission_tenants_faulted_plain(
+    faulted_ms = time_loop(lambda: adm.admission_tenants_plain(
         counts, state, tables, off))
     out = adm.admission_tenants(counts, state, tables)
     n_bytes = (sum(x.numel() * x.element_size() for x in (
@@ -2979,12 +2995,12 @@ def check_admission_tenants(captured, smi: str):
     t_chain = steps * SHARED_ROUND_TRIP_CYCLES / SM_CLOCK_HZ * 1e3
     bms, by = max((t_bytes, "bytes"), (t_chain, "operations"))
     print(f"[{smi}] admission (tenant form): {len(captured)} windows bit "
-          f"for bit against both tenant loops ({seen}); at main path 4's "
+          f"for bit against the plain replay ({seen}); at main path 4's "
           f"contended window {w} ({T} tenants, {n} shards, "
           f"{state.bank.credits.shape[0]} slots): kernel {ms:.4f} ms (CUDA graph), "
-          f"eager {eager_ms:.4f} ms; the healthy loop {healthy_ms:.3f} ms "
-          f"and the faulted loop {faulted_ms:.3f} ms a call (eager, events "
-          f"around 5 calls); bound {bms:.6f} ms ({steps} dependent steps of "
+          f"eager {eager_ms:.4f} ms; the plain replay {healthy_ms:.3f} ms "
+          f"healthy and {faulted_ms:.3f} ms under an all-false mask a call "
+          f"(eager, events around 5 calls); bound {bms:.6f} ms ({steps} dependent steps of "
           f"{2 * T * n * n} rows x {SHARED_ROUND_TRIP_CYCLES} cycles at "
           f"{SM_CLOCK_HZ / 1e9:.2f} GHz = {t_chain:.6f} ms; {n_bytes} B = "
           f"{t_bytes:.6f} ms); with the stall lane: kernel {lane_ms:.4f} ms "
@@ -3063,7 +3079,7 @@ def check_torus_exchange(smi: str) -> dict:
             raise AssertionError(f"window {i}: launches "
                                  f"{dispatch.ENTRY_LAUNCHES}, want F and H "
                                  f"once each")
-        want = plain._exchange_plain(state, payload, counts, True)
+        want = tt.TorusTransport.exchange(plain, state, payload, counts)
         leaves = _same_fields(f"kernel H, contended window {i}", got, want)
         cin = want.recv_counts.permute(2, 0, 1)
         _same_fields(f"rotation, window {i}", tr._rotate(cin),
@@ -3094,7 +3110,7 @@ def check_torus_exchange(smi: str) -> dict:
     cin = recorded[-1][2].permute(0, 2, 1)
     rot_ms, rot_eager_ms = time_ms(lambda: tr._rotate(cin))
     _, win_eager_ms = time_ms(lambda: tr.exchange(state, payload, counts))
-    chain = lambda: plain._exchange_plain(state, payload, counts, True)
+    chain = lambda: tt.TorusTransport.exchange(plain, state, payload, counts)
     chain_eager_ms = time_loop(chain, calls=10)
     # the chain copies host scalars, so no CUDA graph: its device time is
     # the profiler's sum over its kernels and copies, less F's
@@ -6196,7 +6212,7 @@ def main() -> int:
     paths["microcircuit, torus3d"], captured, part3, spec3 = \
         run_torus_main_path()
 
-    banner("kernel F, the admission replay, against both plain loops")
+    banner("kernel F, the admission replay, against the plain replay")
     records.append(check_admission(captured))
 
     banner("fault slice, card vs CPU")
@@ -6242,7 +6258,7 @@ def main() -> int:
     for name, count in obs_serve.items():
         obs_launches[name] = obs_launches.get(name, 0) + count
 
-    banner("kernel F's tenant form against both tenant loops")
+    banner("kernel F's tenant form against the plain replay")
     f_record = next(r for r in records if r["name"] == "admission")
     f_record.update(check_admission_tenants(captured4,
                                             smi.splitlines()[0]))

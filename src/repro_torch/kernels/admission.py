@@ -1,38 +1,35 @@
-"""The credited torus's admission replay, healthy and faulted, kernel F.
+"""The credited torus's admission replay: kernel F and its plain version.
 
 One window of the two-phase admission of ``transport.torus`` (reference:
-``src/repro/transport/torus.py`` ``_admit_global`` and
-``_admit_global_faulted``, replayed there by ``lax.scan``; no TPU kernel
-corresponds to it).  Rows ``(src, dst)`` are taken source-major, the source
-order rotated by the credit bank's epoch.  Phase A resumes the rows parked
-in the fabric, phase B offers the fresh rows; each row reads the running
-per-link credits that the rows before it left, so the replay is a chain.
+``src/repro/transport/torus.py`` ``_admit_global``,
+``_admit_global_faulted`` and the tenant forms ``_admit_tenants`` and
+``_admit_tenants_faulted``, replayed there by ``lax.scan``; no TPU kernel
+corresponds to it).  Phase A resumes the rows parked in the fabric, phase B
+offers the fresh rows; each row reads the running per-link credits that
+the rows before it left, so the replay is a chain.
 
 :func:`admission` launches the hand-written kernel ``csrc/admission.cu``
 on CUDA tensors, healthy (``link_down=None``) or under a dead-link mask,
-in one launch per window.  On CPU tensors it runs the plain versions,
-:func:`admission_plain` (healthy) and :func:`admission_faulted_plain`:
-loops over the rows whose body is tensor operations over the route's
-hops.  With an all-false mask the faulted replay is the healthy one on
-every state a healthy run reaches (no flip, every row routable, and only
-a row parked at hop 0, which a healthy run never makes, is evicted).
+in one launch per window.  The tenant form replays T tenants on one fabric
+whose bank holds ``(T+1) * K`` credit slots, each tenant's slice of every
+link and every link's shared pool: :func:`admission_tenants` launches the
+same source's tenant kernel, one launch per window, and
+:func:`admission_tenants_blocks` returns its packed output blocks as they
+are, for kernel H (``kernels/torus_exchange.py``) to read.
 
-The tenant form (reference ``_admit_tenants`` and
-``_admit_tenants_faulted``) replays T tenants on one fabric whose bank
-holds ``(T+1) * K`` credit slots, each tenant's slice of every link and
-every link's shared pool: :func:`admission_tenants` launches the same
-source's tenant kernel, one launch per window, and runs
-:func:`admission_tenants_plain` or :func:`admission_tenants_faulted_plain`
-on CPU tensors.  The single-tenant kernel and its loops are untouched by
-it.  :func:`admission_tenants_blocks` returns the kernel's packed output
-blocks as they are, for kernel H (``kernels/torus_exchange.py``) to read.
+On CPU tensors both wrappers run the one plain replay,
+:func:`admission_tenants_plain`, healthy or under the mask.  The
+single-tenant fabric is its one tenant with reserve 0: :func:`admission`
+lifts the operands to that form (K empty slice slots before the K pool
+slots, every hold shared) and maps the result back; with nothing reserved
+the tenant replay decides every row as the single-tenant reference does.
 
 With ``stall_lane=True`` both forms also return ``stalled_by_link``, the
 window's deferred events per physical egress link (reference
 ``_stall_attr``): a deferred row's count is blamed on the first hop of
 its healthy route, also under a mask, and a local row adds nothing.  The
-kernels write it in the same launch; the plain versions compute it from
-the replay's ``stall_hop`` (:func:`stall_table`).
+kernels write it in the same launch; the plain replay computes it from
+its ``stall_hop`` (:func:`stall_table`).
 """
 from __future__ import annotations
 
@@ -82,344 +79,6 @@ class RouteTables(NamedTuple):
                              #   short arc [.., 0] and long arc [.., 1]
 
 
-def _rows(n: int, epoch: torch.Tensor, device) -> torch.Tensor:
-    """Processing order: source-major, sources rotated by the epoch."""
-    r_all = torch.arange(n * n, device=device)
-    return ((r_all // n + epoch) % n) * n + r_all % n
-
-
-def _unrot(rows: torch.Tensor, xs) -> torch.Tensor:
-    """Processing order -> row order."""
-    x = torch.stack(xs)
-    out = torch.empty_like(x)
-    out[rows] = x
-    return out
-
-
-def stall_table(stall_hop, counts, first_hop, n_links: int) -> torch.Tensor:
-    """(K,) int32 deferred events per physical egress link: each row with
-    ``stall_hop >= 0`` adds its count to the first hop of its pair's
-    healthy route (``first_hop``, (n²,), -1 for a local pair); rows beyond
-    n² (the tenant replay's T n²) map to pair ``row % n²``."""
-    stall_hop, counts = stall_hop.reshape(-1), counts.reshape(-1)
-    fl = first_hop.repeat(stall_hop.shape[0] // first_hop.shape[0])
-    add = torch.where((stall_hop >= 0) & (fl >= 0), counts, 0)
-    return torch.zeros(n_links, dtype=torch.int32,
-                       device=counts.device).index_add_(
-        0, torch.clamp(fl, min=0).long(), add.to(torch.int32))
-
-
-def _finish(n, rows, flat, res, offer, run, credits, queue_events,
-            first_hop=None):
-    """Merge the two phases' per-row lists into an :class:`AdmissionOut`
-    (with the stall lane when ``first_hop`` is given)."""
-    res_c, pc_a, ph_a, age_res, age_a, trav_a, rer_a, done_a = res
-    adm_c, adm_p, stall, hp_b, trav_b, rer_b, done_b = offer
-    fresh_park = _unrot(rows, adm_p)
-    sq = lambda x: x.reshape(n, n)
-    i32 = lambda xs: _unrot(rows, xs).to(torch.int32)
-    stall_hop = i32(stall)
-    # a freshly parked row enters at age 1
-    return AdmissionOut(
-        fresh_complete=sq(_unrot(rows, adm_c)),
-        fresh_park=sq(fresh_park),
-        resumed_complete=sq(_unrot(rows, res_c)),
-        resume_age=sq(i32(age_res)),
-        stall_hop=sq(stall_hop),
-        park_count=sq(torch.where(fresh_park, flat, i32(pc_a))),
-        park_hop=sq(torch.where(fresh_park, i32(hp_b), i32(ph_a))),
-        park_age=sq(torch.where(fresh_park, 1, i32(age_a)).to(torch.int32)),
-        parked_by_link=run[2].clone(),
-        links_traversed=sq(i32(trav_a) + i32(trav_b)),
-        spent=credits - run[0],
-        notify=run[1].clone(),
-        queue_events=queue_events.to(torch.int32).reshape(n, n),
-        rerouted=sq(i32(rer_a) + i32(rer_b)),
-        links_done=sq(i32(done_a) + i32(done_b)),
-        stalled_by_link=None if first_hop is None else stall_table(
-            stall_hop, flat, first_hop, credits.shape[0]))
-
-
-def admission_plain(counts, state, tables: RouteTables, *,
-                    stall_lane: bool = False) -> AdmissionOut:
-    """The healthy replay, plain PyTorch (the reference's
-    ``_admit_global``).
-
-    **Phase A** -- every parked row tries to resume from its blocked hop
-    ``h``: it crosses hops whose links still hold ``count`` credits and
-    stops at the first short one.  Reaching the end completes it;
-    advancing and blocking again re-parks it at the new hop (its old
-    arrival link's hold is released into the delay line, the new one's
-    held); not moving keeps its hold.
-
-    **Phase B** -- a fresh row whose (src, dst) slot is free and whose
-    source egress link is not head-of-line blocked walks its route the same
-    way: complete, or park at the first short hop ``h >= 1``, or, short at
-    hop 0, deferred (``stall_hop = 0``), blocking every later row on that
-    egress link this window.
-
-    Each phase is a loop over the rows whose body is tensor operations over
-    the hops, the running credits, notifies and holds one (3, K) tensor
-    updated in place.  ``stall_lane`` adds ``stalled_by_link``.
-    """
-    n = counts.shape[0]
-    seq = tables.seq_alt[0]                          # the default routes
-    H = seq.shape[1]
-    device = counts.device
-    hop_idx = torch.arange(H, device=device)
-    idx_all, valid_all = torch.clamp(seq, min=0).long(), seq >= 0
-    flat = counts.reshape(-1).to(torch.int32)
-    pc0 = state.parked_count.reshape(-1)
-    ph0 = state.parked_hop.reshape(-1)
-    pa0 = state.parked_age.reshape(-1)
-    rows = _rows(n, state.bank.epoch, device)
-
-    # congestion snapshot: events parked along each row's remaining route
-    # at window start (a parked row counts from its blocked hop, past its
-    # own held events)
-    start_hop = torch.where(pc0 > 0, ph0, 0)[:, None]
-    queue_events = torch.where(
-        valid_all & (hop_idx >= start_hop),
-        state.parked_by_link[idx_all], 0).sum(-1, dtype=torch.int32)
-
-    # per-row operands in processing order
-    idx_p, valid_p = idx_all[rows], valid_all[rows]
-    first_p, routed_p = idx_all[rows, 0], valid_all[rows, 0]
-    c_p, a_p, f_p = pc0[rows], pa0[rows], flat[rows]
-    h_p, len_p = ph0[rows].long(), tables.len_alt[0][rows].long()
-    run = torch.stack([state.bank.credits,
-                       torch.zeros_like(state.bank.credits),
-                       state.parked_by_link])
-    remaining = run[0]
-    zero = torch.zeros((), dtype=torch.int32, device=device)
-
-    res = tuple([] for _ in range(8))
-    for i in range(n * n):                           # phase A: resume
-        c, h, idx, valid, L = c_p[i], h_p[i], idx_p[i], valid_p[i], len_p[i]
-        active = c > 0
-        from_h = valid & (hop_idx >= h)
-        short = from_h & (remaining[idx] < c)
-        h_new = torch.where(short, hop_idx, H).amin()
-        complete = active & (h_new >= L)
-        h_stop = torch.maximum(torch.where(complete, L, h_new), h)
-        moved = active & (h_stop > h)
-        trav = from_h & (hop_idx < h_stop) & active
-        # the last traversed link becomes the new hold when re-parking;
-        # leaving the old park spot releases its arrival link's hold
-        at_hold = moved & ~complete & (hop_idx == h_stop - 1)
-        rel = moved & (h >= 1) & (hop_idx == h - 1)
-        cc = torch.where(trav, c, zero)
-        hold = torch.where(at_hold, c, zero)
-        rel_c = torch.where(rel, c, zero)
-        run.index_add_(1, idx, torch.stack([-cc, cc - hold + rel_c,
-                                            hold - rel_c]))
-        parked_on = active & ~complete
-        for out, x in zip(res, (
-                complete, torch.where(complete, zero, c),
-                torch.where(parked_on, h_stop, zero),
-                torch.where(complete, a_p[i], zero),
-                torch.where(parked_on, a_p[i] + 1, zero),
-                trav.sum(dtype=torch.int32), zero,
-                torch.where(complete, L, zero))):
-            out.append(x)
-
-    blocked = torch.zeros(run.shape[1], dtype=torch.int32, device=device)
-    offer = tuple([] for _ in range(7))
-    minus_one = torch.full((), -1, dtype=torch.int32, device=device)
-    for i in range(n * n):                           # phase B: offer
-        c, idx, valid, L = f_p[i], idx_p[i], valid_p[i], len_p[i]
-        fl = first_p[i:i + 1]
-        routed = routed_p[i] & (c > 0)
-        short = valid & (remaining[idx] < c)
-        h_block = torch.where(short, hop_idx, H).amin()
-        ok = routed & (c_p[i] <= 0) & (blocked[fl][0] == 0)
-        admit_c = ok & (h_block >= L)
-        admit_p = ok & (h_block < L) & (h_block >= 1)
-        defer = routed & ~admit_c & ~admit_p
-        h_stop = torch.where(admit_c, L, torch.where(admit_p, h_block, zero))
-        trav = valid & (hop_idx < h_stop)
-        at_hold = admit_p & (hop_idx == h_stop - 1)
-        cc = torch.where(trav, c, zero)
-        hold = torch.where(at_hold, c, zero)
-        run.index_add_(1, idx, torch.stack([-cc, cc - hold, hold]))
-        blocked.index_add_(0, fl, defer.to(torch.int32)[None])
-        for out, x in zip(offer, (
-                admit_c, admit_p, torch.where(defer, zero, minus_one),
-                h_stop, trav.sum(dtype=torch.int32), zero,
-                torch.where(admit_c, L, zero))):
-            out.append(x)
-    return _finish(n, rows, flat, res, offer, run, state.bank.credits,
-                   queue_events, seq[:, 0] if stall_lane else None)
-
-
-def admission_faulted_plain(counts, state, tables: RouteTables,
-                            link_down: torch.Tensor, *,
-                            stall_lane: bool = False) -> AdmissionOut:
-    """The replay under a (K,) bool dead-link mask, plain PyTorch (the
-    reference's ``_admit_global_faulted``).  The healthy replay with three
-    rules on top:
-
-    * **Reroute**: per row and axis, if the short arc crosses a dead link
-      and the long arc is clean the axis walks the long way
-      (``seq_alt``); dead both ways makes the row unroutable this window
-      (deferred without blocking its egress link).
-    * **Eviction**: a parked row whose remaining default route touches a
-      dead link, whose held arrival link died, or that sits at hop 0 from
-      a failed retry gives up its progress: its hold is released and it
-      retries from hop 0 on its detour route in phase A.  A failed retry
-      leaves it parked at hop 0 holding nothing.
-    * **All-or-nothing detours**: a row on a detour (combo != 0) completes
-      or stays put; only rows on the default route park mid-route.
-
-    ``stall_lane`` adds ``stalled_by_link``, blamed on the healthy route.
-    """
-    n = counts.shape[0]
-    device = counts.device
-    seq0 = tables.seq_alt[0]                         # default route, H2
-    H2 = seq0.shape[1]
-    ndim = tables.seg.shape[0]
-    hop_idx = torch.arange(H2, device=device)
-    flat = counts.reshape(-1).to(torch.int32)
-    pc0 = state.parked_count.reshape(-1)
-    ph0 = state.parked_hop.reshape(-1)
-    pa0 = state.parked_age.reshape(-1)
-    r_all = torch.arange(n * n, device=device)
-    rows = _rows(n, state.bank.epoch, device)
-    down = link_down.to(torch.bool)
-    gather = lambda s: down[torch.clamp(s, min=0).long()] & (s >= 0)
-
-    # per-pair reroute decision from the window's mask
-    seg_dirty = gather(tables.seg).any(-1)           # (ndim, 2, n²)
-    flip = seg_dirty[:, 0] & ~seg_dirty[:, 1]
-    routable = ~(seg_dirty[:, 0] & seg_dirty[:, 1]).any(0)
-    combo = (flip.long() << torch.arange(ndim, device=device)[:, None]).sum(0)
-    seq_eff = tables.seq_alt[combo, r_all]           # (n², H2)
-    len_eff = tables.len_alt[combo, r_all]
-    detour = combo != 0
-
-    # eviction set: parked rows whose remaining default route died, whose
-    # held arrival link died, or that sit at hop 0 from a failed retry
-    rem_dirty = (gather(seq0) & (hop_idx >= ph0[:, None])).any(-1)
-    held_link = seq0.gather(1, torch.clamp(ph0 - 1, min=0)[:, None].long())
-    held_dead = (ph0 >= 1) & down[torch.clamp(held_link[:, 0], min=0).long()]
-    ev = (pc0 > 0) & ((ph0 == 0) | rem_dirty | held_dead)
-
-    # congestion snapshot over the routes rows will actually take
-    seq_q = torch.where((pc0 > 0)[:, None], seq0, seq_eff)
-    start_hop = torch.where((pc0 > 0) & ~ev, ph0, 0)[:, None]
-    queue_events = torch.where(
-        (seq_q >= 0) & (hop_idx >= start_hop),
-        state.parked_by_link[torch.clamp(seq_q, min=0).long()], 0).sum(
-            -1, dtype=torch.int32)
-
-    # per-row operands in processing order
-    p = lambda x: x[rows]
-    idx0_p = torch.clamp(p(seq0), min=0).long()
-    valid0_p = p(seq0) >= 0
-    idx2_p = torch.clamp(p(seq_eff), min=0).long()
-    valid2_p = p(seq_eff) >= 0
-    # the old park spot: hop h - 1 of the default route
-    oh_p = torch.clamp(p(seq0).gather(
-        1, torch.clamp(p(ph0) - 1, min=0)[:, None].long()), min=0).long()
-    len0_p, len2_p = p(tables.len_alt[0]).long(), p(len_eff).long()
-    c_p, h_p, a_p, f_p = p(pc0), p(ph0).long(), p(pa0), p(flat)
-    ev_p, rt_p, det_p = p(ev), p(routable), p(detour)
-    run = torch.stack([state.bank.credits,
-                       torch.zeros_like(state.bank.credits),
-                       state.parked_by_link])
-    remaining = run[0]
-    zero = torch.zeros((), dtype=torch.int32, device=device)
-    zeros1 = torch.zeros((1,), dtype=torch.int32, device=device)
-
-    res = tuple([] for _ in range(8))
-    for i in range(n * n):                           # phase A: resume
-        c, h, e = c_p[i], h_p[i], ev_p[i]
-        active = c > 0
-        # branch 1: undisturbed resume on the default route
-        idx, L = idx0_p[i], len0_p[i]
-        from_h = valid0_p[i] & (hop_idx >= h)
-        short = from_h & (remaining[idx] < c)
-        h_new = torch.where(short, hop_idx, H2).amin()
-        act1 = active & ~e
-        complete1 = act1 & (h_new >= L)
-        h_stop1 = torch.maximum(torch.where(complete1, L, h_new), h)
-        moved1 = act1 & (h_stop1 > h)
-        trav1 = from_h & (hop_idx < h_stop1) & act1
-        hold1 = moved1 & ~complete1 & (hop_idx == h_stop1 - 1)
-        # branch 2: evicted retry from hop 0 on the detour route
-        idx2, L2 = idx2_p[i], len2_p[i]
-        act2 = active & e & rt_p[i]
-        short2 = valid2_p[i] & (remaining[idx2] < c)
-        h_block = torch.where(short2, hop_idx, H2).amin()
-        complete2 = act2 & (h_block >= L2)
-        park2 = act2 & ~det_p[i] & (h_block < L2) & (h_block >= 1)
-        h_stop2 = torch.where(complete2, L2,
-                              torch.where(park2, h_block, 0))
-        trav2 = valid2_p[i] & (hop_idx < h_stop2)
-        hold2 = park2 & (hop_idx == h_stop2 - 1)
-        # leaving (or being evicted from) the old park spot releases its
-        # held arrival credit into the delay line; the two branches never
-        # both run, and the release may fall on a detour link: all adds
-        rel = torch.where((moved1 | (active & e)) & (h >= 1), c, zero)[None]
-        cc1, h1 = torch.where(trav1, c, zero), torch.where(hold1, c, zero)
-        cc2, h2 = torch.where(trav2, c, zero), torch.where(hold2, c, zero)
-        run.index_add_(1, torch.cat([idx, idx2, oh_p[i]]), torch.stack([
-            torch.cat([-cc1, -cc2, zeros1]),
-            torch.cat([cc1 - h1, cc2 - h2, rel]),
-            torch.cat([h1, h2, -rel])]))
-        complete = complete1 | complete2
-        keep = active & ~complete
-        h_keep = torch.where(e, torch.where(park2, h_block, 0), h_stop1)
-        for out, x in zip(res, (
-                complete, torch.where(complete, zero, c),
-                torch.where(keep, h_keep, zero),
-                torch.where(complete, a_p[i], zero),
-                torch.where(keep, a_p[i] + 1, zero),
-                trav1.sum(dtype=torch.int32) + trav2.sum(dtype=torch.int32),
-                torch.where(complete2 & det_p[i], c, zero),
-                torch.where(complete1, L, zero)
-                + torch.where(complete2, L2, zero))):
-            out.append(x)
-
-    blocked = torch.zeros(run.shape[1], dtype=torch.int32, device=device)
-    offer = tuple([] for _ in range(7))
-    minus_one = torch.full((), -1, dtype=torch.int32, device=device)
-    for i in range(n * n):                           # phase B: offer
-        c, idx, valid, L = f_p[i], idx2_p[i], valid2_p[i], len2_p[i]
-        fl = idx[:1]
-        has_first = valid[0] & (c > 0)
-        routed = has_first & rt_p[i]
-        short = valid & (remaining[idx] < c)
-        h_block = torch.where(short, hop_idx, H2).amin()
-        ok = routed & (c_p[i] <= 0) & (blocked[fl][0] == 0)
-        admit_c = ok & (h_block >= L)
-        # parking mid-route only on the default route; a detour is
-        # all-or-nothing
-        admit_p = ok & ~det_p[i] & (h_block < L) & (h_block >= 1)
-        defer = has_first & ~admit_c & ~admit_p
-        h_stop = torch.where(admit_c, L, torch.where(admit_p, h_block, zero))
-        trav = valid & (hop_idx < h_stop)
-        at_hold = admit_p & (hop_idx == h_stop - 1)
-        cc = torch.where(trav, c, zero)
-        hold = torch.where(at_hold, c, zero)
-        run.index_add_(1, idx, torch.stack([-cc, cc - hold, hold]))
-        # an unroutable row never reaches its egress FIFO, so it cannot
-        # head-of-line block the rows behind it
-        blocked.index_add_(0, fl, (defer & rt_p[i]).to(torch.int32)[None])
-        for out, x in zip(offer, (
-                admit_c, admit_p, torch.where(defer, zero, minus_one),
-                h_stop, trav.sum(dtype=torch.int32),
-                torch.where(admit_c & det_p[i], c, zero),
-                torch.where(admit_c, L, zero))):
-            out.append(x)
-    return _finish(n, rows, flat, res, offer, run, state.bank.credits,
-                   queue_events, seq0[:, 0] if stall_lane else None)
-
-
-# ---------------------------------------------------------------------------
-# The tenant form: T tenants on one fabric, credits partitioned per slot.
-# ---------------------------------------------------------------------------
-
 class TenantAdmissionOut(NamedTuple):
     """One window's tenant-axis admission replay; (T, S, S) fields are
     [tenant, src, dst], slot fields ``((T+1)*K,)`` (slot ``t*K + l`` is
@@ -445,6 +104,19 @@ class TenantAdmissionOut(NamedTuple):
                                     #   (``stall_lane``)
 
 
+def stall_table(stall_hop, counts, first_hop, n_links: int) -> torch.Tensor:
+    """(K,) int32 deferred events per physical egress link: each row with
+    ``stall_hop >= 0`` adds its count to the first hop of its pair's
+    healthy route (``first_hop``, (n²,), -1 for a local pair); rows beyond
+    n² (the tenant replay's T n²) map to pair ``row % n²``."""
+    stall_hop, counts = stall_hop.reshape(-1), counts.reshape(-1)
+    fl = first_hop.repeat(stall_hop.shape[0] // first_hop.shape[0])
+    add = torch.where((stall_hop >= 0) & (fl >= 0), counts, 0)
+    return torch.zeros(n_links, dtype=torch.int32,
+                       device=counts.device).index_add_(
+        0, torch.clamp(fl, min=0).long(), add.to(torch.int32))
+
+
 def _tenant_rows(n: int, T: int, epoch: torch.Tensor, device):
     """Processing order of the T n² rows: a round robin over the combined
     (tenant, source) index ``t * n + s``, rotated by the epoch."""
@@ -452,347 +124,270 @@ def _tenant_rows(n: int, T: int, epoch: torch.Tensor, device):
     return ((r_all // n + epoch) % (T * n)) * n + r_all % n
 
 
-def _finish_tenants(T, n, rows, flat, res, offer, run, credits,
-                    queue_events, first_hop=None) -> TenantAdmissionOut:
-    """Merge the two phases' per-row lists into a TenantAdmissionOut
-    (with the stall lane over the physical links when ``first_hop`` is
-    given)."""
-    res_c, pc_a, ph_a, age_res, age_a, trav_a, hs_a, rer_a, done_a = res
-    adm_c, adm_p, stall, hp_b, trav_b, hs_b, rer_b, done_b = offer
-    fresh_park = _unrot(rows, adm_p)
-    sq = lambda x: x.reshape(T, n, n)
-    i32 = lambda xs: _unrot(rows, xs).to(torch.int32)
-    stall_hop = i32(stall)
-    return TenantAdmissionOut(
-        fresh_complete=sq(_unrot(rows, adm_c)),
-        fresh_park=sq(fresh_park),
-        resumed_complete=sq(_unrot(rows, res_c)),
-        resume_age=sq(i32(age_res)),
-        stall_hop=sq(stall_hop),
-        park_count=sq(torch.where(fresh_park, flat, i32(pc_a))),
-        park_hop=sq(torch.where(fresh_park, i32(hp_b), i32(ph_a))),
-        park_age=sq(torch.where(fresh_park, 1, i32(age_a)).to(torch.int32)),
-        hold_shared=sq(torch.where(fresh_park, i32(hs_b), i32(hs_a))),
-        parked_by_link=run[2].clone(),
-        links_traversed=sq(i32(trav_a) + i32(trav_b)),
-        spent=credits - run[0],
-        notify=run[1].clone(),
-        queue_events=queue_events.to(torch.int32).reshape(T, n, n),
-        rerouted=sq(i32(rer_a) + i32(rer_b)),
-        links_done=sq(i32(done_a) + i32(done_b)),
-        stalled_by_link=None if first_hop is None else stall_table(
-            stall_hop, flat, first_hop, credits.shape[0] // (T + 1)))
-
-
-def _split(run, slot_r, slot_s, trav, c, zero):
-    """Reserved-first draw of ``c`` at every traversed hop: (take_r,
-    take_s), read from the running credits before the row's writes."""
-    take_r = torch.where(trav, torch.minimum(c, run[0][slot_r]), zero)
-    return take_r, torch.where(trav, c - take_r, zero)
-
-
-def _tenant_operands(counts, state, T, n):
-    flat = counts.reshape(-1).to(torch.int32)
-    return (flat, state.parked_count.reshape(-1),
-            state.parked_hop.reshape(-1), state.parked_age.reshape(-1),
-            state.parked_hold_shared.reshape(-1))
-
-
-def admission_tenants_plain(counts, state, tables: RouteTables, *,
+def admission_tenants_plain(counts, state, tables: RouteTables,
+                            link_down: torch.Tensor | None = None, *,
                             stall_lane: bool = False) -> TenantAdmissionOut:
-    """The healthy tenant replay, plain PyTorch (the reference's
-    ``_admit_tenants``).
+    """The plain replay in PyTorch, on any device (the reference's
+    ``_admit_tenants``, under a (K,) bool dead-link mask
+    ``_admit_tenants_faulted``).
 
     ``counts`` (T, S, S) rows offered this window; ``state`` a partitioned
     ``FabricState`` ((T, S, S) transit tables with ``parked_hold_shared``,
-    a bank and ``parked_by_link`` of ``(T+1)*K`` slots).  The single-tenant
-    replay with three twists: a link is available to a row of tenant t
-    when its slice plus the shared pool cover the count; spends and holds
-    split reserved-first over the two slots (a hold's shared part kept per
-    row, ``hold_shared``, and refunded to the slot that funded it); the
-    head-of-line block is per (tenant, egress link).  The queue snapshot
-    reads the held units of the physical links (all slots of a link).
-    ``stall_lane`` adds ``stalled_by_link`` over the physical links.
+    a bank and ``parked_by_link`` of ``(T+1)*K`` slots).  Rows go in a
+    round robin over (tenant, source), rotated by the bank's epoch.
+
+    **Phase A** -- every parked row tries to resume from its blocked hop
+    ``h``: it crosses hops whose links still cover its count and stops at
+    the first short one.  Reaching the end completes it; advancing and
+    blocking again re-parks it at the new hop (its old arrival link's hold
+    is released into the delay line, the new one held); not moving keeps
+    its hold.
+
+    **Phase B** -- a fresh row whose slot is free and whose egress link is
+    not head-of-line blocked for its tenant walks its route the same way:
+    complete, or park at the first short hop ``h >= 1``, or, short at hop
+    0, deferred (``stall_hop = 0``), blocking every later row of its tenant
+    on that egress link this window.
+
+    A link covers a row of tenant t when its slice plus the shared pool
+    do; spends and holds split reserved-first over the two slots, a hold's
+    shared part kept per row (``hold_shared``) and refunded to the slot
+    that funded it.  The queue snapshot reads the held units of the
+    physical links (all slots of a link).
+
+    Under a mask, three rules on top: per pair and axis, a short arc that
+    crosses a dead link walks the long way when that is clean
+    (``seq_alt``), and dead both ways leaves the row unroutable this
+    window (deferred without blocking its egress link); a parked row whose
+    remaining default route touches a dead link, whose held arrival link
+    died, or that sits at hop 0 from a failed retry is evicted: its hold
+    is released and it retries from hop 0 on its detour route, a failed
+    retry leaving it parked at hop 0 holding nothing; a row on a detour
+    completes or stays put, only rows on the default route park mid-route.
+
+    Each phase is a loop over the rows with work (phase A: the parked rows;
+    phase B: the fresh rows with a route) in processing order, whose body
+    is tensor operations over the route's hops; the running credits,
+    notifies and holds are one (3, slots) tensor updated in place.  Which
+    rows have work, and which are evicted, unroutable or on a detour, is
+    read to the host once a window.  ``stall_lane`` adds
+    ``stalled_by_link`` over the physical links.
     """
     T, n = counts.shape[0], counts.shape[1]
-    R = n * n
+    R, TR = n * n, counts.numel()
     K = state.bank.credits.shape[0] // (T + 1)
-    seq = tables.seq_alt[0]
-    H = seq.shape[1]
     device = counts.device
+    seq0, len0 = tables.seq_alt[0], tables.len_alt[0]   # the default routes
+    H = seq0.shape[1]
     hop_idx = torch.arange(H, device=device)
-    idx_all, valid_all = torch.clamp(seq, min=0).long(), seq >= 0
-    flat, pc0, ph0, pa0, hs0 = _tenant_operands(counts, state, T, n)
-    rows = _tenant_rows(n, T, state.bank.epoch, device)
-    pair_all = torch.arange(T * R, device=device) % R
+    flat = counts.reshape(-1).to(torch.int32)
+    pc0, ph0, pa0, hs0 = (x.reshape(-1) for x in (
+        state.parked_count, state.parked_hop, state.parked_age,
+        state.parked_hold_shared))
+    pair = torch.arange(TR, device=device) % R
+    seq0_rows = seq0[pair]
+    parked = pc0 > 0
+    if link_down is None:
+        seq_eff, len_eff = seq0, len0
+        routable = torch.ones(R, dtype=torch.bool, device=device)
+        detour = ~routable
+        evicted = torch.zeros_like(parked)
+    else:
+        down = link_down.to(torch.bool)
+        dead = lambda s: down[torch.clamp(s, min=0).long()] & (s >= 0)
+        # per-pair reroute decision: the mask is physical, shared by tenants
+        seg_dirty = dead(tables.seg).any(-1)          # (ndim, 2, n²)
+        flip = seg_dirty[:, 0] & ~seg_dirty[:, 1]
+        routable = ~(seg_dirty[:, 0] & seg_dirty[:, 1]).any(0)
+        axes = torch.arange(tables.seg.shape[0], device=device)[:, None]
+        combo = (flip.long() << axes).sum(0)
+        r_pair = torch.arange(R, device=device)
+        seq_eff = tables.seq_alt[combo, r_pair]       # (n², H2)
+        len_eff = tables.len_alt[combo, r_pair]
+        detour = combo != 0
+        rem_dirty = (dead(seq0_rows) & (hop_idx >= ph0[:, None])).any(-1)
+        held_link = seq0_rows.gather(
+            1, torch.clamp(ph0 - 1, min=0)[:, None].long())[:, 0]
+        held_dead = (ph0 >= 1) & down[torch.clamp(held_link, min=0).long()]
+        evicted = parked & ((ph0 == 0) | rem_dirty | held_dead)
 
+    # congestion snapshot: events held on the physical links along each
+    # row's route at window start (a parked row on its default route from
+    # its blocked hop, past its own held events; an evicted one from hop 0)
     pbl_phys = state.parked_by_link.reshape(T + 1, K).sum(0)
-    start_hop = torch.where(pc0 > 0, ph0, 0)[:, None]
-    queue_events = torch.where(
-        valid_all[pair_all] & (hop_idx >= start_hop),
-        pbl_phys[idx_all[pair_all]], 0).sum(-1, dtype=torch.int32)
-
-    pair_p, t_p = pair_all[rows], (rows // R)[:, None]
-    idx_p, valid_p = idx_all[pair_p], valid_all[pair_p]
-    slot_r_p, slot_s_p = t_p * K + idx_p, T * K + idx_p
-    c_p, a_p, f_p, hs_p = pc0[rows], pa0[rows], flat[rows], hs0[rows]
-    h_p, len_p = ph0[rows].long(), tables.len_alt[0][pair_p].long()
-    # the old park spot: hop h - 1 of the route, in both of its slots
-    oh_p = idx_p.gather(1, torch.clamp(h_p - 1, min=0)[:, None])
-    ohs_p = torch.cat([t_p * K + oh_p, T * K + oh_p], dim=1)
-    first_p = idx_p[:, 0]
-    routed_p, bl_p = valid_p[:, 0], t_p[:, 0] * K + first_p
-    run = torch.stack([state.bank.credits,
-                       torch.zeros_like(state.bank.credits),
-                       state.parked_by_link])
-    zero = torch.zeros((), dtype=torch.int32, device=device)
-
-    res = tuple([] for _ in range(9))
-    for i in range(T * R):                           # phase A: resume
-        c, h, hs, L = c_p[i], h_p[i], hs_p[i], len_p[i]
-        sr, ss = slot_r_p[i], slot_s_p[i]
-        active = c > 0
-        from_h = valid_p[i] & (hop_idx >= h)
-        short = from_h & (run[0][sr] + run[0][ss] < c)
-        h_new = torch.where(short, hop_idx, H).amin()
-        complete = active & (h_new >= L)
-        h_stop = torch.maximum(torch.where(complete, L, h_new), h)
-        moved = active & (h_stop > h)
-        trav = from_h & (hop_idx < h_stop) & active
-        take_r, take_s = _split(run, sr, ss, trav, c, zero)
-        at_hold = moved & ~complete & (hop_idx == h_stop - 1)
-        hold_r = torch.where(at_hold, take_r, zero)
-        hold_s = torch.where(at_hold, take_s, zero)
-        # departing the old park spot refunds its hold to the slots that
-        # funded it
-        rel_s = torch.where(moved & (h >= 1), hs, zero)
-        rel_r = torch.where(moved & (h >= 1), c, zero) - rel_s
-        rel = torch.stack([rel_r, rel_s])
-        run.index_add_(1, torch.cat([sr, ss, ohs_p[i]]), torch.stack([
-            torch.cat([-take_r, -take_s, torch.zeros_like(rel)]),
-            torch.cat([take_r - hold_r, take_s - hold_s, rel]),
-            torch.cat([hold_r, hold_s, -rel])]))
-        keep = active & ~complete
-        for out, x in zip(res, (
-                complete, torch.where(complete, zero, c),
-                torch.where(keep, h_stop, zero),
-                torch.where(complete, a_p[i], zero),
-                torch.where(keep, a_p[i] + 1, zero),
-                trav.sum(dtype=torch.int32),
-                torch.where(keep, torch.where(moved, hold_s.sum(dtype=torch.int32),
-                                                 hs), zero),
-                zero, torch.where(complete, L, zero))):
-            out.append(x)
-
-    blocked = torch.zeros(T * K, dtype=torch.int32, device=device)
-    offer = tuple([] for _ in range(8))
-    minus_one = torch.full((), -1, dtype=torch.int32, device=device)
-    for i in range(T * R):                           # phase B: offer
-        c, L = f_p[i], len_p[i]
-        sr, ss, valid = slot_r_p[i], slot_s_p[i], valid_p[i]
-        bl = bl_p[i:i + 1]
-        routed = routed_p[i] & (c > 0)
-        short = valid & (run[0][sr] + run[0][ss] < c)
-        h_block = torch.where(short, hop_idx, H).amin()
-        ok = routed & (c_p[i] <= 0) & (blocked[bl][0] == 0)
-        admit_c = ok & (h_block >= L)
-        admit_p = ok & (h_block < L) & (h_block >= 1)
-        defer = routed & ~admit_c & ~admit_p
-        h_stop = torch.where(admit_c, L, torch.where(admit_p, h_block, zero))
-        trav = valid & (hop_idx < h_stop)
-        take_r, take_s = _split(run, sr, ss, trav, c, zero)
-        at_hold = admit_p & (hop_idx == h_stop - 1)
-        hold_r = torch.where(at_hold, take_r, zero)
-        hold_s = torch.where(at_hold, take_s, zero)
-        run.index_add_(1, torch.cat([sr, ss]), torch.stack([
-            torch.cat([-take_r, -take_s]),
-            torch.cat([take_r - hold_r, take_s - hold_s]),
-            torch.cat([hold_r, hold_s])]))
-        blocked.index_add_(0, bl, defer.to(torch.int32)[None])
-        for out, x in zip(offer, (
-                admit_c, admit_p, torch.where(defer, zero, minus_one),
-                h_stop, trav.sum(dtype=torch.int32),
-                hold_s.sum(dtype=torch.int32), zero,
-                torch.where(admit_c, L, zero))):
-            out.append(x)
-    return _finish_tenants(T, n, rows, flat, res, offer, run,
-                           state.bank.credits, queue_events,
-                           seq[:, 0] if stall_lane else None)
-
-
-def admission_tenants_faulted_plain(counts, state, tables: RouteTables,
-                                    link_down: torch.Tensor, *,
-                                    stall_lane: bool = False
-                                    ) -> TenantAdmissionOut:
-    """The tenant replay under a (K,) bool dead-link mask, plain PyTorch
-    (the reference's ``_admit_tenants_faulted``): the fault rules of
-    :func:`admission_faulted_plain` (per-pair reroute shared by every
-    tenant, eviction back to hop 0, all-or-nothing detours) with the
-    reserved-first spending and split hold refunds of
-    :func:`admission_tenants_plain`; ``stall_lane`` adds
-    ``stalled_by_link``, blamed on the healthy route."""
-    T, n = counts.shape[0], counts.shape[1]
-    R = n * n
-    K = state.bank.credits.shape[0] // (T + 1)
-    device = counts.device
-    seq0 = tables.seq_alt[0]
-    H2 = seq0.shape[1]
-    ndim = tables.seg.shape[0]
-    hop_idx = torch.arange(H2, device=device)
-    flat, pc0, ph0, pa0, hs0 = _tenant_operands(counts, state, T, n)
-    rows = _tenant_rows(n, T, state.bank.epoch, device)
-    pair_all = torch.arange(T * R, device=device) % R
-    down = link_down.to(torch.bool)
-    gather = lambda s: down[torch.clamp(s, min=0).long()] & (s >= 0)
-
-    # per-pair reroute decision: the mask is physical, shared by tenants
-    r_pair = torch.arange(R, device=device)
-    seg_dirty = gather(tables.seg).any(-1)           # (ndim, 2, n²)
-    flip = seg_dirty[:, 0] & ~seg_dirty[:, 1]
-    routable = ~(seg_dirty[:, 0] & seg_dirty[:, 1]).any(0)
-    combo = (flip.long() << torch.arange(ndim, device=device)[:, None]).sum(0)
-    seq_eff = tables.seq_alt[combo, r_pair]          # (n², H2)
-    len_eff = tables.len_alt[combo, r_pair]
-    detour = combo != 0
-
-    # eviction set over the (T, n, n) row tables
-    seq0_rows = seq0[pair_all]
-    rem_dirty = (gather(seq0_rows) & (hop_idx >= ph0[:, None])).any(-1)
-    held_link = seq0_rows.gather(1, torch.clamp(ph0 - 1, min=0)[:, None]
-                                 .long())[:, 0]
-    held_dead = (ph0 >= 1) & down[torch.clamp(held_link, min=0).long()]
-    ev = (pc0 > 0) & ((ph0 == 0) | rem_dirty | held_dead)
-
-    # congestion snapshot over the physical links of the actual routes
-    pbl_phys = state.parked_by_link.reshape(T + 1, K).sum(0)
-    seq_q = torch.where((pc0 > 0)[:, None], seq0_rows, seq_eff[pair_all])
-    start_hop = torch.where((pc0 > 0) & ~ev, ph0, 0)[:, None]
+    seq_q = torch.where(parked[:, None], seq0_rows, seq_eff[pair])
+    start_hop = torch.where(parked & ~evicted, ph0, 0)[:, None]
     queue_events = torch.where(
         (seq_q >= 0) & (hop_idx >= start_hop),
         pbl_phys[torch.clamp(seq_q, min=0).long()], 0).sum(
             -1, dtype=torch.int32)
 
-    # per-row operands in processing order
-    pair_p, t_p = pair_all[rows], (rows // R)[:, None]
-    idx0_p = torch.clamp(seq0[pair_p], min=0).long()
-    valid0_p = seq0[pair_p] >= 0
-    idx2_p = torch.clamp(seq_eff[pair_p], min=0).long()
-    valid2_p = seq_eff[pair_p] >= 0
-    sr0_p, ss0_p = t_p * K + idx0_p, T * K + idx0_p
-    sr2_p, ss2_p = t_p * K + idx2_p, T * K + idx2_p
+    # per-row operands in processing order; a hop's two slots are the
+    # row's tenant slice and the link's pool
+    rows = _tenant_rows(n, T, state.bank.epoch, device)
+    pair_p, t_p = pair[rows], (rows // R)[:, None, None]
+    offset = torch.cat([t_p * K, torch.full_like(t_p, T * K)], 1)
+    slots = lambda s: s[:, None, :] + offset
+    seq0_p, seqe_p = seq0[pair_p], seq_eff[pair_p]
+    slots0 = slots(torch.clamp(seq0_p, min=0).long())        # (TR, 2, H2)
+    slotse = slots(torch.clamp(seqe_p, min=0).long())
     c_p, h_p, a_p, f_p = pc0[rows], ph0[rows].long(), pa0[rows], flat[rows]
     hs_p = hs0[rows]
-    oh_p = idx0_p.gather(1, torch.clamp(h_p - 1, min=0)[:, None])
-    ohs_p = torch.cat([t_p * K + oh_p, T * K + oh_p], dim=1)
-    len0_p = tables.len_alt[0][pair_p].long()
-    len2_p = len_eff[pair_p].long()
-    ev_p, rt_p, det_p = ev[rows], routable[pair_p], detour[pair_p]
-    bl_p = t_p[:, 0] * K + idx2_p[:, 0]
+    # the hops a row may cross: on the default route from its blocked hop,
+    # on the route it takes this window from hop 0
+    hops0 = (seq0_p >= 0) & (hop_idx >= h_p[:, None])
+    hopse = seqe_p >= 0
+    len0_p, lene_p = len0[pair_p].long(), len_eff[pair_p].long()
+    # the old park spot: hop h - 1 of the default route, in both its slots
+    old_p = slots0.gather(2, torch.clamp(h_p - 1, min=0)[:, None, None]
+                          .expand(-1, 2, 1))[..., 0]
+    # head-of-line blocks are per (tenant, egress link)
+    blk_p = t_p[:, 0, 0] * K + torch.clamp(seqe_p[:, 0], min=0).long()
+    ev_p, rt_p, det_p = evicted[rows], routable[pair_p], detour[pair_p]
+    fresh_p = hopse[:, 0] & (f_p > 0)
+    active, ev, rt, det, rel, fresh = torch.stack(
+        [c_p > 0, ev_p, rt_p, det_p, h_p >= 1, fresh_p]).tolist()
+
     run = torch.stack([state.bank.credits,
                        torch.zeros_like(state.bank.credits),
                        state.parked_by_link])
     zero = torch.zeros((), dtype=torch.int32, device=device)
 
-    res = tuple([] for _ in range(9))
-    for i in range(T * R):                           # phase A: resume
-        c, h, hs, e = c_p[i], h_p[i], hs_p[i], ev_p[i]
-        active = c > 0
-        # branch 1: undisturbed resume on the default route
-        sr, ss, L = sr0_p[i], ss0_p[i], len0_p[i]
-        from_h = valid0_p[i] & (hop_idx >= h)
-        short = from_h & (run[0][sr] + run[0][ss] < c)
-        h_new = torch.where(short, hop_idx, H2).amin()
-        act1 = active & ~e
-        complete1 = act1 & (h_new >= L)
-        h_stop1 = torch.maximum(torch.where(complete1, L, h_new), h)
-        moved1 = act1 & (h_stop1 > h)
-        trav1 = from_h & (hop_idx < h_stop1) & act1
-        take_r1, take_s1 = _split(run, sr, ss, trav1, c, zero)
-        hold1 = moved1 & ~complete1 & (hop_idx == h_stop1 - 1)
-        # branch 2: evicted retry from hop 0 on the detour route (the
-        # branches never both run, so both read the same credits)
-        sr2, ss2, L2 = sr2_p[i], ss2_p[i], len2_p[i]
-        act2 = active & e & rt_p[i]
-        short2 = valid2_p[i] & (run[0][sr2] + run[0][ss2] < c)
-        h_block = torch.where(short2, hop_idx, H2).amin()
-        complete2 = act2 & (h_block >= L2)
-        park2 = act2 & ~det_p[i] & (h_block < L2) & (h_block >= 1)
-        h_stop2 = torch.where(complete2, L2,
-                              torch.where(park2, h_block, 0))
-        trav2 = valid2_p[i] & (hop_idx < h_stop2)
-        take_r2, take_s2 = _split(run, sr2, ss2, trav2, c, zero)
-        hold2 = park2 & (hop_idx == h_stop2 - 1)
-        # leaving (or being evicted from) the old park spot refunds its
-        # hold, split as it was funded; the release may share a link with
-        # the detour: all adds
-        release = (moved1 | (active & e)) & (h >= 1)
-        rel_s = torch.where(release, hs, zero)
-        rel = torch.stack([torch.where(release, c, zero) - rel_s, rel_s])
-        hr1, hs1 = (torch.where(hold1, take_r1, zero),
-                    torch.where(hold1, take_s1, zero))
-        hr2, hs2 = (torch.where(hold2, take_r2, zero),
-                    torch.where(hold2, take_s2, zero))
-        run.index_add_(1, torch.cat([sr, ss, sr2, ss2, ohs_p[i]]),
-                       torch.stack([
-                           torch.cat([-take_r1, -take_s1, -take_r2,
-                                      -take_s2, torch.zeros_like(rel)]),
-                           torch.cat([take_r1 - hr1, take_s1 - hs1,
-                                      take_r2 - hr2, take_s2 - hs2, rel]),
-                           torch.cat([hr1, hs1, hr2, hs2, -rel])]))
-        complete = complete1 | complete2
-        keep = active & ~complete
-        h_keep = torch.where(e, torch.where(park2, h_block, 0), h_stop1)
-        hs_keep = torch.where(e, torch.where(park2, hs2.sum(dtype=torch.int32), zero),
-            torch.where(moved1, hs1.sum(dtype=torch.int32), hs))
-        for out, x in zip(res, (
-                complete, torch.where(complete, zero, c),
-                torch.where(keep, h_keep, zero),
-                torch.where(complete, a_p[i], zero),
-                torch.where(keep, a_p[i] + 1, zero),
-                trav1.sum(dtype=torch.int32) + trav2.sum(dtype=torch.int32),
-                torch.where(keep, hs_keep, zero),
-                torch.where(complete2 & det_p[i], c, zero),
-                torch.where(complete1, L, zero)
-                + torch.where(complete2, L2, zero))):
-            out.append(x)
+    def walk(slots, hops, c, L, h=0, may_park=True, act=None):
+        """``c`` events along the route's ``hops`` (a mask) from hop ``h``:
+        cross while a hop's slice and pool cover ``c``, paying
+        reserved-first into the delay line; complete at the end, or park
+        past ``h`` (``may_park``) holding the last link crossed; ``act``
+        False moves nothing -> (complete, park, stop hop, links crossed,
+        the hold's shared part)."""
+        have = run[0][slots]                          # (2, H2) slice, pool
+        short = hops & (have.sum(0) < c)
+        h_block = torch.where(short, hop_idx, H).amin()
+        complete = h_block >= L
+        park = (~complete & (h_block > h) if may_park
+                else torch.zeros_like(complete))
+        if act is not None:
+            complete, park = complete & act, park & act
+        h_stop = torch.where(complete, L, torch.where(park, h_block, h))
+        trav = hops & (hop_idx < h_stop)
+        take_r = torch.where(trav, torch.minimum(c, have[0]), zero)
+        take = torch.stack([take_r, torch.where(trav, c - take_r, zero)])
+        hold = torch.where(park & (hop_idx == h_stop - 1), take, zero)
+        run.index_add_(1, slots.reshape(-1), torch.stack(
+            [-take, take - hold, hold]).reshape(3, -1))
+        return (complete, park, h_stop, trav.sum(dtype=torch.int32),
+                hold[1].sum(dtype=torch.int32))
+
+    res_a = {}
+    for i in range(TR):                              # phase A: resume
+        if not active[i]:
+            continue
+        c, hs, moved = c_p[i], hs_p[i], None
+        if not ev[i]:
+            # from the blocked hop on the default route; not moving keeps
+            # the hold
+            done, park, stop, crossed, held = walk(
+                slots0[i], hops0[i], c, len0_p[i], h_p[i])
+            res_a[i] = (done, stop, crossed, torch.where(park, held, hs))
+            moved = done | park
+        elif rt[i]:
+            # evicted: a retry from hop 0 on the detour route (unroutable,
+            # it stays parked at hop 0 holding nothing)
+            done, _, stop, crossed, held = walk(
+                slotse[i], hopse[i], c, lene_p[i], may_park=not det[i])
+            res_a[i] = (done, stop, crossed, held)
+        if rel[i]:
+            # leaving (or being evicted from) the old park spot refunds
+            # its hold to the slots that funded it
+            refund = torch.stack([c - hs, hs])
+            if moved is not None:
+                refund = torch.where(moved, refund, zero)
+            run.index_add_(1, old_p[i], torch.stack(
+                [torch.zeros_like(refund), refund, -refund]))
 
     blocked = torch.zeros(T * K, dtype=torch.int32, device=device)
-    offer = tuple([] for _ in range(8))
-    minus_one = torch.full((), -1, dtype=torch.int32, device=device)
-    for i in range(T * R):                           # phase B: offer
-        c, L, valid = f_p[i], len2_p[i], valid2_p[i]
-        sr, ss = sr2_p[i], ss2_p[i]
-        bl = bl_p[i:i + 1]
-        has_first = valid[0] & (c > 0)
-        routed = has_first & rt_p[i]
-        short = valid & (run[0][sr] + run[0][ss] < c)
-        h_block = torch.where(short, hop_idx, H2).amin()
-        ok = routed & (c_p[i] <= 0) & (blocked[bl][0] == 0)
-        admit_c = ok & (h_block >= L)
-        admit_p = ok & ~det_p[i] & (h_block < L) & (h_block >= 1)
-        defer = has_first & ~admit_c & ~admit_p
-        h_stop = torch.where(admit_c, L, torch.where(admit_p, h_block, zero))
-        trav = valid & (hop_idx < h_stop)
-        take_r, take_s = _split(run, sr, ss, trav, c, zero)
-        at_hold = admit_p & (hop_idx == h_stop - 1)
-        hold_r = torch.where(at_hold, take_r, zero)
-        hold_s = torch.where(at_hold, take_s, zero)
-        run.index_add_(1, torch.cat([sr, ss]), torch.stack([
-            torch.cat([-take_r, -take_s]),
-            torch.cat([take_r - hold_r, take_s - hold_s]),
-            torch.cat([hold_r, hold_s])]))
-        # an unroutable row never reaches its egress FIFO: no block
-        blocked.index_add_(0, bl, (defer & rt_p[i]).to(torch.int32)[None])
-        for out, x in zip(offer, (
-                admit_c, admit_p, torch.where(defer, zero, minus_one),
-                h_stop, trav.sum(dtype=torch.int32),
-                hold_s.sum(dtype=torch.int32),
-                torch.where(admit_c & det_p[i], c, zero),
-                torch.where(admit_c, L, zero))):
-            out.append(x)
-    return _finish_tenants(T, n, rows, flat, res, offer, run,
-                           state.bank.credits, queue_events,
-                           seq0[:, 0] if stall_lane else None)
+    one = torch.ones((1,), dtype=torch.int32, device=device)
+    res_b = {}
+    for i in range(TR):                              # phase B: offer
+        if not fresh[i]:
+            continue
+        bl = blk_p[i:i + 1]
+        if active[i] or not rt[i]:
+            # deferred behind the row parked in its slot, or unroutable;
+            # an unroutable row never reaches its egress FIFO, so it cannot
+            # head-of-line block the rows behind it
+            if rt[i]:
+                blocked.index_add_(0, bl, one)
+            continue
+        done, park, stop, crossed, hs_new = walk(
+            slotse[i], hopse[i], f_p[i], lene_p[i], may_park=not det[i],
+            act=blocked[bl][0] == 0)
+        blocked.index_add_(0, bl, (~done & ~park).to(torch.int32)[None])
+        res_b[i] = (done, park, stop, crossed, hs_new)
+
+    def column(res, k, dtype):
+        """Field ``k`` of the rows with results, 0 / False elsewhere."""
+        out = torch.zeros(TR, dtype=dtype, device=device)
+        if res:
+            out[list(res)] = torch.stack([r[k] for r in res.values()]).to(
+                dtype)
+        return out
+
+    i32, b8 = torch.int32, torch.bool
+    done_a, stop_a, trav_a, hs_a = (column(res_a, k, d) for k, d in
+                                    enumerate((b8, i32, i32, i32)))
+    done_b, park_b, stop_b, trav_b, hs_b = (column(res_b, k, d) for k, d in
+                                            enumerate((b8, b8, i32, i32, i32)))
+    keep = (c_p > 0) & ~done_a
+    # a freshly parked row enters at age 1
+    fields = dict(
+        fresh_complete=done_b, fresh_park=park_b, resumed_complete=done_a,
+        resume_age=torch.where(done_a, a_p, 0),
+        stall_hop=torch.where(fresh_p & ~done_b & ~park_b, 0, -1),
+        park_count=torch.where(park_b, f_p, torch.where(done_a, 0, c_p)),
+        park_hop=torch.where(park_b, stop_b, torch.where(keep, stop_a, 0)),
+        park_age=torch.where(park_b, 1, torch.where(keep, a_p + 1, 0)),
+        hold_shared=torch.where(park_b, hs_b, torch.where(keep, hs_a, 0)),
+        links_traversed=trav_a + trav_b,
+        rerouted=(torch.where(done_a & ev_p & det_p, c_p, 0)
+                  + torch.where(done_b & det_p, f_p, 0)),
+        links_done=(torch.where(done_a, torch.where(ev_p, lene_p, len0_p), 0)
+                    + torch.where(done_b, lene_p, 0)))
+    order = torch.empty_like(rows)                   # processing -> row
+    order[rows] = torch.arange(TR, device=device)
+    fields = {k: v[order].reshape(T, n, n).to(b8 if v.dtype == b8 else i32)
+              for k, v in fields.items()}
+    return TenantAdmissionOut(
+        **fields,
+        parked_by_link=run[2].clone(),
+        spent=state.bank.credits - run[0],
+        notify=run[1].clone(),
+        queue_events=queue_events.reshape(T, n, n),
+        stalled_by_link=stall_table(fields["stall_hop"], flat, seq0[:, 0], K)
+        if stall_lane else None)
+
+
+def _one_tenant(counts, state):
+    """Single-tenant operands as the tenant replay's one tenant with
+    reserve 0: (1, S, S) tables, K empty slice slots before the K pool
+    slots, every hold shared (a row parked at hop 0 holds nothing)."""
+    lift = lambda x: torch.cat([torch.zeros_like(x), x])
+    pc, ph = state.parked_count, state.parked_hop
+    return counts[None], state._replace(
+        bank=state.bank._replace(credits=lift(state.bank.credits)),
+        parked_count=pc[None], parked_hop=ph[None],
+        parked_age=state.parked_age[None],
+        parked_by_link=lift(state.parked_by_link),
+        parked_hold_shared=torch.where(ph > 0, pc, 0)[None])
+
+
+def _single_tenant(out: TenantAdmissionOut, K: int) -> AdmissionOut:
+    """The one tenant's result as an :class:`AdmissionOut`: its (S, S)
+    tables and the pool slots (the K slice slots stay empty)."""
+    return AdmissionOut(**{
+        name: x if name == "stalled_by_link" else
+        x[K:] if name in _LINK_FIELDS else x[0]
+        for name, x in out._asdict().items() if name != "hold_shared"})
 
 
 # rows of the kernel's int32 output block, then its bool block, in order
@@ -835,8 +430,8 @@ def admission(counts, state, tables: RouteTables,
               link_down: torch.Tensor | None = None, *,
               stall_lane: bool = False) -> AdmissionOut:
     """Kernel F on CUDA tensors, one launch; on CPU tensors the plain
-    replay, healthy (:func:`admission_plain`) or under the mask
-    (:func:`admission_faulted_plain`).
+    replay (:func:`admission_tenants_plain`) of the fabric as one tenant
+    with reserve 0, healthy or under the mask.
 
     ``counts`` (S, S) int32 rows offered this window; ``state`` the
     window's ``FabricState`` (its bank's credits and epoch, the transit
@@ -875,11 +470,9 @@ def admission(counts, state, tables: RouteTables,
             f"{H2} hops; the replay takes 1..3 axes, 2 * ndim links a "
             f"shard and at most {MAX_HOPS} hops")
     if not cuda:
-        if link_down is None:
-            return admission_plain(counts, state, tables,
-                                   stall_lane=stall_lane)
-        return admission_faulted_plain(counts, state, tables, link_down,
-                                       stall_lane=stall_lane)
+        return _single_tenant(admission_tenants_plain(
+            *_one_tenant(counts, state), tables, link_down,
+            stall_lane=stall_lane), K)
     smem = shared_bytes(R, K, stall_lane=stall_lane)
     if smem > MAX_SHARED:
         raise ValueError(f"admission: {n} shards need {smem} bytes of "
@@ -971,8 +564,8 @@ def admission_tenants(counts, state, tables: RouteTables,
                       link_down: torch.Tensor | None = None, *,
                       stall_lane: bool = False) -> TenantAdmissionOut:
     """Kernel F's tenant form on CUDA tensors, one launch; on CPU tensors
-    the plain replay, healthy (:func:`admission_tenants_plain`) or under
-    the mask (:func:`admission_tenants_faulted_plain`).
+    the plain replay (:func:`admission_tenants_plain`), healthy or under
+    the mask.
 
     ``counts`` (T, S, S) int32; ``state`` a partitioned ``FabricState``
     ((T, S, S) transit tables with ``parked_hold_shared``, ``(T+1)*K``
@@ -985,11 +578,8 @@ def admission_tenants(counts, state, tables: RouteTables,
     if _tenant_checks(counts, state, tables, link_down):
         return tenant_fields(_launch_tenants(counts, state, tables,
                                              link_down, stall_lane))
-    if link_down is None:
-        return admission_tenants_plain(counts, state, tables,
-                                       stall_lane=stall_lane)
-    return admission_tenants_faulted_plain(counts, state, tables, link_down,
-                                           stall_lane=stall_lane)
+    return admission_tenants_plain(counts, state, tables, link_down,
+                                   stall_lane=stall_lane)
 
 
 def admission_tenants_blocks(counts, state, tables: RouteTables,

@@ -26,31 +26,38 @@ their blocked hop, then fresh rows walk their route; a row short of
 credits at a transit hop parks there (holding its arrival link's credit),
 one short at hop 0 is deferred and head-of-line blocks its source egress
 link for the rest of the window.  On the card the replay is one launch of
-kernel F (``kernels/admission.py``, ``csrc/admission.cu``); on the CPU it
-is a loop over the rows whose body is tensor operations over the route's
-hops.  Neither reads a value back to the host.
+kernel F (``kernels/admission.py``, ``csrc/admission.cu``), which reads
+nothing back to the host; on the CPU it is the tenant form's plain replay
+with the fabric as one tenant that reserves nothing, a loop over the rows
+with work whose body is tensor operations over the route's hops.
 
 Fault injection: a caller stamps the window's (K,) dead-link mask on the
 state (``FabricState.link_down``, ``fabric.faults.mask_at``).  Admission
 then reroutes each axis whose short arc crosses a dead link the long way
 around its ring, evicts parked rows whose remaining route or held link
-died, and admits a detoured row all or nothing (the same kernel, the
-faulted plain loop on the CPU); each ring phase flips the same rows, both
+died, and admits a detoured row all or nothing (the same kernel and
+plain replay); each ring phase flips the same rows, both
 directions run ``n - 1`` hops and absorption adds.  A mask needs credits.
 
 :class:`TenantTorusTransport` multiplexes T tenants on the same fabric
 with per-tenant credit partitions (``core.flow_control.CreditPartition``):
 its rows carry a tenant axis, its admission is kernel F's tenant form, and
 each bundle of the rotation carries T count columns, one frame train per
-tenant.
+tenant.  Both transports run one window and one drain
+(:meth:`TorusTransport.exchange`, :meth:`TorusTransport.drain_fabric`) on
+rows shaped (S, *, S), [src, (tenant,) dst]; the tenant class overrides
+only what its layout changes: the transposes between admission's (T, S, S)
+tables and its rows, the shared-pool holds, the fabric-wide statistics
+put on tenant 0 and the order of the dwell sum.
 
 On the card, without a mask, the rotation is one launch
 (``kernels/torus_exchange.py``, ``csrc/torus_exchange.cu``) for every
 caller, and the tenant transport's credited window is two: kernel F's
 tenant form, then kernel H, which forms the shipped and delivered rows,
 the new state and every ``LinkStats`` field from F's outputs.  The eager
-chain below is their plain version: it runs on CPU tensors and, on the
-card, under a dead-link mask, whose ring phases flip bundles.
+window is their plain version: it runs on CPU tensors and, on the card,
+for the single-tenant torus and under a dead-link mask, whose ring
+phases flip bundles.
 
 ``stall_attribution=True`` (the flight recorder's per-link congestion
 table, reference ``_stall_attr``) has kernel F write one more output, the
@@ -227,15 +234,14 @@ class TorusTransport(base.Transport):
                       counts_all: torch.Tensor,
                       link_down: torch.Tensor | None = None
                       ) -> admission.AdmissionOut:
-        """The two-phase admission replay over the global state (kernel F
-        on the card; on the CPU ``admission.admission_plain``, or under a
-        (K,) dead-link mask ``admission.admission_faulted_plain``): parked
-        rows resume first from their blocked hop, then fresh rows walk
-        their route, source-major with the sources rotated by
-        ``bank.epoch``.  Under a mask rows reroute around dead arcs, parked
-        rows whose remaining route or held link died are evicted, and
-        detours are all-or-nothing.  With ``stall_attribution`` the result
-        carries ``stalled_by_link``."""
+        """The two-phase admission replay over the global state
+        (``admission.admission``: kernel F on the card; healthy, or under a
+        (K,) dead-link mask): parked rows resume first from their blocked
+        hop, then fresh rows walk their route, source-major with the
+        sources rotated by ``bank.epoch``.  Under a mask rows reroute
+        around dead arcs, parked rows whose remaining route or held link
+        died are evicted, and detours are all-or-nothing.  With
+        ``stall_attribution`` the result carries ``stalled_by_link``."""
         return admission.admission(
             counts_all.to(torch.int32), state,
             self._dev(counts_all.device)["routes"], link_down,
@@ -390,48 +396,98 @@ class TorusTransport(base.Transport):
             in_flight_phase=torch.stack(acc["in_flight_phase"], -1),
             delivered=buf.sum(1, dtype=torch.int32))
 
+    def _ship(self, row_payload: torch.Tensor, cnt: torch.Tensor,
+              down: torch.Tensor | None = None):
+        """Rotate the (S, S) [src, dst] counts and deliver the rows: row
+        (s, d) lands at d as row s -> (rotation, recv_payload,
+        recv_counts)."""
+        rot = self._rotate(cnt, down)
+        recv = base.pack_payload(row_payload, cnt).transpose(0, 1).contiguous()
+        return (rot, *base.unpack_payload(recv))
+
+    # -- the window's layout ------------------------------------------------
+    # The window below runs on rows (S, *, S), [src, (tenant,) dst]; the
+    # admission's tables are global, (*, S, S).  A subclass with another
+    # row layout overrides these.
+    _admit = _admit_global
+
     @staticmethod
-    def _deliver(payload: torch.Tensor, counts: torch.Tensor):
-        """Row (s, d) lands at d as row s -> (recv_payload, recv_counts)."""
-        recv = base.pack_payload(payload, counts).transpose(0, 1).contiguous()
-        return base.unpack_payload(recv)
+    def _rows(x: torch.Tensor) -> torch.Tensor:
+        """A global table (or the counts) between admission's layout and
+        the rows'; the same (S, S) table here."""
+        return x
+
+    # an (S, S) pair table broadcast over the rows
+    _pairs = _rows
+
+    @staticmethod
+    def _hold_shared(adm) -> torch.Tensor:
+        """Post-window shared-pool holds: none without a partition."""
+        return torch.zeros_like(adm.park_count)
+
+    @staticmethod
+    def _fabric_level(rot: torus_exchange.Rotation):
+        """The rotation's per-holder statistics as the rows' per-shard
+        ones -> (hops, forwarded bytes, bytes on the wire, in-flight peak,
+        peaks by phase)."""
+        return rot.hops, rot.bytes, rot.owire, rot.in_flight, \
+            rot.in_flight_phase
+
+    @staticmethod
+    def _dwell(dwell_row: torch.Tensor) -> torch.Tensor:
+        """Per-shard queueing dwell: the sum over destinations."""
+        return dwell_row.sum(-1)
+
+    @staticmethod
+    def _uncredited_in_fabric(state, zero: torch.Tensor) -> torch.Tensor:
+        """Events an uncredited window reports in the fabric: none."""
+        return zero
+
+    def _by_hop(self, hop: torch.Tensor, weight: torch.Tensor):
+        """(S, *, S) int32 weights -> (S, *, max_hops) hop histograms."""
+        H = self.max_hops
+        return torch.zeros(hop.shape[:-1] + (H,), dtype=torch.int32,
+                           device=hop.device).scatter_add_(
+            -1, torch.clamp(hop, 0, H - 1).long(), weight)
 
     # -- the full window ---------------------------------------------------
     def exchange(self, state: base.LinkState, payload: torch.Tensor,
                  counts: torch.Tensor, *,
                  enforce_credits: bool = True) -> base.TransportOut:
-        n, H = self.n_shards, self.max_hops
+        """Ship one window: ``payload`` (S, S, W) and ``counts`` (S, S)
+        (a subclass's rows (S, *, S), through the layout hooks above);
+        credited, the admission replay decides which rows ship, park or
+        wait, and the rows shipped ride the rotation."""
+        n = self.n_shards
         device = payload.device
         t = self._dev(device)
-        eye = t["eye"]
+        is_local = self._pairs(t["eye"])
         counts = counts.to(torch.int32)
+        lead = counts.shape[:-1]                  # the per-shard statistics
         zero_w = torch.zeros((), dtype=payload.dtype, device=device)
         down = state.link_down       # this window's fault mask, or None
         throttled = enforce_credits and self.link_credits > 0
         if down is not None and not throttled:
             raise ValueError(
                 "fault injection (FabricState.link_down) requires credit "
-                "flow control: an unthrottled fabric has no per-link "
-                "admission to refuse at a dead link (set link_credits > 0)")
+                "flow control: an uncredited window has no per-link "
+                "admission to refuse at a dead link (set link_credits > 0 "
+                "and enforce_credits)")
         if throttled:
-            if state.parked_payload.shape != payload.shape:
-                raise ValueError(
-                    f"FabricState payload buffer "
-                    f"{tuple(state.parked_payload.shape)} != offered payload "
-                    f"{tuple(payload.shape)}: initialize with "
-                    f"init_state(payload_width=W) so parked rows keep "
-                    f"custody of their wire words")
-            # the reference replicates the (S, S) counts with a ring
-            # all-gather whose hops enter no LinkStats counter; on one card
-            # the matrix is global already
-            adm = self._admit_global(state, counts, down)
-            fresh_c, fresh_p = adm.fresh_complete, adm.fresh_park
-            resumed, stall_hop = adm.resumed_complete, adm.stall_hop
-            pc0 = state.parked_count
+            self._check_buffer(state, payload)
+            # the reference replicates the counts with a ring all-gather
+            # whose hops enter no LinkStats counter; on one card the matrix
+            # is global already
+            adm = self._admit(state, self._rows(counts), down)
+            fresh_c = self._rows(adm.fresh_complete)
+            fresh_p = self._rows(adm.fresh_park)
+            resumed = self._rows(adm.resumed_complete)
+            stall_hop = self._rows(adm.stall_hop)
+            pc0 = self._rows(state.parked_count)
             # fresh completions ship the caller's payload, resumed rows
             # the fabric's custody copy (a fresh row behind a parked one
             # is deferred, so the two never share a slot)
-            ship_fresh = fresh_c | (eye & (counts > 0))
+            ship_fresh = fresh_c | (is_local & (counts > 0))
             cnt_in = (torch.where(ship_fresh, counts, 0)
                       + torch.where(resumed, pc0, 0))
             row_payload = torch.where(
@@ -446,9 +502,9 @@ class TorusTransport(base.Transport):
                 parked_by_link=adm.parked_by_link,
                 parked_payload=torch.where(fresh_p[..., None], payload,
                                            state.parked_payload),
-                parked_hold_shared=torch.zeros_like(adm.park_count))
-            sent_mask = fresh_c | fresh_p | eye | (counts == 0)
-            sent_now = fresh_c | eye | (counts == 0)
+                parked_hold_shared=self._hold_shared(adm))
+            sent_mask = fresh_c | fresh_p | is_local | (counts == 0)
+            sent_now = fresh_c | is_local | (counts == 0)
             queue_us = wire_latency.queueing_latency_us(
                 self.wire_fmt, adm.queue_events)
             # park dwell: per window parked, one link credit budget drained
@@ -456,68 +512,63 @@ class TorusTransport(base.Transport):
             park_wait_us = wire_latency.queueing_latency_us(
                 self.wire_fmt, adm.resume_age * self.link_credits)
         else:
-            stall_hop = torch.full((n, n), -1, dtype=torch.int32,
-                                   device=device)
+            stall_hop = torch.full_like(counts, -1)
             cnt_in, row_payload = counts, payload
             state = state._replace(bank=fc.credit_tick(
                 state.bank, torch.zeros_like(state.bank.credits)),
                 link_down=None)
-            sent_mask = sent_now = torch.ones((n, n), dtype=torch.bool,
-                                              device=device)
-            queue_us = park_wait_us = torch.zeros((n, n),
-                                                  dtype=torch.float32,
-                                                  device=device)
-        rot = self._rotate(cnt_in, down)
-        recv_payload, recv_counts = self._deliver(row_payload, cnt_in)
+            sent_mask = sent_now = torch.ones_like(counts, dtype=torch.bool)
+            queue_us = park_wait_us = torch.zeros(
+                (*lead[1:], n, n), dtype=torch.float32, device=device)
+        rot, recv_payload, recv_counts = self._ship(row_payload, cnt_in, down)
 
         # deferred rows histogrammed by their blocking hop, parked rows by
         # the hop they wait at
-        stalled_by_hop = torch.zeros((n, H), dtype=torch.int32,
-                                     device=device).scatter_add_(
-            1, torch.clamp(stall_hop, 0, H - 1).long(),
-            torch.where(stall_hop >= 0, counts, 0))
+        stalled_by_hop = self._by_hop(
+            stall_hop, torch.where(stall_hop >= 0, counts, 0))
         offered = counts.sum(-1, dtype=torch.int32)
-        zi = torch.zeros((n,), dtype=torch.int32, device=device)
+        zi = torch.zeros(lead, dtype=torch.int32, device=device)
+        hops, fwd_bytes, rot_owire, in_flight, in_flight_phase = \
+            self._fabric_level(rot)
         if throttled:
             sent = torch.where(sent_now, counts, 0).sum(-1, dtype=torch.int32)
             parked = torch.where(fresh_p, counts, 0).sum(-1,
                                                          dtype=torch.int32)
             unparked_now = torch.where(resumed, pc0, 0)
             unparked = unparked_now.sum(-1, dtype=torch.int32)
-            parked_by_hop = torch.zeros((n, H), dtype=torch.int32,
-                                        device=device).scatter_add_(
-                1, torch.clamp(state.parked_hop, 0, H - 1).long(),
-                state.parked_count)
+            pk_cnt = self._rows(state.parked_count)
+            parked_by_hop = self._by_hop(self._rows(state.parked_hop), pk_cnt)
             # each row pays one frame train per link it crossed this
             # window, so a route is counted once across park and resume
             c_row = torch.where(resumed, pc0, counts)
             owire = (wire_framing.frame_bytes(self.wire_fmt, c_row)
-                     * adm.links_traversed).sum(-1, dtype=torch.int32)
-            dwell = torch.where(fresh_c | resumed, queue_us + park_wait_us,
-                                0.0).sum(-1)
-            in_fabric = state.parked_count.sum(-1, dtype=torch.int32)
-            rerouted = adm.rerouted.sum(-1, dtype=torch.int32)
+                     * self._rows(adm.links_traversed)).sum(
+                         -1, dtype=torch.int32)
+            dwell = self._dwell(torch.where(
+                fresh_c | resumed, self._rows(queue_us + park_wait_us), 0.0))
+            in_fabric = pk_cnt.sum(-1, dtype=torch.int32)
+            rerouted = self._rows(adm.rerouted).sum(-1, dtype=torch.int32)
         else:
             sent = cnt_in.sum(-1, dtype=torch.int32)
-            parked = unparked = in_fabric = rerouted = zi
-            unparked_now = torch.zeros((n, n), dtype=torch.int32,
-                                       device=device)
-            parked_by_hop = torch.zeros((n, H), dtype=torch.int32,
-                                        device=device)
-            owire = rot.owire
-            dwell = torch.zeros((n,), dtype=torch.float32, device=device)
+            parked = unparked = rerouted = zi
+            in_fabric = self._uncredited_in_fabric(state, zi)
+            unparked_now = torch.zeros_like(counts)
+            parked_by_hop = torch.zeros(lead + (self.max_hops,),
+                                        dtype=torch.int32, device=device)
+            owire = rot_owire
+            dwell = torch.zeros(lead, dtype=torch.float32, device=device)
         stats = base.LinkStats(
             offered_events=offered,
             sent_events=sent,
             deferred_events=offered - sent - parked,
             delivered_events=rot.delivered,
             credit_stalls=(stall_hop >= 0).sum(-1, dtype=torch.int32),
-            hops=rot.hops,
-            forwarded_bytes=rot.bytes,
+            hops=hops,
+            forwarded_bytes=fwd_bytes,
             bytes_on_wire=owire,
-            max_in_flight=rot.in_flight,
+            max_in_flight=in_flight,
             stalled_by_hop=stalled_by_hop,
-            max_in_flight_by_phase=rot.in_flight_phase,
+            max_in_flight_by_phase=in_flight_phase,
             parked_events=parked,
             unparked_events=unparked,
             in_fabric_events=in_fabric,
@@ -539,6 +590,16 @@ class TorusTransport(base.Transport):
             links_used=adm.links_done if down is not None else None,
         )
 
+    @staticmethod
+    def _check_buffer(state, payload: torch.Tensor):
+        if state.parked_payload.shape != payload.shape:
+            raise ValueError(
+                f"FabricState payload buffer "
+                f"{tuple(state.parked_payload.shape)} != offered payload "
+                f"{tuple(payload.shape)}: initialize with "
+                f"init_state(payload_width=W) so parked rows keep custody "
+                f"of their wire words")
+
     def _stall_rows(self, adm):
         """The admission's (K,) stall table as every shard's copy (a view),
         or None: attribution off, or no credited admission ran."""
@@ -551,44 +612,46 @@ class TorusTransport(base.Transport):
                      payload_width: int | None = None) -> base.TransportOut:
         """Deliver every parked row from its blocked hop, credits ignored
         (the end-of-run flush quiesces the fabric), releasing every held
-        credit into the delay line; the returned tables are empty.  Each
-        row's bytes on wire count only its remaining links, so a route is
-        still counted once across its lifetime."""
+        credit into its slot's delay line; the returned tables are empty.
+        Each row's bytes on wire count only its remaining links, so a route
+        is still counted once across its lifetime."""
         if state.parked_count.numel() == 0:    # unthrottled: nothing parked
             return super().drain_fabric(state, payload_width)
-        n, device = self.n_shards, state.parked_count.device
-        t = self._dev(device)
-        pc, ph = state.parked_count, state.parked_hop
+        device = state.parked_count.device
+        pc, ph = self._rows(state.parked_count), self._rows(state.parked_hop)
         payload = torch.where((pc > 0)[..., None], state.parked_payload,
                               torch.zeros((), dtype=torch.int32,
                                           device=device))
-        rot = self._rotate(pc)
-        recv_payload, recv_counts = self._deliver(payload, pc)
+        rot, recv_payload, recv_counts = self._ship(payload, pc)
         bank = fc.credit_tick(state.bank,
                               torch.zeros_like(state.bank.credits),
                               notify=state.parked_by_link)
+        z = torch.zeros_like
         new_state = base.FabricState(
-            bank=bank, parked_count=torch.zeros_like(pc),
-            parked_hop=torch.zeros_like(ph),
-            parked_age=torch.zeros_like(state.parked_age),
-            parked_by_link=torch.zeros_like(state.parked_by_link),
-            parked_payload=torch.zeros_like(state.parked_payload),
-            parked_hold_shared=torch.zeros_like(state.parked_hold_shared))
-        remaining_links = torch.clamp(t["hops"] - ph, min=0)
+            bank=bank, parked_count=z(state.parked_count),
+            parked_hop=z(state.parked_hop), parked_age=z(state.parked_age),
+            parked_by_link=z(state.parked_by_link),
+            parked_payload=z(state.parked_payload),
+            parked_hold_shared=z(state.parked_hold_shared))
+        remaining_links = torch.clamp(
+            self._pairs(self._dev(device)["hops"]) - ph, min=0)
         owire = (wire_framing.frame_bytes(self.wire_fmt, pc)
                  * torch.where(pc > 0, remaining_links, 0)).sum(
                      -1, dtype=torch.int32)
-        stats = base.zero_link_stats((n,), self.max_hops, self.ndim,
-                                     device=device)._replace(
+        hops, fwd_bytes, _, in_flight, in_flight_phase = \
+            self._fabric_level(rot)
+        stats = base.zero_link_stats(pc.shape[:-1], self.max_hops,
+                                     self.ndim, device=device)._replace(
             delivered_events=rot.delivered,
             unparked_events=pc.sum(-1, dtype=torch.int32),
-            hops=rot.hops,
-            forwarded_bytes=rot.bytes,
+            hops=hops,
+            forwarded_bytes=fwd_bytes,
             bytes_on_wire=owire,
-            max_in_flight=rot.in_flight,
-            max_in_flight_by_phase=rot.in_flight_phase)
-        zf = torch.zeros((n, n), dtype=torch.float32, device=device)
-        full = torch.ones((n, n), dtype=torch.bool, device=device)
+            max_in_flight=in_flight,
+            max_in_flight_by_phase=in_flight_phase)
+        zf = torch.zeros(state.parked_count.shape, dtype=torch.float32,
+                         device=device)
+        full = torch.ones_like(pc, dtype=torch.bool)
         return base.TransportOut(
             state=new_state, recv_payload=recv_payload,
             recv_counts=recv_counts, sent_mask=full, stats=stats,
@@ -749,21 +812,31 @@ class TenantTorusTransport(TorusTransport):
                        ) -> admission.TenantAdmissionOut:
         """The replay over the T n² rows of ``counts_all`` (T, S, S): kernel
         F's tenant form on the card; on the CPU
-        ``admission.admission_tenants_plain``, or under a (K,) dead-link
-        mask ``admission.admission_tenants_faulted_plain``; with
-        ``stall_attribution`` it carries ``stalled_by_link`` over the
-        physical links."""
+        ``admission.admission_tenants_plain``, healthy or under a (K,)
+        dead-link mask; with ``stall_attribution`` it carries
+        ``stalled_by_link`` over the physical links."""
         return admission.admission_tenants(
             counts_all.to(torch.int32).contiguous(), state,
             self._dev(counts_all.device)["routes"], link_down,
             stall_lane=self.stall_attribution)
 
-    def _by_hop(self, hop: torch.Tensor, weight: torch.Tensor):
-        """(S, T, S) weights -> (S, T, max_hops) hop histograms."""
-        H = self.max_hops
-        return torch.zeros(hop.shape[:-1] + (H,), dtype=torch.int32,
-                           device=hop.device).scatter_add_(
-            -1, torch.clamp(hop, 0, H - 1).long(), weight.to(torch.int32))
+    # -- the window's layout: rows (S, T, S), [src, tenant, dst] ----------
+    _admit = _admit_tenants
+
+    @staticmethod
+    def _rows(x: torch.Tensor) -> torch.Tensor:
+        """(T, S, S) [tenant, src, dst] <-> each source's (S, T, S) rows
+        (the reference all-gathers every shard's (T, S) counts; on one card
+        that is a transpose)."""
+        return x.transpose(0, 1).contiguous()
+
+    @staticmethod
+    def _pairs(x: torch.Tensor) -> torch.Tensor:
+        return x[:, None, :]
+
+    @staticmethod
+    def _hold_shared(adm) -> torch.Tensor:
+        return adm.hold_shared
 
     def _fabric_level(self, rot: torus_exchange.Rotation):
         """Fabric-wide (non-decomposable) stats, (S,) per holder, put on
@@ -777,8 +850,21 @@ class TenantTorusTransport(TorusTransport):
             out[:, 0] = v
             return out
 
-        return (on0(rot.hops), on0(rot.bytes), on0(rot.in_flight),
-                on0(rot.in_flight_phase))
+        return (on0(rot.hops), on0(rot.bytes), on0(rot.owire),
+                on0(rot.in_flight), on0(rot.in_flight_phase))
+
+    @staticmethod
+    def _dwell(dwell_row: torch.Tensor) -> torch.Tensor:
+        """Summed from the first destination to the last, the order kernel
+        H adds in."""
+        dwell = dwell_row[..., 0]
+        for d in range(1, dwell_row.shape[-1]):
+            dwell = dwell + dwell_row[..., d]
+        return dwell
+
+    def _uncredited_in_fabric(self, state, zero: torch.Tensor):
+        """The rows still parked (the reference reports them)."""
+        return self._rows(state.parked_count).sum(-1, dtype=torch.int32)
 
     def _ship(self, row_payload: torch.Tensor, cnt: torch.Tensor,
               down: torch.Tensor | None = None):
@@ -798,162 +884,28 @@ class TenantTorusTransport(TorusTransport):
         """Ship one window for every tenant: ``payload`` (S, T, S, W),
         ``counts`` (S, T, S); see the class docstring for the result.
         Healthy and credited on the card: :meth:`_exchange_card`; on the
-        CPU, under a mask or uncredited: :meth:`_exchange_plain`."""
+        CPU, under a mask or uncredited: the window of
+        :class:`TorusTransport` on these rows."""
         T, n = self.n_tenants, self.n_shards
-        counts = counts.to(torch.int32)
         if tuple(payload.shape[:3]) != (n, T, n) or tuple(
                 counts.shape) != (n, T, n):
             raise ValueError(
                 f"tenant transport wants payload (S={n}, T={T}, S, W) and "
                 f"counts (S, T, S); got {tuple(payload.shape)} / "
                 f"{tuple(counts.shape)}")
-        down = state.link_down
-        if down is not None and not enforce_credits:
-            raise ValueError("fault injection (FabricState.link_down) "
-                             "requires credit flow control; "
-                             "enforce_credits=False cannot reroute")
-        if enforce_credits and state.parked_payload.shape != payload.shape:
-            raise ValueError(
-                f"FabricState payload buffer "
-                f"{tuple(state.parked_payload.shape)} != offered "
-                f"payload {tuple(payload.shape)}: initialize with "
-                f"init_state(payload_width=W)")
-        if enforce_credits and down is None and dispatch.on_cuda(payload):
-            return self._exchange_card(state, payload, counts)
-        return self._exchange_plain(state, payload, counts, enforce_credits)
-
-    def _exchange_plain(self, state: base.FabricState, payload: torch.Tensor,
-                        counts: torch.Tensor,
-                        enforce_credits: bool) -> base.TransportOut:
-        """The window's plain version (kernel H's): the eager chain after
-        kernel F, on the CPU, under a dead-link mask and uncredited."""
-        T, n, H = self.n_tenants, self.n_shards, self.max_hops
-        device, down = payload.device, state.link_down
-        is_local = self._dev(device)["eye"][:, None, :]      # (S, 1, S)
-        zero_w = torch.zeros((), dtype=payload.dtype, device=device)
-        zero_q = torch.zeros((T, n, n), dtype=torch.float32, device=device)
-        # (T, S, S) [tenant, src, dst] -> each source's (S, T, S) rows
-        mine = lambda x: x.transpose(0, 1).contiguous()
-        if enforce_credits:
-            # the reference all-gathers the (T, n) counts of every shard;
-            # on one card that is a transpose of the stacked counts
-            adm = self._admit_tenants(state, mine(counts), down)
-            fresh_c, fresh_p = mine(adm.fresh_complete), mine(adm.fresh_park)
-            resumed, stall_hop = mine(adm.resumed_complete), mine(
-                adm.stall_hop)
-            pc0 = mine(state.parked_count)
-            ship_fresh = fresh_c | (is_local & (counts > 0))
-            cnt_in = (torch.where(ship_fresh, counts, 0)
-                      + torch.where(resumed, pc0, 0))
-            row_payload = torch.where(
-                resumed[..., None], state.parked_payload,
-                torch.where(ship_fresh[..., None], payload, zero_w))
-            bank = fc.credit_tick(state.bank, adm.spent, notify=adm.notify)
-            state = base.FabricState(
-                bank=bank,
-                parked_count=adm.park_count,
-                parked_hop=adm.park_hop,
-                parked_age=adm.park_age,
-                parked_by_link=adm.parked_by_link,
-                parked_payload=torch.where(fresh_p[..., None], payload,
-                                           state.parked_payload),
-                parked_hold_shared=adm.hold_shared)
-            sent_mask = fresh_c | fresh_p | is_local | (counts == 0)
-            sent_now = fresh_c | is_local | (counts == 0)
-            queue_us = wire_latency.queueing_latency_us(
-                self.wire_fmt, adm.queue_events)
-            park_wait_us = wire_latency.queueing_latency_us(
-                self.wire_fmt, adm.resume_age * self.link_credits)
-        else:
-            fresh_p = resumed = torch.zeros((n, T, n), dtype=torch.bool,
-                                            device=device)
-            pc0 = torch.zeros((n, T, n), dtype=torch.int32, device=device)
-            stall_hop = torch.full((n, T, n), -1, dtype=torch.int32,
-                                   device=device)
-            cnt_in, row_payload = counts, payload
-            state = state._replace(bank=fc.credit_tick(
-                state.bank, torch.zeros_like(state.bank.credits)),
-                link_down=None)
-            sent_mask = sent_now = torch.ones((n, T, n), dtype=torch.bool,
-                                              device=device)
-            queue_us = park_wait_us = zero_q
-
-        rot, recv_payload, recv_counts = self._ship(row_payload, cnt_in,
-                                                    down)
-        stalled_by_hop = self._by_hop(
-            stall_hop, torch.where(stall_hop >= 0, counts, 0))
-        offered = counts.sum(-1, dtype=torch.int32)
-        zt = torch.zeros((n, T), dtype=torch.int32, device=device)
-        unparked_now = torch.where(resumed, pc0, 0)
-        if enforce_credits:
-            sent = torch.where(sent_now, counts, 0).sum(-1, dtype=torch.int32)
-            parked = torch.where(fresh_p, counts, 0).sum(-1,
-                                                         dtype=torch.int32)
-            unparked = unparked_now.sum(-1, dtype=torch.int32)
-            pk_cnt = mine(state.parked_count)
-            parked_by_hop = self._by_hop(mine(state.parked_hop), pk_cnt)
-            c_row = torch.where(resumed, pc0, counts)
-            owire = (wire_framing.frame_bytes(self.wire_fmt, c_row)
-                     * mine(adm.links_traversed)).sum(-1, dtype=torch.int32)
-            # summed from the first destination to the last, the order
-            # kernel H adds in
-            dwell_row = torch.where(fresh_c | resumed,
-                                    mine(queue_us + park_wait_us), 0.0)
-            dwell = dwell_row[..., 0]
-            for d in range(1, n):
-                dwell = dwell + dwell_row[..., d]
-            in_fabric = pk_cnt.sum(-1, dtype=torch.int32)
-            rerouted = mine(adm.rerouted).sum(-1, dtype=torch.int32)
-        else:
-            sent = cnt_in.sum(-1, dtype=torch.int32)
-            parked = unparked = rerouted = zt
-            parked_by_hop = torch.zeros((n, T, H), dtype=torch.int32,
-                                        device=device)
-            owire = zt.clone()
-            owire[:, 0] = rot.owire
-            dwell = torch.zeros((n, T), dtype=torch.float32, device=device)
-            in_fabric = mine(state.parked_count).sum(-1, dtype=torch.int32)
-        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(rot)
-        stats = base.LinkStats(
-            offered_events=offered,
-            sent_events=sent,
-            deferred_events=offered - sent - parked,
-            delivered_events=rot.delivered,
-            credit_stalls=(stall_hop >= 0).sum(-1, dtype=torch.int32),
-            hops=hops_f,
-            forwarded_bytes=bytes_f,
-            bytes_on_wire=owire,
-            max_in_flight=inflight_f,
-            stalled_by_hop=stalled_by_hop,
-            max_in_flight_by_phase=inflight_ph,
-            parked_events=parked,
-            unparked_events=unparked,
-            in_fabric_events=in_fabric,
-            parked_by_hop=parked_by_hop,
-            queue_dwell_us=dwell.to(torch.float32),
-            rerouted=rerouted,
-            stalled_by_link=self._stall_rows(adm if enforce_credits
-                                             else None),
-        )
-        return base.TransportOut(
-            state=state,
-            recv_payload=recv_payload,
-            recv_counts=recv_counts,
-            sent_mask=sent_mask,
-            stats=stats,
-            sent_now=sent_now,
-            queue_us=queue_us,
-            unparked_now=unparked_now,
-            park_wait_us=park_wait_us,
-            links_used=adm.links_done if down is not None else None,
-        )
+        if enforce_credits and state.link_down is None and dispatch.on_cuda(
+                payload):
+            self._check_buffer(state, payload)
+            return self._exchange_card(state, payload, counts.to(torch.int32))
+        return super().exchange(state, payload, counts,
+                                enforce_credits=enforce_credits)
 
     def _exchange_card(self, state: base.FabricState, payload: torch.Tensor,
                        counts: torch.Tensor) -> base.TransportOut:
         """The healthy credited window on the card in two launches: kernel
         F's tenant form, then kernel H (``kernels.torus_exchange.
-        tenant_exchange``) on F's output blocks; every field as
-        :meth:`_exchange_plain` gives it."""
+        tenant_exchange``) on F's output blocks; every field as the plain
+        window gives it."""
         blocks = admission.admission_tenants_blocks(
             counts.transpose(0, 1).contiguous(), state,
             self._dev(payload.device)["routes"],
@@ -980,55 +932,3 @@ class TenantTorusTransport(TorusTransport):
             sent_mask=h.sent_mask, stats=stats, sent_now=h.sent_now,
             queue_us=h.queue_us, unparked_now=h.unparked_now,
             park_wait_us=h.park_wait_us)
-
-    # -- end-of-run fabric walk --------------------------------------------
-    def drain_fabric(self, state: base.LinkState,
-                     payload_width: int | None = None) -> base.TransportOut:
-        """Every parked row of every tenant resumes from its blocked hop
-        and completes, credits ignored; every held credit (reserved and
-        shared) releases into its slot's delay line, so per-slot
-        ``credits + pending == slot limit`` again and the returned tables
-        are empty."""
-        T, n, H = self.n_tenants, self.n_shards, self.max_hops
-        device = state.parked_count.device
-        mine = lambda x: x.transpose(0, 1).contiguous()
-        pc, ph = mine(state.parked_count), mine(state.parked_hop)
-        row_payload = torch.where((pc > 0)[..., None], state.parked_payload,
-                                  torch.zeros((), dtype=torch.int32,
-                                              device=device))
-        rot, recv_payload, recv_counts = self._ship(row_payload, pc)
-        bank = fc.credit_tick(state.bank,
-                              torch.zeros_like(state.bank.credits),
-                              notify=state.parked_by_link)
-        z = torch.zeros_like
-        new_state = base.FabricState(
-            bank=bank, parked_count=z(state.parked_count),
-            parked_hop=z(state.parked_hop), parked_age=z(state.parked_age),
-            parked_by_link=z(state.parked_by_link),
-            parked_payload=z(state.parked_payload),
-            parked_hold_shared=z(state.parked_hold_shared))
-        remaining = torch.clamp(self._dev(device)["hops"][:, None, :] - ph,
-                                min=0)
-        owire = (wire_framing.frame_bytes(self.wire_fmt, pc)
-                 * torch.where(pc > 0, remaining, 0)).sum(-1,
-                                                          dtype=torch.int32)
-        hops_f, bytes_f, inflight_f, inflight_ph = self._fabric_level(rot)
-        zt = torch.zeros((n, T), dtype=torch.int32, device=device)
-        zh = torch.zeros((n, T, H), dtype=torch.int32, device=device)
-        stats = base.LinkStats(
-            offered_events=zt, sent_events=zt, deferred_events=zt,
-            delivered_events=rot.delivered, credit_stalls=zt,
-            hops=hops_f, forwarded_bytes=bytes_f, bytes_on_wire=owire,
-            max_in_flight=inflight_f, stalled_by_hop=zh,
-            max_in_flight_by_phase=inflight_ph, parked_events=zt,
-            unparked_events=pc.sum(-1, dtype=torch.int32),
-            in_fabric_events=zt, parked_by_hop=zh,
-            queue_dwell_us=torch.zeros((n, T), dtype=torch.float32,
-                                       device=device),
-            rerouted=zt)
-        zf = torch.zeros((T, n, n), dtype=torch.float32, device=device)
-        full = torch.ones((n, T, n), dtype=torch.bool, device=device)
-        return base.TransportOut(
-            state=new_state, recv_payload=recv_payload,
-            recv_counts=recv_counts, sent_mask=full, stats=stats,
-            sent_now=full, queue_us=zf, unparked_now=pc, park_wait_us=zf)

@@ -1,5 +1,5 @@
 """Fault injection, port vs reference on the CPU (where kernel F's wrapper
-runs its plain versions, the two admission loops):
+runs its plain version, the one admission replay):
 
 * the schedules of ``fabric.faults`` (every constructor, ``mask_at``'s
   clamp, ``cable_links``, ``link_label``, ``transitions``, ``chaos`` for
@@ -630,7 +630,9 @@ def test_fault_guards(sim_part):
     with pytest.raises(ValueError, match="at most 32"):
         t_tp.create("torus2d", n_shards=18 * 17, nx=18, ny=17,
                     link_credits=8)
-    # the wrapper takes the loops for CPU tensors and refuses bad operands
+    # on CPU tensors the wrapper replays the fabric as one tenant with
+    # reserve 0 (K empty slice slots before the K pool slots), and refuses
+    # bad operands
     tr = t_tp.create("torus2d", n_shards=8, nx=2, ny=4, link_credits=24)
     st = tr.init_state(4, device="cpu")
     routes = tr._dev(torch.device("cpu"))["routes"]
@@ -638,9 +640,20 @@ def test_fault_guards(sim_part):
     down = torch.zeros(32, dtype=torch.bool)
     down[[0, 9]] = True
     got = admission.admission(counts, st, routes, down, stall_lane=True)
-    want = admission.admission_faulted_plain(counts, st, routes, down,
+    lift = lambda x: torch.cat([torch.zeros_like(x), x])
+    one = st._replace(
+        bank=st.bank._replace(credits=lift(st.bank.credits)),
+        parked_count=st.parked_count[None], parked_hop=st.parked_hop[None],
+        parked_age=st.parked_age[None], parked_by_link=lift(
+            st.parked_by_link), parked_hold_shared=st.parked_count[None])
+    want = admission.admission_tenants_plain(counts[None], one, routes, down,
                                              stall_lane=True)
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    for field in got._fields:
+        x = getattr(want, field)
+        x = (x if field == "stalled_by_link" else x[32:]
+             if field in ("spent", "notify", "parked_by_link") else x[0])
+        assert torch.equal(getattr(got, field), x), field
+    assert int(got.fresh_park.sum()) > 0 and int(got.spent.sum()) > 0
     for bad in (counts.to(torch.int64), counts[:4], counts.reshape(4, 16)):
         with pytest.raises(ValueError, match="admission: counts"):
             admission.admission(bad, st, routes)

@@ -520,7 +520,7 @@ def _ref_state(state, lead, width=4):
 @pytest.mark.parametrize("dims", [(2, 4), (2, 2, 2)])
 @pytest.mark.parametrize("form", ["single", "tenant"])
 def test_stall_lane_of_the_admission_loops_matches_reference(dims, form):
-    """``stalled_by_link`` of the healthy and the faulted loop against the
+    """``stalled_by_link`` of the healthy and the faulted replay against the
     reference's ``_stall_attr`` on 12 threaded windows (healthy for 3,
     then chaos masks: detours, evictions, unroutable rows); every other
     field too; the table sums to the window's deferred events."""

@@ -3,8 +3,9 @@
 
 * the credit partitions (layout, guards, the bank) against
   ``repro.core.flow_control``;
-* both tenant admission loops against ``jax.jit`` of the reference's
-  ``_admit_tenants`` and ``_admit_tenants_faulted`` on every field, over 14
+* the tenant admission replay, healthy and under a mask, against
+  ``jax.jit`` of the reference's ``_admit_tenants`` and
+  ``_admit_tenants_faulted`` on every field, over 14
   threaded windows with a pure best-effort tenant (reserve 0), shared-pool
   holds, evictions and detours; a one-tenant fabric with reserve 0 decides
   every row as the single-tenant torus does;
@@ -279,10 +280,11 @@ def _evicted(t, state, down):
 
 @pytest.mark.parametrize("dims", [(2, 2, 2), (2, 4)])
 def test_tenant_admission_matches_reference(dims):
-    """Both tenant loops against the reference's replays on the states of
-    14 windows threaded through the port's transport: healthy for 4
-    windows, then under chaos masks (evictions, detours); a best-effort
-    tenant (reserve 0) and shared-pool holds."""
+    """The tenant replay, healthy and under a mask, against the
+    reference's replays on the states of 14 windows threaded through the
+    port's transport: healthy for 4 windows, then under chaos masks
+    (evictions, detours); a best-effort tenant (reserve 0) and
+    shared-pool holds."""
     n = int(np.prod(dims))
     reserve = (8, 0, 4)
     T = len(reserve)

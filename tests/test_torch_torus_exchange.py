@@ -470,7 +470,7 @@ def test_kernels_match_the_eager_chain_on_the_card():
         got = tr.exchange(state, payload, counts)
         assert dispatch.ENTRY_LAUNCHES == {"repro_admission_tenants": 1,
                                            "repro_tenant_exchange": 1}
-        want = plain._exchange_plain(state, payload, counts, True)
+        want = tt.TorusTransport.exchange(plain, state, payload, counts)
         assert_same(got, want, f"window {i}")
         parked += int(want.stats.parked_events.sum())
         cin = want.recv_counts.permute(2, 0, 1)
