@@ -2633,6 +2633,22 @@ def check_serve_slice_small():
               f"shed {rc.shed.tolist()}")
 
 
+def _serve_eager_windows(hot: bool, n_segments: int) -> None:
+    """The deployment's first ``n_segments`` served segments from a fresh
+    engine's carry, window by window with the index on the host (eager:
+    the wrappers are called, as no replay of the engine's graph calls
+    them)."""
+    eng = serve_engine("cuda", hot)
+    nw, carry = eng.cfg.seg_windows, eng._carry
+    with eng._on_stream():
+        for k in range(n_segments):
+            eng._fill_segment(0, k)
+            fw, fc_, copied = eng._stage(0)
+            copied.synchronize()
+            carry, _ = eng._segment_windows(carry, fw, fc_, k * nw)
+    torch.cuda.synchronize()
+
+
 def _serve_segment_profile(eng, seg: int):
     """torch.profiler over served segment ``seg`` (its traffic staged and
     run from the engine's initial carry after ``seg`` segments)."""
@@ -2849,6 +2865,13 @@ def run_serve_main_path(smi: str):
             SERVE_CAPTURE_EVERY)
         launches[label] = dict(dispatch.LAUNCHES)
         entries = dict(dispatch.ENTRY_LAUNCHES)
+        if not fault:
+            # the healthy run replays a CUDA graph, which calls no wrapper:
+            # the same windows again, eagerly, for F's inputs
+            calls, _ = capture_admission(
+                lambda: _serve_eager_windows(hot, SERVE_SEGMENTS),
+                ("admission_tenants", "admission_tenants_blocks"),
+                SERVE_CAPTURE_EVERY)
         captured += [(label, *c) for c in calls]
         peak = (torch.cuda.max_memory_allocated() - held) / 2**20
         reports[label] = rep

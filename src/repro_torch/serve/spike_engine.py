@@ -46,12 +46,14 @@ so each measures the host's issue or wait, never device time:
   over it (the rest is time off the CPU: the GIL, preemption, blocking
   calls); ``device/stats_wait``, the wait in ``_absorb`` for the previous
   segment's stats copy (the card, not the host, holding the loop back).
-* inside each window, on the issuing thread's track:
+* inside each eagerly run window, on the issuing thread's track:
   ``window/exchange``, the tenant torus exchange (F's tenant form, the
   ring phases, the ``LinkStats`` build), and ``window/attribute``, the
   receiver's decode and latency summary, each with ``window``; the rest
   of ``device/dispatch`` is the merge, the encode, the recorder's record
-  and the issue of the stats copy.
+  and queuing the stats copy.  A replayed segment records
+  ``segment/replay`` there instead (and its capture
+  ``segment/capture``).
 * ``device`` track: one ``window`` instant per window, stamped when its
   stats reach the host, with the absolute index the wire words' meta lane
   and the recorder's rows carry.
@@ -60,10 +62,31 @@ During ``stop``'s drain the caller's thread runs the segments, so their
 ``window/*`` and ``device/stats_wait`` spans lie on its track, and
 ``drain/walk`` on ``spike-device``.
 
+A served segment is one CUDA graph.  A window reads its index from the
+card: the meta lane's stamp and the receiver's wait are computed from a
+0-d int32 tensor, the segment's first window (filled in before each
+replay, no host read) plus the window's offset in the segment.  On a
+CUDA device without a fault schedule or a recorder (both index their
+tables by window on the host), the engine's first segment runs eagerly
+(which builds the kernel library and every lazy table), the second
+captures its ``seg_windows`` windows into a graph, and every later
+segment, drain segments included, copies the carry and the staged words
+and counts into the graph's buffers, fills the stamp, replays
+(``dispatch.graph_launch``: holding the GIL, so a profiler stopped on
+another thread cannot deadlock with the launch), clones the end carry out
+and queues the stats' copy to the host.  Neither a carry passed in nor
+one returned is written by a later replay.  :meth:`warmup` runs both the
+eager and the capturing segment, so the capture falls in set-up.  A
+replayed window makes no host call, so it records no ``window/*`` span;
+a capture and a replay record ``segment/capture`` and ``segment/replay``
+on the calling thread's track.  The drain walk stays eager.
+:data:`SEGMENTS` counts how segments ran; a replay counts its kernel
+launches in ``dispatch.LAUNCHES`` as the eager windows would.
+
 Differences from the reference: the shard axis is a tensor dimension (no
 mesh; ``n_shards`` and ``device`` instead), event words are int32 bit
-patterns, and a segment is a Python loop of windows (the reference scans
-them in one jit).
+patterns, and a segment is a loop of windows, eager or replayed as a CUDA
+graph (the reference scans them in one jit).
 """
 from __future__ import annotations
 
@@ -141,12 +164,34 @@ class EngineReport(NamedTuple):
     conservation_checked: bool    # True iff drained and ledger verified
 
 
+SEGMENTS: dict[str, int] = {"eager": 0, "replayed": 0, "captured": 0}
+"""Segments run by every engine's ``_segment``: ``eager`` window by window
+from Python, ``replayed`` by replaying a captured CUDA graph; ``captured``
+counts the graphs captured (one per engine)."""
+
+
+def reset_segments() -> None:
+    for k in SEGMENTS:
+        SEGMENTS[k] = 0
+
+
 def _tree_map(fn, tree):
-    """``fn`` on every tensor of a tree of (named) tuples."""
+    """``fn`` on every tensor of a tree of (named) tuples; None stays."""
+    if tree is None:
+        return None
     if not isinstance(tree, tuple):
         return fn(tree)
     items = [_tree_map(fn, x) for x in tree]
     return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def _leaves(tree) -> list:
+    """The tensors of a tree of (named) tuples, in order; None skipped."""
+    if tree is None:
+        return []
+    if not isinstance(tree, tuple):
+        return [tree]
+    return [x for sub in tree for x in _leaves(sub)]
 
 
 def _tree_stack(trees):
@@ -154,6 +199,63 @@ def _tree_stack(trees):
     if not isinstance(trees[0], tuple):
         return torch.stack(trees)
     return type(trees[0])(*(_tree_stack(list(x)) for x in zip(*trees)))
+
+
+def _flatten(leaves) -> torch.Tensor:
+    """Equal-dtype tensors as one flat tensor (one call, one kernel)."""
+    return torch._utils._flatten_dense_tensors(leaves)
+
+
+def _unflatten(flat: torch.Tensor, tree):
+    """A tree shaped as ``tree`` of views of ``flat`` (:func:`_flatten` of
+    ``tree``'s leaves, in order, on any device), each leaf in its own
+    dtype of the element size of ``flat``'s."""
+    leaves = _leaves(tree)
+    it = iter(v if v.dtype == x.dtype else v.view(x.dtype) for v, x in zip(
+        torch._utils._unflatten_dense_tensors(flat, leaves), leaves))
+    return _tree_map(lambda _: next(it), tree)
+
+
+class _Packed(NamedTuple):
+    """A host copy of one packed tensor and the tree it unpacks to."""
+
+    flat: torch.Tensor
+    like: tuple
+
+    def unpack(self):
+        """``like``'s tree of host tensors, views of ``flat`` cut with
+        numpy: no call that releases the GIL (the ingest thread's)."""
+        buf, off, out = self.flat.numpy(), 0, []
+        for x in _leaves(self.like):
+            n = x.numel()
+            out.append(torch.from_numpy(buf[off:off + n].view(
+                _NUMPY[x.dtype]).reshape(x.shape)))
+            off += n
+        it = iter(out)
+        return _tree_map(lambda _: next(it), self.like)
+
+
+_NUMPY = {torch.int32: np.int32, torch.float32: np.float32}
+
+
+class _SegmentGraph(NamedTuple):
+    """A captured segment: its graph; the tensors it reads (the carry's
+    leaves packed in ``carry_in``, the carry as views of it, the staged
+    words and counts, the first window's stamp); what it writes (the
+    stacked stats, ``stats``, and the end carry and the stats each packed
+    into one int32 tensor, so a replay moves each with one copy); and the
+    kernel launches its capture counted (``dispatch.take_launches``)."""
+
+    graph: torch.cuda.CUDAGraph
+    carry_in: torch.Tensor          # holds the end carry after a replay
+    carry_views: tuple              # shaped as every carry of the engine
+    fw: torch.Tensor
+    fc: torch.Tensor
+    stamp: torch.Tensor
+    stats: WindowServeStats
+    carry_out: torch.Tensor
+    stats_out: torch.Tensor
+    launched: tuple
 
 
 class SpikeEngine:
@@ -205,6 +307,13 @@ class SpikeEngine:
         cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if cuda else None
         self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        # a segment is replayed as a CUDA graph where nothing is indexed by
+        # window on the host: the fault mask and the recorder's row are
+        self._graphable = (cuda and self.fault_schedule is None
+                           and recorder is None)
+        self._warm = False               # a segment has run eagerly
+        self._graph: _SegmentGraph | None = None
+        self._replayed = None            # the carry the last replay returned
         self._reset_runtime()
 
     # -- device functions --------------------------------------------------
@@ -215,12 +324,13 @@ class SpikeEngine:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _attribute(self, out, win_abs: int):
+    def _attribute(self, out, win_abs):
         """Receiver-side per-event latency of one window's arrivals: the
         whole windows waited since injection (the meta lane: deferral,
         backlog dwell and park windows) + per-row wire time + queueing
         dwell behind parked traffic on the route; under faults a row is
         charged the links it actually crossed, detours included.
+        ``win_abs`` is the window's index, an int or a 0-d int32 tensor.
         -> ((S, T) latency summary, (S, T) delivered events)."""
         S, T = self.n_shards, self.n_tenants
         _, r_meta = codec.decode_planar(out.recv_payload)  # (dst, T, src, C)
@@ -237,11 +347,26 @@ class SpikeEngine:
             batch_dims=2)
         return summary, out.recv_counts.sum(-1, dtype=torch.int32)
 
-    def _window(self, carry, fw_w, fc_w, win_abs: int):
+    def _window_span(self, name: str, win_abs):
+        """A ``window/*`` span of an eager window; a captured window makes
+        no host call when it is replayed, so it has none."""
+        if isinstance(win_abs, torch.Tensor):
+            return contextlib.nullcontext()
+        return self.tracer.span(name, window=win_abs)
+
+    def _window(self, carry, fw_w, fc_w, win_abs):
         """One flush window: FIFO merge (the backlog row first, fresh
         arrivals behind it, overflow beyond C shed), encode, exchange,
         attribution (and the flight recorder's record) -> (carry,
-        WindowServeStats)."""
+        WindowServeStats).  ``win_abs`` is the window's index: an int, or
+        in a captured segment a 0-d int32 tensor on the device (then
+        without a fault schedule or a recorder, which take it on the
+        host)."""
+        on_host = not isinstance(win_abs, torch.Tensor)
+        if not on_host and (self.fault_schedule is not None
+                            or self.recorder is not None):
+            raise ValueError("a fault schedule or a recorder needs the "
+                             "window's index on the host")
         state, bw, bm, bc = carry[:4]
         C, pos = self.cfg.capacity, self._pos
         b = bc[..., None]
@@ -249,8 +374,8 @@ class SpikeEngine:
         fw_g = torch.gather(fw_w, -1, torch.clamp(pos - b, 0, C - 1))
         take_f = ~sel_b & (pos - b < fc_w[..., None])
         words = torch.where(sel_b, bw, torch.where(take_f, fw_g, 0))
-        stamp = torch.full((), win_abs, dtype=torch.int32,
-                           device=self.device)
+        stamp = (torch.full((), win_abs, dtype=torch.int32,
+                            device=self.device) if on_host else win_abs)
         meta = torch.where(sel_b, bm, torch.where(take_f, stamp, 0))
         cnt = torch.clamp(bc + fc_w, max=C)
         shed = bc + fc_w - cnt
@@ -258,14 +383,14 @@ class SpikeEngine:
         if self.fault_schedule is not None:
             state = state._replace(link_down=fabric_faults.mask_at(
                 self.fault_schedule, win_abs))
-        with self.tracer.span("window/exchange", window=win_abs):
+        with self._window_span("window/exchange", win_abs):
             out = self.transport.exchange(state, payload, cnt)
         keep = ~out.sent_mask
         ring = carry[4:]
         carry = (out.state, torch.where(keep[..., None], words, 0),
                  torch.where(keep[..., None], meta, 0),
                  torch.where(keep, cnt, 0))
-        with self.tracer.span("window/attribute", window=win_abs):
+        with self._window_span("window/attribute", win_abs):
             summary, delivered = self._attribute(out, win_abs)
         st = out.stats
         if ring:
@@ -277,21 +402,97 @@ class SpikeEngine:
             unparked=st.unparked_events, delivered=delivered,
             shed=shed.sum(-1, dtype=torch.int32), latency=summary)
 
-    def _segment(self, carry, fw, fc_, win0: int):
+    def _segment_windows(self, carry, fw, fc_, win0):
         """``seg_windows`` windows from ``fw`` (nw, S, T, S, C) and ``fc_``
-        (nw, S, T, S) -> (carry, (stacked stats on the host, an event
-        recorded behind their copy))."""
+        (nw, S, T, S), the first numbered ``win0`` (an int, or a 0-d int32
+        tensor on the device) -> (carry, stacked stats on the device)."""
         out = []
         for i in range(self.cfg.seg_windows):
             carry, ws = self._window(carry, fw[i], fc_[i], win0 + i)
             out.append(ws)
-        return carry, self._to_host(_tree_stack(out))
+        return carry, _tree_stack(out)
 
-    def _to_host(self, tree):
+    def _segment(self, carry, fw, fc_, win0: int):
+        """``seg_windows`` windows from ``fw`` (nw, S, T, S, C) and ``fc_``
+        (nw, S, T, S) -> (carry, (stacked stats on the host, an event
+        recorded behind their copy)).  Eager, or replayed as a CUDA graph
+        (the module docstring); no later segment writes ``carry`` or the
+        carry returned."""
+        if self._graphable and self._warm:
+            return self._replay(carry, fw, fc_, win0)
+        self._warm = True
+        SEGMENTS["eager"] += 1
+        carry, stats = self._segment_windows(carry, fw, fc_, win0)
+        return carry, self._to_host(stats)
+
+    def _capture(self, carry) -> _SegmentGraph:
+        """Capture a segment into a graph whose inputs are a copy of
+        ``carry``'s tensors (int32, packed), word and count buffers and
+        the stamp."""
+        nw = self.cfg.seg_windows
+        carry_in = _flatten(_leaves(carry))
+        carry_views = _unflatten(carry_in, carry)
+        fw = torch.zeros_like(self._zero_fw)
+        fc_ = torch.zeros_like(self._zero_fc)
+        stamp = torch.zeros((), dtype=torch.int32, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        before = dispatch.launch_counts()
+        with self.tracer.span("segment/capture", windows=nw):
+            # thread-local: the ingest thread may run beside a capture on
+            # the device thread (an engine started without ``warmup``)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                stats, carry_out, stats_out = self._graph_body(
+                    carry_in, carry_views, fw, fc_, stamp)
+        launched = dispatch.take_launches(before)
+        SEGMENTS["captured"] += 1
+        return _SegmentGraph(graph, carry_in, carry_views, fw, fc_, stamp,
+                             stats, carry_out, stats_out, launched)
+
+    def _graph_body(self, carry_in, carry_views, fw, fc_, stamp):
+        """What a segment's graph runs: the windows from ``carry_views``
+        (views of ``carry_in``), then the end carry packed and written
+        back into ``carry_in`` -> (stacked stats, the end carry packed,
+        the stats packed into one int32 tensor)."""
+        end, stats = self._segment_windows(carry_views, fw, fc_, stamp)
+        carry_out = _flatten(_leaves(end))
+        carry_in.copy_(carry_out)
+        return stats, carry_out, _flatten(
+            [x.view(torch.int32) for x in _leaves(stats)])
+
+    def _replay(self, carry, fw, fc_, win0: int):
+        """The segment as a replay of the engine's graph (captured by the
+        first call): the carry, words and counts copied in on the compute
+        stream, the stamp filled on the card, the end carry cloned out and
+        returned as views of its one clone; the host copy of the stats is
+        one copy of their packed tensor (:meth:`_ready` unpacks it).  Few
+        host calls a segment matter beyond their own cost: each releases
+        the GIL, which the ingest thread then holds."""
+        g = self._graph
+        if g is None:
+            g = self._graph = self._capture(carry)
+        if carry is not self._replayed:    # else its values are in carry_in
+            g.carry_in.copy_(_flatten(_leaves(carry)))
+        g.fw.copy_(fw)
+        g.fc.copy_(fc_)
+        g.stamp.fill_(win0)
+        with self.tracer.span("segment/replay", win0=win0,
+                              windows=self.cfg.seg_windows):
+            dispatch.graph_launch(g.graph)
+        dispatch.count_launches(g.launched)
+        SEGMENTS["replayed"] += 1
+        self._replayed = _unflatten(g.carry_out.clone(), g.carry_views)
+        # the stats' copy to the host is queued on this stream, so it reads
+        # the graph's buffers before the next replay writes them
+        return self._replayed, self._to_host(g.stats_out, like=g.stats)
+
+    def _to_host(self, tree, like=None):
         """Queue the copy of ``tree``'s tensors to the host behind the work
         that makes them -> (host tree, event or None); read it only after
-        :meth:`_ready`."""
+        :meth:`_ready`.  With ``like``, ``tree`` is the packed tensor of
+        ``like``'s leaves, unpacked to its shape on the host."""
         host = _tree_map(lambda x: x.to("cpu", non_blocking=True), tree)
+        if like is not None:
+            host = _Packed(host, like)
         if self._stream is None:
             return host, None
         event = torch.cuda.Event()
@@ -303,7 +504,7 @@ class SpikeEngine:
         host, event = item
         if event is not None:
             event.synchronize()
-        return host
+        return host.unpack() if isinstance(host, _Packed) else host
 
     def _drain_walk(self, carry, win0: int):
         """Final walk: one uncredited flush of the backlog plus the
@@ -333,15 +534,18 @@ class SpikeEngine:
                 self.recorder.depth, state0, (T,),
                 (T, wire_latency.N_LATENCY_BINS),
                 S * self.transport.n_links, n_shards=S),)
-        # the staging slots: filled in place by the ingest thread, pinned
-        # for the card so a copy can run on the side stream
-        pin = self.device.type == "cuda"
-        self._words_buf = torch.zeros((depth, nw, S, T, S, C),
-                                      dtype=torch.int32, pin_memory=pin)
-        self._counts_buf = torch.zeros((depth, nw, S, T, S),
-                                       dtype=torch.int32, pin_memory=pin)
         self._zero_fw = z(nw, S, T, S, C)
         self._zero_fc = z(nw, S, T, S)
+        # the staging slots: a segment's words and counts packed in one
+        # row, filled in place by the ingest thread through numpy views,
+        # pinned for the card so one copy can run on the side stream
+        pin = self.device.type == "cuda"
+        slots = torch.zeros((depth, self._zero_fw.numel()
+                             + self._zero_fc.numel()), dtype=torch.int32,
+                            pin_memory=pin)
+        self._slots = slots.unbind(0)
+        self._slot_np = [tuple(x.numpy() for x in _unflatten(
+            row, (self._zero_fw, self._zero_fc))) for row in self._slots]
         self._free_q: queue.Queue = queue.Queue()
         for i in range(depth):
             self._free_q.put(i)
@@ -359,8 +563,8 @@ class SpikeEngine:
     # -- host threads ------------------------------------------------------
     def _fill_segment(self, slot: int, seg: int):
         nw = self.cfg.seg_windows
-        wbuf = self._words_buf[slot].numpy().view(np.uint32)
-        cbuf = self._counts_buf[slot].numpy()
+        wbuf, cbuf = self._slot_np[slot]
+        wbuf = wbuf.view(np.uint32)
         inj = np.zeros((self.n_tenants,), np.int64)
         clip = np.zeros((self.n_tenants,), np.int64)
         with self.tracer.span("ingest/fill", track="spike-ingest",
@@ -404,18 +608,16 @@ class SpikeEngine:
         On the card the copy runs on the side stream and the compute
         stream waits for it; the slot may be refilled only once the event
         recorded behind the copy has completed."""
+        like = (self._zero_fw, self._zero_fc)
         if self._copy_stream is None:
-            return (self._words_buf[slot].clone(),
-                    self._counts_buf[slot].clone(), None)
+            return (*_unflatten(self._slots[slot].clone(), like), None)
         with torch.cuda.stream(self._copy_stream):
-            fw = self._words_buf[slot].to(self.device, non_blocking=True)
-            fc_ = self._counts_buf[slot].to(self.device, non_blocking=True)
+            flat = self._slots[slot].to(self.device, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record(self._copy_stream)
         self._stream.wait_event(copied)
-        fw.record_stream(self._stream)
-        fc_.record_stream(self._stream)
-        return fw, fc_, copied
+        flat.record_stream(self._stream)
+        return (*_unflatten(flat, like), copied)
 
     def _device_loop(self):
         prev = None
@@ -493,12 +695,16 @@ class SpikeEngine:
     def warmup(self) -> None:
         """A zero-traffic segment and drain walk on the current state,
         results discarded (engine state is not changed): builds the kernel
-        library and warms the allocator, so a timed run excludes them."""
+        library and warms the allocator, and where segments are replayed
+        as a CUDA graph a second segment captures and replays it, so a
+        timed run excludes them."""
         with self._on_stream():
             carry = self._carry[:4] + tuple(
                 obs_recorder.ring_clone(r) for r in self._carry[4:])
-            _, ws = self._segment(carry, self._zero_fw, self._zero_fc, 0)
-            self._ready(ws)
+            for _ in range(2 if self._graphable else 1):
+                _, ws = self._segment(carry, self._zero_fw, self._zero_fc,
+                                      0)
+                self._ready(ws)
             _, walk = self._drain_walk(self._carry, 0)
             self._ready(walk)
 
