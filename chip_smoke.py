@@ -115,6 +115,24 @@ Phases, each raising on failure (exit code != 0, no result line):
    eager, graph, graph, eager, timed with CUDA events: ms a window each
    turn, the segment counter, launches equal, and every WindowStats field
    and the end carry of the graph's turns bit for bit the eager turns';
+5u. main path 18 -- NEST's HPC benchmark network at the HPC cell's scale
+   (90,000 neurons in 8 shards of 11,250, in-degree 9,000 + 2,250 with
+   multapses, ~1.01 B synapses, 648 M of them plastic E->E), drawn and
+   partitioned on the card as ``examples/hpc_benchmark.py`` does; kernel
+   C's alpha form (``lif_alpha_window``) at its 8 x 11,250 neurons: 6
+   chained windows with the post-spike archive (by value and through the
+   step pointer, archives past H) and 2 without, state, raster, rings and
+   archive bit for bit against the plain window, its time (CUDA graph)
+   and the bound of the cell's roofline count; kernel S's multapse
+   instance and plastic form (``stdp_deliver``) over the scale-8 store at
+   the cell's load and with full rows of 124, chained: rings, misses, the
+   store's counter, plastic weights, traces, last spikes and counters bit
+   for bit against the plain versions, their times and bounds from the
+   window's counters; then 4 segments of 16 windows through
+   ``build_sharded_segments`` with the rule on the cell's fabric
+   (torus3d 2x2x2, 124-event rows, 4,096 credits, notify 4): launches of
+   the replayed segments (each kernel once a window), the identities,
+   plastic updates made, ``history_short`` 0, ms a window;
 5g. a small serve run (the deployment of 5h for 3 segments, solo and
    contended) on the card against the same run on the CPU: every
    ``EngineReport`` integer, every per-window ``WindowServeStats`` integer
@@ -323,7 +341,9 @@ Phases, each raising on failure (exit code != 0, no result line):
    from main path 4's three runs, A-C and F from obs-sim's recorded runs
    and F and B from obs-serve's instrumented run, A-C from main path 1
    and the entry points' torus run, A-C, F, H's rotation and delivery
-   from main path 16's two runs, A and G from the quickstart and F and B
+   from main path 16's two runs, A, B, C's alpha form, F, H's rotation,
+   delivery and the plastic delivery from main path 18's replayed
+   segments, A and G from the quickstart and F and B
    from the trace smoke (the per-row placement 0: it is on no path), D
    from the exchange,
    E's tensor-core kernel from main paths 2 and 12, E's FMA kernel from
@@ -2124,6 +2144,408 @@ def run_graph_loops(cells, smi: str) -> dict:
         for k, n in got_l[0].items():
             total[k] = total.get(k, 0) + n
     return total
+
+
+# ---------------------------------------------------------------------------
+# Main path 18: NEST's HPC benchmark network at the HPC cell's scale.
+# ---------------------------------------------------------------------------
+
+HPC_SCALE = 8                  # 8 shards of 11,250: one benchmark unit each
+HPC_SHARDS = 8
+HPC_PER = 11250
+HPC_CELL = dict(transport="torus3d", torus_nx=2, torus_ny=2, torus_nz=2,
+                capacity=FULL_CELL_C, link_credits=4096, notify_latency=4)
+HPC_E_MAX = 4096               # the HPC cell's e_max
+HPC_SEGMENTS = 4               # segments of 16 windows of main path 18
+
+
+def hpc_network():
+    """The HPC benchmark network at the cell's scale, drawn and
+    partitioned on the card as ``examples/hpc_benchmark.py`` does: 90,000
+    neurons, in-degree 9,000 + 2,250 with multapses, ~1.01 B synapses of
+    which 648 M plastic E->E.  -> (spec, partition)."""
+    from repro_torch.snn import hpc_benchmark as hb, network
+    t0 = time.perf_counter()
+    spec = hb.HpcSpec(scale=HPC_SCALE)
+    src = spec.draw_sources(torch.Generator(device="cuda").manual_seed(0))
+    part = network.build_indegree_partition(
+        src, spec.is_inh(), HPC_SHARDS, spec.je_pa, spec.ji_pa,
+        hb.STDP.delay_steps)
+    del src
+    torch.cuda.synchronize()
+    if (part.n_shards, part.per_shard) != (HPC_SHARDS, HPC_PER) or \
+            not part.store.multapses:
+        raise AssertionError(f"HPC network: {part.n_shards} shards x "
+                             f"{part.per_shard}, multapses "
+                             f"{part.store.multapses}; want {HPC_SHARDS} x "
+                             f"{HPC_PER} with multapses")
+    n_plastic = int(part.plastic.targets.numel())
+    print(f"HPC network: {spec.n_neurons} neurons, {part.n_synapses} static "
+          f"and {n_plastic} plastic synapses, {part.n_shards} shards x "
+          f"{part.per_shard}, longest plastic list {part.plastic.longest}; "
+          f"drawn and partitioned in {time.perf_counter() - t0:.1f} s")
+    return spec, part
+
+
+def _hpc_archive(gen, S, per, H, t):
+    """Post-spike archives at step ``t``: counts 0 to 3H (past H: entries
+    overwritten), each neuron's kept steps ascending before ``t``, 1 in 16
+    neurons spiking every 1-10 steps (walks that reach past the oldest
+    kept entry) and the rest every 1-2,000 (~7.8 Hz, the cell's rate), K-
+    in [1, 4).  -> (count, step, kminus)."""
+    dev = gen.device
+    count = torch.randint(0, 3 * H, (S, per), generator=gen, device=dev,
+                          dtype=torch.int32)
+    fast = torch.rand((S, per, 1), generator=gen, device=dev) < 1 / 16
+    gaps = 1 + (torch.rand((S, per, H), generator=gen, device=dev)
+                * torch.where(fast, 10.0, 2000.0)).long()
+    age = torch.flip(torch.cumsum(torch.flip(gaps, [-1]), -1), [-1])
+    # entry n % H holds spike n: the newest (count - 1) is the youngest
+    n = count.long()[..., None] - H + torch.arange(H, device=dev)
+    steps = (t - age).int()                    # oldest kept spike first
+    slot = torch.remainder(n, H)
+    step = torch.zeros((S, per, H), dtype=torch.int32, device=dev)
+    step.scatter_(-1, slot, steps)
+    km = 1 + 3 * torch.rand((S, per, H), generator=gen, device=dev)
+    return count, step, km
+
+
+def check_lif_alpha(gen, S: int, per: int):
+    """Kernel C's alpha form (``lif_alpha_window``) at the HPC cell's
+    neurons (8 x 11,250, windows of 8 steps off a 32-slot ring): 6 chained
+    windows with the post-spike archive (t0 from 4,000, so the ring
+    wraps; even windows by value, odd ones through the step pointer),
+    archives past H so entries wrap, then 2 windows without the archive
+    (by value and by pointer); state, raster, rings and archive bit for
+    bit against ``lif_alpha_window_plain`` on the same card tensors, one
+    launch a call, spikes and refractory neurons exercised.  Its time
+    (CUDA graph) with the archive against the bound of the HPC cell's
+    roofline count (``gpubench/rooflines/lif_alpha_window.py``) on that
+    window's spikes."""
+    from repro_torch.kernels import dispatch, lif_step as ls
+    from repro_torch.snn import hpc_benchmark as hb, lif
+    dev = gen.device
+    p, W, L, H = hb.PARAMS, 8, 32, hb.STDP.history
+    shape = (S, per)
+    u = lambda *s: torch.rand(s or shape, generator=gen, device=dev)
+    minus = lif.decay_table(p.dt, hb.STDP.tau_minus, dev)
+    state = lif.AlphaState(
+        p.e_l + (p.v_th - p.e_l + 2.0) * u(), u() * 400.0, u() * 60.0,
+        -u() * 900.0, -u() * 100.0,
+        torch.randint(0, 6, shape, generator=gen, device=dev,
+                      dtype=torch.int32))
+    t0 = 4000
+    count, step, km = _hpc_archive(gen, S, per, H, t0)
+    archive = lif.PostArchive(step, km, count.clone())
+    spikes, err = 0, 0.0
+
+    def window(st, t, by_pointer, ar):
+        nonlocal err
+        re, ri = u(L, *shape) * 300.0, -u(L, *shape) * 200.0
+        drive = torch.poisson(u(W, *shape) * 4.0, generator=gen) \
+            * hb.HpcSpec().je_pa
+        rings, plain_rings = (re.clone(), ri.clone()), (re, ri)
+        ar_k = None if ar is None else lif.PostArchive(
+            *(x.clone() for x in ar))
+        at = torch.tensor([t], dtype=torch.int32, device=dev) \
+            if by_pointer else t
+        dispatch.reset_launches()
+        got, gsp = ls.lif_alpha_window(st, p, *rings, at, drive,
+                                       archive=ar_k,
+                                       minus_table=None if ar is None
+                                       else minus)
+        if dispatch.LAUNCHES != {"lif_alpha": 1}:
+            raise AssertionError(f"lif_alpha_window: launches "
+                                 f"{dispatch.LAUNCHES}, want one")
+        want, wsp = ls.lif_alpha_window_plain(st, p, *plain_rings, t, drive,
+                                              archive=ar,
+                                              minus_table=None if ar is None
+                                              else minus)
+        pairs = (list(zip(got, want)) + [(gsp, wsp)]
+                 + list(zip(rings, plain_rings))
+                 + ([] if ar is None else list(zip(ar_k, ar))))
+        require_equal(f"lif_alpha_window t0 {t}"
+                      f"{' by pointer' if by_pointer else ''}"
+                      f"{'' if ar is not None else ', no archive'}", pairs)
+        err = max(err, max_abs_err(pairs))
+        return got, int(gsp.sum())
+
+    for k in range(6):
+        state, n = window(state, t0 + k * W, k % 2 == 1, archive)
+        spikes += n
+    appended = int((archive.count - count).sum())
+    for by_pointer in (False, True):
+        state, n = window(state, t0 + (6 + by_pointer) * W, by_pointer,
+                          None)
+        spikes += n
+    if spikes == 0 or appended == 0 or int((state.refrac > 0).sum()) == 0 \
+            or int((archive.count >= H).sum()) == 0:
+        raise AssertionError("lif_alpha_window: threshold, refractory, "
+                             "archive or archive wrap unexercised")
+
+    re, ri = u(L, *shape) * 300.0, -u(L, *shape) * 200.0
+    drive = torch.poisson(u(W, *shape) * 4.0, generator=gen) \
+        * hb.HpcSpec().je_pa
+    t_win = t0 + 8 * W
+    _, raster = ls.lif_alpha_window(state, p, re.clone(), ri.clone(), t_win,
+                                    drive, archive=lif.PostArchive(
+                                        *(x.clone() for x in archive)),
+                                    minus_table=minus)
+    n_spikes = int(raster.sum())
+    ms, eager_ms = time_ms(lambda: ls.lif_alpha_window(
+        state, p, re, ri, t_win, drive, archive=archive, minus_table=minus))
+    plain = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        ls.lif_alpha_window_plain(state, p, re, ri, t_win, drive,
+                                  archive=archive, minus_table=minus)
+        b.record()
+        b.synchronize()
+        plain.append(a.elapsed_time(b))
+    plain_ms = statistics.median(plain)
+    n = S * per
+    # the HPC cell's roofline count: state 24 + 24 B, the archive's count
+    # and newest entry 16 B, per step 21 B, per spike an 8-B entry
+    n_bytes = n * (24 + 24 + 16 + W * (12 + 8 + 1)) + 8 * n_spikes
+    bms, by = bound_ms(n_bytes, n * 25 * W)
+    print(f"lif_alpha_window at the HPC cell's neurons ({n}, {W} steps, "
+          f"{n_spikes} spikes in the timed window): kernel {ms:.4f} ms "
+          f"(CUDA graph), bound {bms:.6f} ms ({by}, {n_bytes} B), plain "
+          f"{plain_ms:.3f} ms (eager, one call); eager call {eager_ms:.4f} "
+          f"ms")
+    return dict(name="lif_alpha", route="cuda",
+                source="src/repro_torch/csrc/lif_step.cu",
+                replaces="none: no TPU kernel (the reference has only "
+                         "iaf_psc_exp, src/repro/snn/lif.py)",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None, eager_ms=eager_ms,
+                plain_eager_ms=plain_ms,
+                parity=f"bit-exact on state, raster, rings and archive (6 "
+                       f"chained {W}-step windows with the archive, by value "
+                       f"and by step pointer, archives past H = {H}, "
+                       f"{appended} spikes appended; 2 windows without it; "
+                       f"{spikes} spikes); timed with the archive")
+
+
+def _hpc_window(gen, S, per, C, t, fill):
+    """One received window of the HPC cell at step ``t``: (S, S, C) words
+    of local ids (each 7th slot repeating its row's first source), slack
+    from 2 steps late to 15 ahead, and (S, S) counts: ``fill`` "cell"
+    40-100 live a row (the cell's ~70 and its bursts), "full" every
+    slot."""
+    from repro_torch.core import events as ev
+    dev = gen.device
+    addr = torch.randint(0, per, (S, S, C), generator=gen, device=dev)
+    addr[:, :, ::7] = addr[:, :, :1]
+    slack = torch.randint(-2, 16, (S, S, C), generator=gen, device=dev)
+    words = ev.pack(addr, (t + slack) & ev.TS_MASK)
+    counts = (torch.full((S, S), C, dtype=torch.int32, device=dev)
+              if fill == "full" else
+              torch.randint(40, 101, (S, S), generator=gen, device=dev,
+                            dtype=torch.int32))
+    return words, counts
+
+
+def check_hpc_deliver(gen, part):
+    """Kernel S at the HPC cell's load, over the scale-8 store
+    (``hpc_network``): its multapse instance (``synapse_deliver`` on a
+    ``MultapseStore``) and then its plastic form (``stdp_deliver``: plan,
+    update, plastic walk) against ``synapse_deliver_plain`` and
+    ``stdp_deliver_plain`` on the same card tensors, rows of 124, rings of
+    32: a window at the cell's load (40-100 live a row) at t 4,000 and a
+    full-row window 8 steps later on the state the first left; archives
+    past H, traces and last spikes drawn, repeated sources and missed
+    events; rings, misses, the store's counter, plastic weights, traces,
+    last spikes and counters bit for bit, one launch of each a window.
+    Times (CUDA graph) of the multapse walk and the plastic form at the
+    cell's load against their bounds from that window's counters: 8 B a
+    static add and 4 B an event word; 12 B a plastic update, 8 B an
+    archive entry read and 4 B an event word (``gpubench/rooflines/
+    stdp_deliver.py``'s count).  -> (the plastic form's record, the
+    multapse walk's parity and times)."""
+    from repro_torch.kernels import dispatch, synapse_deliver as sd
+    from repro_torch.snn import hpc_benchmark as hb, lif, stdp
+    S, per, C, L = part.n_shards, part.per_shard, FULL_CELL_C, 32
+    dev = gen.device
+    sp = hb.STDP
+    store, lists = part.store, part.plastic
+    inh = torch.from_numpy(part.is_inh).to(dev)
+    tables = tuple(lif.decay_table(hb.PARAMS.dt, tau, dev)
+                   for tau in (sp.tau_plus, sp.tau_minus))
+    t0 = 4000
+    count, step, km = _hpc_archive(gen, S, per, sp.history, t0)
+    state = stdp.init_plastic(part.plastic_weights, S, per, sp)._replace(
+        archive=lif.PostArchive(step, km, count))
+    n_ids = S * per
+    state = state._replace(
+        kplus=torch.rand((S, n_ids), generator=gen, device=dev) * 3,
+        t_last=torch.randint(-1, t0 - 10, (S, n_ids), generator=gen,
+                             device=dev, dtype=torch.int32))
+    plain_state = stdp.clone(state)
+    sizes, plain_ms = {}, {}
+    for t, fill in ((t0, "cell"), (t0 + 8, "full")):
+        words, counts = _hpc_window(gen, S, per, C, t, fill)
+        rings = [torch.randn((L, S, per), generator=gen, device=dev) * 50
+                 for _ in range(2)]
+        plain = [r.clone() for r in rings]
+        torch.cuda.synchronize()
+        c0, u0 = int(store.count), state.counts.sum(0).tolist()
+        dispatch.reset_launches()
+        miss = sd.synapse_deliver(*rings, words, counts, t, store, inh, per)
+        sd.stdp_deliver(*rings, words, counts, t, lists, state, inh, per,
+                        sp, tables)
+        if dispatch.LAUNCHES != {"synapse_deliver": 1, "stdp_deliver": 1}:
+            raise AssertionError(f"HPC delivery: launches "
+                                 f"{dispatch.LAUNCHES}, want one each")
+        c1, u1 = int(store.count), state.counts.sum(0).tolist()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        miss_p = sd.synapse_deliver_plain(*plain, words, counts, t, store,
+                                          inh, per)
+        sd.stdp_deliver_plain(*plain, words, counts, t, lists, plain_state,
+                              inh, per, sp, tables)
+        b.record()
+        b.synchronize()
+        plain_ms[fill] = a.elapsed_time(b)
+        what = f"HPC delivery {fill} t {t}"
+        require_equal(what, [(rings[0], plain[0]), (rings[1], plain[1]),
+                             (miss, miss_p)] + [
+            (x, y) for f, x, y in zip(stdp.PlasticState._fields, state,
+                                      plain_state) if f != "archive"])
+        if int(store.count) - c1 != c1 - c0:
+            raise AssertionError(f"{what}: the kernel counted {c1 - c0} "
+                                 f"static adds, the plain version "
+                                 f"{int(store.count) - c1}")
+        d = [y - x for x, y in zip(u0, u1)]
+        if int(miss.sum()) == 0 or d[0] == 0 or d[1] == 0 or d[3] == 0:
+            raise AssertionError(f"{what}: misses {int(miss.sum())}, "
+                                 f"counters {d}: a path unexercised")
+        sizes[fill] = dict(static=c1 - c0, events=int(counts.sum()),
+                           counters=dict(zip(stdp.COUNTERS, d)),
+                           operands=(words, counts, t))
+    words, counts, t = sizes["cell"]["operands"]
+    rings = [torch.zeros((L, S, per), device=dev) for _ in range(2)]
+    walk_ms, walk_eager = time_ms(lambda: sd.synapse_deliver(
+        *rings, words, counts, t, store, inh, per))
+    ms, eager_ms = time_ms(lambda: sd.stdp_deliver(
+        *rings, words, counts, t, lists, state, inh, per, sp, tables))
+    z = sizes["cell"]
+    walk_bms, walk_by = bound_ms(8 * z["static"] + 4 * z["events"],
+                                 z["static"])
+    n_bytes = (12 * z["counters"]["updates"]
+               + 8 * z["counters"]["entries_read"] + 4 * z["events"])
+    bms, by = bound_ms(n_bytes, 0)
+    print(f"HPC delivery at the cell's load: {z['events']} events, "
+          f"{z['static']} static adds, counters {z['counters']}; multapse "
+          f"walk {walk_ms:.4f} ms (CUDA graph), bound {walk_bms:.6f} ms "
+          f"({walk_by}); plastic form {ms:.4f} ms, bound {bms:.6f} ms "
+          f"({by}, {n_bytes} B); plain (both, eager, one call) "
+          f"{plain_ms['cell']:.0f} ms; full rows: {sizes['full']['events']} "
+          f"events, {sizes['full']['static']} static adds, counters "
+          f"{sizes['full']['counters']}")
+    record = dict(name="stdp_deliver", route="cuda",
+                  source="src/repro_torch/csrc/synapse_deliver.cu",
+                  replaces="none: no TPU kernel (the reference has no "
+                           "plastic synapse)",
+                  max_abs_err=0.0, ms=ms, plain_ms=plain_ms["cell"],
+                  bound_ms=bms, bound_by=by, library_ms=None,
+                  eager_ms=eager_ms, plain_eager_ms=plain_ms["cell"],
+                  parity=f"bit-exact after the multapse walk on both rings, "
+                         f"the misses, the store's counter, the plastic "
+                         f"weights, traces, last spikes and counters (the "
+                         f"scale-8 store, a window at the cell's load and a "
+                         f"full-row window chained, archives past H); "
+                         f"timed at the cell's load, the plain version "
+                         f"eager (with the multapse walk)")
+    walk = (f"; its multapse instance bit-exact over the HPC cell's "
+            f"scale-8 store (a window at the cell's load and a full-row "
+            f"window), {walk_ms:.4f} ms at the cell's load against a bound "
+            f"of {walk_bms:.6f} ms ({walk_by})")
+    return record, walk
+
+
+def run_hpc_path(spec, part, smi: str) -> dict:
+    """Main path 18: the HPC network (``hpc_network``) through
+    ``build_sharded_segments`` with ``snn.hpc_benchmark.STDP`` on the HPC
+    cell's fabric (torus3d 2x2x2, 124-event rows, 4,096 credits, notify
+    4, e_max 4,096), from potentials drawn from N(5.7, 7.2) mV and the
+    Poisson drive at the script's rate: ``HPC_SEGMENTS`` segments of 16
+    windows (the first eager, the second captured, the rest replayed),
+    launches counted from 0 before the replayed ones (the flush window,
+    the alpha LIF window, F, H's rotation, the decode, the multapse walk
+    and the plastic form once a window), finite potentials, the
+    backpressure identities over all the segments, plastic updates made
+    and ``history_short`` 0 in the replayed ones; ms a window of the
+    replayed segments (CUDA events).  Returns the
+    replayed segments' launches."""
+    from repro_torch.convert import flatten
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import hpc_benchmark as hb, lif, stdp
+    from repro_torch.snn import simulator as sim
+    cfg = sim_config(part, e_max=HPC_E_MAX, residue=256, params=hb.PARAMS,
+                     **HPC_CELL)
+    S, per, nw = cfg.n_shards, cfg.per_shard, 16
+    rate = np.full(spec.n_neurons, spec.drive_rate_hz(), np.float32)
+    init, run_segment, _ = sim.build_sharded_segments(
+        cfg, part, rate, spec.je_pa, device="cuda", stdp=hb.STDP)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    c = init(0)
+    v0 = hb.V0_MEAN + hb.V0_SD * torch.randn((S, per), generator=gen,
+                                             device="cuda")
+    c = c._replace(state=c.state._replace(
+        neuron=c.state.neuron._replace(v=v0), generator=None))
+    bg = torch.full((nw, cfg.window, S, per), spec.drive_rate_hz(),
+                    device="cuda")
+    drive = lambda: lif.poisson_input(bg, spec.je_pa, cfg.params.dt,
+                                      generator=gen)
+    stats = []
+    for _ in range(2):                  # eager, then the capture
+        c, st = run_segment(c, nw, drive=drive())
+        stats.append(st)
+    torch.cuda.synchronize()
+    sim.reset_segments()
+    dispatch.reset_launches()
+    counts0 = c.plastic.counts.sum(0)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(HPC_SEGMENTS - 2):
+        c, st = run_segment(c, nw, drive=drive())
+        stats.append(st)
+    b.record()
+    torch.cuda.synchronize()
+    n = (HPC_SEGMENTS - 2) * nw
+    ms = a.elapsed_time(b) / n
+    launches = dict(dispatch.LAUNCHES)
+    want = {k: n for k in ("flush_window", "lif_alpha", "wire_codec",
+                           "synapse_deliver", "stdp_deliver", "admission",
+                           "torus_exchange")}
+    if launches != want:
+        raise AssertionError(f"HPC path: launches {launches} != {want}")
+    if sim.SEGMENTS != {"eager": 0, "replayed": HPC_SEGMENTS - 2,
+                        "captured": 0}:
+        raise AssertionError(f"HPC path: segments {sim.SEGMENTS}")
+    if not torch.isfinite(c.state.neuron.v).all():
+        raise AssertionError("HPC path: non-finite membrane potentials")
+    flat = [flatten(st) for st in stats]
+    s = {k: np.concatenate([f[k] for f in flat], axis=1) for k in flat[0]}
+    check_backpressure_chain("HPC path", s, S)
+    d = dict(zip(stdp.COUNTERS, (c.plastic.counts.sum(0)
+                                 - counts0).tolist()))
+    if d["updates"] == 0 or d["history_short"] != 0:
+        raise AssertionError(f"HPC path: plastic counters {d}")
+    spikes = int(s["spikes"][:, -n:].sum())
+    hz = spikes / (spec.n_neurons * n * cfg.window * cfg.params.dt * 1e-3)
+    w = c.plastic.weights
+    r = lambda k: int(s[k][:, -n:].sum())
+    print(f"HPC path [{smi}]: {ms:.4f} ms a window ({n} replayed windows, "
+          f"CUDA events); {spikes} spikes ({hz:.2f} Hz), offered "
+          f"{r('offered')}, dropped or lost {r('overflow')}, delivered "
+          f"{r('link.delivered_events')}, deadline misses "
+          f"{r('deadline_miss')}; plastic {d}; E->E weights "
+          f"{float(w.mean()):.4f} +- {float(w.std()):.4f}; launches "
+          f"{launches}")
+    return launches
 
 
 def capture_admission(fn, wrappers=("admission",), every: int = 1):
@@ -6267,6 +6689,21 @@ def main() -> int:
     del net16, part3
     torch.cuda.empty_cache()
 
+    banner("main path 18: NEST's HPC benchmark network with STDP at the "
+           "HPC cell's scale")
+    hpc_spec, hpc_part = hpc_network()
+    banner("kernel C's alpha form, kernel S's multapse and plastic forms "
+           "against their plain versions at the HPC cell's load")
+    records.append(check_lif_alpha(gen, HPC_SHARDS, HPC_PER))
+    stdp_record, walk = check_hpc_deliver(gen, hpc_part)
+    records.append(stdp_record)
+    next(r for r in records if r["name"] == "synapse_deliver")[
+        "parity"] += walk
+    paths["HPC benchmark, replayed segments"] = run_hpc_path(
+        hpc_spec, hpc_part, smi.splitlines()[0])
+    del hpc_part
+    torch.cuda.empty_cache()
+
     banner("serve slice, card vs CPU")
     check_serve_slice_small()
 
@@ -6384,10 +6821,13 @@ def main() -> int:
     # example's alltoall extoll run), A, B, C, F, H and delivery (its only
     # path) on main path 16 (the full-scale network's two runs) and A, B,
     # C, F and G on the entry points' phase (the example on torus3d
-    # ethernet, the quickstart, the trace smoke)
+    # ethernet, the quickstart, the trace smoke); C's alpha form and the
+    # plastic delivery (their only path) with A, B, F, H and delivery on
+    # main path 18 (the HPC network's replayed segments)
     for counts in (serve_launches, obs_launches,
                    paths["microcircuit, alltoall"],
-                   paths["microcircuit, full scale"], entry_launches):
+                   paths["microcircuit, full scale"],
+                   paths["HPC benchmark, replayed segments"], entry_launches):
         for name, count in counts.items():
             launches[name] = launches.get(name, 0) + count
     paths["spike serving (3 runs)"] = serve_launches

@@ -141,6 +141,155 @@ __global__ void lif_window_kernel(
   }
 }
 
+// The alpha form: NEST's iaf_psc_alpha (no TPU kernel; the HPC benchmark's
+// neuron).  A neuron carries a current I and its derivative dI per synapse
+// type; per step, in the order of the plain version
+// (repro_torch/snn/lif.py:alpha_step): when not refractory, u = v - e_l
+// becomes p33 u + p31 dI_e + p32 I_e + p31 dI_i + p32 I_i (left to right)
+// and v = e_l + u; then I = p21 dI + p22 I (p22 = p11) and dI = p11 dI +
+// psc (ring + drive) for each type; then the threshold test, the reset
+// and the countdown, as the exponential form.  With an archive (the
+// neurons' last H spikes for STDP, a ring of (step, K-) per neuron and
+// its count) each spike is appended: K- = the newest entry's K- times
+// tab[t - step] (a decay table, clamped) plus 1, or 1 for a first spike;
+// the newest entry stays in registers over the window.  Bound: bytes,
+// 24 + 24 B of state and 21 B a step (the exponential form's ring, drive,
+// clearing and raster), the archive's few bytes a spike aside.
+struct AlphaParams {
+  float p11, p21, p31, p32, p33, psc;
+  int ref_steps;
+  float e_l, v_th, v_reset;
+};
+
+struct Archive {
+  int32_t* step;            // (n, H)
+  float* kminus;            // (n, H)
+  int32_t* count;           // (n,)
+  const float* tab;         // (tab_len,) e^{-k dt / tau_minus}
+  int history, tab_len;
+};
+
+__device__ __forceinline__ bool alpha_update(float& v, float& die, float& ie,
+                                             float& dii, float& ii,
+                                             int32_t& rf, float exc,
+                                             float inh,
+                                             const AlphaParams& p) {
+  const bool active = rf <= 0;
+  float u = __fmul_rn(p.p33, __fsub_rn(v, p.e_l));
+  u = __fadd_rn(u, __fmul_rn(p.p31, die));
+  u = __fadd_rn(u, __fmul_rn(p.p32, ie));
+  u = __fadd_rn(u, __fmul_rn(p.p31, dii));
+  u = __fadd_rn(u, __fmul_rn(p.p32, ii));
+  const float v_new = active ? __fadd_rn(p.e_l, u) : v;
+  ie = __fadd_rn(__fmul_rn(p.p21, die), __fmul_rn(p.p11, ie));
+  die = __fadd_rn(__fmul_rn(p.p11, die), __fmul_rn(p.psc, exc));
+  ii = __fadd_rn(__fmul_rn(p.p21, dii), __fmul_rn(p.p11, ii));
+  dii = __fadd_rn(__fmul_rn(p.p11, dii), __fmul_rn(p.psc, inh));
+  const bool spike = active && (v_new >= p.v_th);
+  v = spike ? p.v_reset : v_new;
+  rf = spike ? p.ref_steps : max(rf - 1, 0);
+  return spike;
+}
+
+// W > 0: W steps unrolled (W <= ring_len); W == 0: a run-time loop, which
+// also gives a slot met twice in one window the zeros clearing left in it.
+template <int W>
+__global__ void lif_alpha_window_kernel(
+    const float* __restrict__ v_in, const float* __restrict__ die_in,
+    const float* __restrict__ ie_in, const float* __restrict__ dii_in,
+    const float* __restrict__ ii_in, const int32_t* __restrict__ rf_in,
+    float* ring_exc, float* ring_inh, const float* __restrict__ drive,
+    float* __restrict__ v_out, float* __restrict__ die_out,
+    float* __restrict__ ie_out, float* __restrict__ dii_out,
+    float* __restrict__ ii_out, int32_t* __restrict__ rf_out,
+    bool* __restrict__ raster, int64_t n, int64_t per, int n_steps,
+    int64_t t_glob, const int32_t* __restrict__ t_at, int ring_len,
+    bool clear, AlphaParams p, Archive ar) {
+  if (t_at) t_glob = *t_at;
+  int t0 = static_cast<int>(t_glob % ring_len);
+  if (t0 < 0) t0 += ring_len;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float v = v_in[i], die = die_in[i], ie = ie_in[i], dii = dii_in[i],
+          ii = ii_in[i];
+    int32_t rf = rf_in[i];
+    const int64_t row = i / per;
+    bool* spk = raster + row * n_steps * per + (i - row * per);
+    int32_t cnt = 0, last_step = 0;
+    float last_km = 0.0f;
+    if (ar.step) {
+      cnt = ar.count[i];
+      if (cnt > 0) {
+        const int64_t at = i * ar.history + (cnt - 1) % ar.history;
+        last_step = ar.step[at];
+        last_km = ar.kminus[at];
+      }
+    }
+    auto archive = [&](int64_t t_sp) {
+      float km = 1.0f;
+      if (cnt > 0) {
+        int64_t gap = t_sp - last_step;
+        gap = gap < 0 ? 0 : (gap >= ar.tab_len ? ar.tab_len - 1 : gap);
+        km = __fadd_rn(__fmul_rn(last_km, ar.tab[gap]), 1.0f);
+      }
+      const int64_t at = i * ar.history + cnt % ar.history;
+      ar.step[at] = static_cast<int32_t>(t_sp);
+      ar.kminus[at] = km;
+      last_step = static_cast<int32_t>(t_sp);
+      last_km = km;
+      ++cnt;
+    };
+    if constexpr (W > 0) {
+      float exc[W], inh[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const int slot = t0 + k < ring_len ? t0 + k : t0 + k - ring_len;
+        exc[k] = ring_exc[slot * n + i];
+        inh[k] = ring_inh[slot * n + i];
+        if (drive) exc[k] = __fadd_rn(exc[k], drive[k * n + i]);
+      }
+      if (clear) {
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const int slot = t0 + k < ring_len ? t0 + k : t0 + k - ring_len;
+          ring_exc[slot * n + i] = 0.0f;
+          ring_inh[slot * n + i] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < W; ++k) {
+        const bool s = alpha_update(v, die, ie, dii, ii, rf, exc[k], inh[k],
+                                    p);
+        spk[k * per] = s;
+        if (s && ar.step) archive(t_glob + k);
+      }
+    } else {
+      int slot = t0;
+      for (int k = 0; k < n_steps; ++k) {
+        float exc = ring_exc[slot * n + i];
+        const float inh = ring_inh[slot * n + i];
+        if (drive) exc = __fadd_rn(exc, drive[k * n + i]);
+        if (clear) {
+          ring_exc[slot * n + i] = 0.0f;
+          ring_inh[slot * n + i] = 0.0f;
+        }
+        const bool s = alpha_update(v, die, ie, dii, ii, rf, exc, inh, p);
+        spk[k * per] = s;
+        if (s && ar.step) archive(t_glob + k);
+        if (++slot == ring_len) slot = 0;
+      }
+    }
+    v_out[i] = v;
+    die_out[i] = die;
+    ie_out[i] = ie;
+    dii_out[i] = dii;
+    ii_out[i] = ii;
+    rf_out[i] = rf;
+    if (ar.step) ar.count[i] = cnt;
+  }
+}
+
 }  // namespace
 
 // ring_exc / ring_inh: (ring_len, n) f32; drive: (n_steps, n) f32 or null;
@@ -183,5 +332,56 @@ extern "C" int repro_lif_window(
   }
 #undef REPRO_LIF_CASE
 #undef REPRO_LIF_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The alpha form: state (v, dI_e, I_e, dI_i, I_i, refrac) (n,) in and out;
+// t_glob the window's first global step, or t_at a device int32 holding
+// it (t_glob then unused); the archive pointers null for none.
+extern "C" int repro_lif_alpha_window(
+    const void* v, const void* die, const void* ie, const void* dii,
+    const void* ii, const void* rf, void* ring_exc, void* ring_inh,
+    const void* drive, void* v_out, void* die_out, void* ie_out,
+    void* dii_out, void* ii_out, void* rf_out, void* raster, int64_t n,
+    int64_t per, int n_steps, int64_t t_glob, const void* t_at,
+    int ring_len, int clear, float p11, float p21, float p31, float p32,
+    float p33, float psc, int ref_steps, float e_l, float v_th,
+    float v_reset, void* a_step, void* a_kminus, void* a_count,
+    const void* a_tab, int history, int tab_len, void* stream) {
+  if (n == 0 || n_steps == 0) return 0;
+  if (ring_len < 1 || (a_step && (history < 1 || tab_len < 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
+  const AlphaParams p{p11, p21, p31, p32, p33, psc, ref_steps, e_l, v_th,
+                      v_reset};
+  const Archive ar{static_cast<int32_t*>(a_step),
+                   static_cast<float*>(a_kminus),
+                   static_cast<int32_t*>(a_count),
+                   static_cast<const float*>(a_tab), history, tab_len};
+  auto s = static_cast<cudaStream_t>(stream);
+#define REPRO_ALPHA_ARGS                                                     \
+  static_cast<const float*>(v), static_cast<const float*>(die),              \
+      static_cast<const float*>(ie), static_cast<const float*>(dii),         \
+      static_cast<const float*>(ii), static_cast<const int32_t*>(rf),        \
+      static_cast<float*>(ring_exc), static_cast<float*>(ring_inh),          \
+      static_cast<const float*>(drive), static_cast<float*>(v_out),          \
+      static_cast<float*>(die_out), static_cast<float*>(ie_out),             \
+      static_cast<float*>(dii_out), static_cast<float*>(ii_out),             \
+      static_cast<int32_t*>(rf_out), static_cast<bool*>(raster), n, per,     \
+      n_steps, t_glob, static_cast<const int32_t*>(t_at), ring_len,          \
+      clear != 0, p, ar
+#define REPRO_ALPHA_CASE(W)                                                  \
+  case W:                                                                    \
+    lif_alpha_window_kernel<W><<<blocks, kThreads, 0, s>>>(REPRO_ALPHA_ARGS);\
+    break;
+  switch (n_steps <= ring_len ? n_steps : 0) {
+    REPRO_ALPHA_CASE(8)           // the simulator's window
+    default:
+      lif_alpha_window_kernel<0><<<blocks, kThreads, 0, s>>>(
+          REPRO_ALPHA_ARGS);
+  }
+#undef REPRO_ALPHA_CASE
+#undef REPRO_ALPHA_ARGS
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,11 +37,16 @@ SIGNATURES = {
     "repro_lif_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _L, _L, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I,
                          _F, _F, _F, _F, _P),
+    "repro_lif_alpha_window": (*(_P,) * 16, _L, _L, _I, _L, _P, _I, _I,
+                               *(_F,) * 6, _I, _F, _F, _F, _P, _P, _P, _P,
+                               _I, _I, _P),
     "repro_flush_window": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                            _P, _I, _L, _I, _I, _L, _L, _L, _L, _L, _I, _I,
                            _I, _P),
     "repro_synapse_deliver": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, _L, _P, _L, _L, _P),
+                              _I, _I, _I, _I, _L, _P, _L, _L, _I, _P),
+    "repro_stdp_deliver": (*(_P,) * 19, _L, _I, _I, _I, _I, _I, _L, _P, _L,
+                           _L, _I, _I, _I, _F, _F, ctypes.c_double, _P),
     "repro_bucket_scatter": (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P),
     "repro_ssd_chunk": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                         _I, _P),
@@ -131,6 +136,8 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            lib.repro_stdp_workspace.argtypes = (_I, _I)
+            lib.repro_stdp_workspace.restype = _L
             lib.repro_rank_max_window.argtypes = (_I, _I)
             lib.repro_rank_max_window.restype = _L
             lib.repro_error_string.argtypes = (ctypes.c_int,)

@@ -25,6 +25,13 @@ Two layouts of the 14-bit event address (``core/events.py``):
 A partition whose layout does not fit the field raises when it is built
 (:func:`check_address_layout`); ``events.pack`` would mask the address
 and alias sources without a word.
+
+A sparse store may hold multapses (several synapses of one source onto
+one target, each its own entry, in the order they were drawn), and a
+network with plastic synapses keeps them apart from the static ones
+(:func:`build_indegree_partition`, NEST's HPC benchmark: fixed in-degree,
+plastic E->E): :class:`PlasticLists` hold their targets, and their
+weights are simulation state (``snn/simulator.py``).
 """
 from __future__ import annotations
 
@@ -158,13 +165,43 @@ class SynapseStore(NamedTuple):
     """The synapses of a :class:`SparsePartition` on the device, one list
     per (destination shard ``s``, global source ``g``): entries
     ``row_ptr[s, g]`` to ``row_ptr[s, g + 1]`` of ``targets`` / ``weights``,
-    ascending by target, at most one per (source, target).  ``count`` is
-    the one-element counter of synaptic adds that delivery increments."""
+    ascending by target, at most one per (source, target) (a
+    :class:`MultapseStore` may repeat one).  ``count`` is the one-element
+    counter of synaptic adds that delivery increments."""
 
     row_ptr: torch.Tensor     # (S, N + 1) int64 offsets into the lists
     targets: torch.Tensor     # (n_synapses,) int32 target id on shard s
     weights: torch.Tensor     # (n_synapses,) f32 [pA]
     count: torch.Tensor       # (1,) int64 synaptic adds delivered
+    multapses = False         # may a list repeat a target?
+
+
+class MultapseStore(SynapseStore):
+    """A :class:`SynapseStore` whose lists may repeat a target
+    (multapses): each synapse its own entry, the repeats in the order
+    they were drawn."""
+
+    __slots__ = ()
+    multapses = True
+
+
+class PlasticLists(NamedTuple):
+    """The plastic synapses of a :class:`SparsePartition`, laid out as a
+    :class:`SynapseStore`'s lists (by destination shard and source,
+    ascending by target, multapses in draw order) without weights: entry
+    ``j``'s weight is element ``j`` of the simulation's plastic weights."""
+
+    row_ptr: torch.Tensor     # (S, N + 1) int64
+    targets: torch.Tensor     # (n_plastic,) int32 target id on shard s
+    longest: int = 0          # the longest list's length
+
+
+class StdpStore(NamedTuple):
+    """What delivery reads in a network with plastic synapses: the static
+    store and the plastic lists."""
+
+    static: SynapseStore
+    plastic: PlasticLists
 
 
 @dataclasses.dataclass
@@ -181,6 +218,8 @@ class SparsePartition:
     store: SynapseStore
     is_inh: np.ndarray             # (N,) inhibitory-source flag
     delays_steps: np.ndarray       # (N,) axonal delay in dt steps
+    plastic: PlasticLists | None = None
+    plastic_weights: torch.Tensor | None = None   # (n_plastic,) f32 initial
 
 
 def build_sparse_partition(src: torch.Tensor, tgt: torch.Tensor,
@@ -231,4 +270,103 @@ def build_sparse_partition(src: torch.Tensor, tgt: torch.Tensor,
         n_shards=n_shards, n_neurons=n_pad, per_shard=per,
         n_synapses=int(targets.numel()), fanout=fanout.contiguous(),
         store=store, is_inh=inh, delays_steps=delays)
+
+
+def _shard_lists(g: torch.Tensor, x: torch.Tensor, per: int, n_pad: int):
+    """One destination shard's lists from its synapses' sources ``g`` and
+    local targets ``x`` (in draw order): a stable sort of (source,
+    target) -> (the order, targets int32, list lengths (n_pad,), whether
+    a pair repeats)."""
+    wide = n_pad * per >= 1 << 31
+    key = g.to(torch.int64 if wide else torch.int32) * per + x
+    key, order = torch.sort(key, stable=True)
+    repeats = bool((key[1:] == key[:-1]).any()) if key.numel() > 1 \
+        else False
+    src = torch.div(key, per, rounding_mode="floor")
+    targets = (key - src * per).to(torch.int32)
+    lens = torch.bincount(src.long(), minlength=n_pad)
+    return order, targets, lens, repeats
+
+
+def build_indegree_partition(sources: torch.Tensor, is_inh: np.ndarray,
+                             n_shards: int, w_exc: float, w_inh: float,
+                             delay_steps: int) -> SparsePartition:
+    """Sparse partition of a fixed in-degree network, built on the
+    device one destination shard at a time (no sort of the whole
+    network): ``sources`` (N, K) int32 lists target i's K sources in the
+    order they were drawn (multapses allowed); a synapse from an
+    excitatory source weighs ``w_exc``, from an inhibitory one ``w_inh``
+    [pA]; every delay is ``delay_steps``.  The excitatory -> excitatory
+    synapses are plastic (:class:`PlasticLists`, their initial weights
+    ``w_exc``) and the store holds the rest (a :class:`MultapseStore`
+    when one of its lists repeats a target).
+    Raises when ``per_shard`` exceeds the 14-bit address field."""
+    n, k = sources.shape
+    per = -(-n // n_shards)
+    n_pad = per * n_shards
+    check_address_layout("source", per)
+    dev = sources.device
+    inh = np.pad(np.asarray(is_inh, bool), (0, n_pad - n))
+    inh_t = torch.from_numpy(inh).to(dev)
+    n_p = n_s = 0                    # a first pass counts, to size the lists
+    for s in range(n_shards):
+        rows = sources[s * per:min((s + 1) * per, n)]
+        x = torch.arange(rows.shape[0], device=dev).repeat_interleave(k)
+        m = int((~inh_t[rows.reshape(-1).long()] & ~inh_t[s * per + x]).sum())
+        n_p += m
+        n_s += x.numel() - m
+        del x
+    targets_p = torch.empty((n_p,), dtype=torch.int32, device=dev)
+    targets_s = torch.empty((n_s,), dtype=torch.int32, device=dev)
+    weights_s = torch.empty((n_s,), dtype=torch.float32, device=dev)
+    lens_p = torch.zeros((n_shards, n_pad), dtype=torch.int64, device=dev)
+    lens_s = torch.zeros((n_shards, n_pad), dtype=torch.int64, device=dev)
+    at_p = at_s = 0
+    multapses = False
+    for s in range(n_shards):
+        rows = sources[s * per:min((s + 1) * per, n)]
+        x = torch.arange(rows.shape[0], device=dev).repeat_interleave(k)
+        g = rows.reshape(-1).long()
+        plastic = ~inh_t[g] & ~inh_t[s * per + x]
+        _, t_p, lens, _ = _shard_lists(g[plastic], x[plastic], per, n_pad)
+        targets_p[at_p:at_p + t_p.numel()] = t_p
+        lens_p[s] = lens
+        at_p += t_p.numel()
+        del t_p
+        keep = ~plastic
+        gs = g[keep]
+        order, t_s, lens, rep = _shard_lists(gs, x[keep], per, n_pad)
+        del x, keep
+        targets_s[at_s:at_s + t_s.numel()] = t_s
+        weights_s[at_s:at_s + t_s.numel()] = torch.where(
+            inh_t[gs[order]], w_inh, w_exc).to(torch.float32)
+        lens_s[s] = lens
+        at_s += t_s.numel()
+        multapses |= rep
+        del order, t_s, gs, g, plastic
+
+    def row_ptr(lens):
+        ends = torch.cumsum(lens.reshape(-1), 0)
+        flat = torch.cat([ends.new_zeros(1), ends])
+        return flat[torch.arange(n_shards, device=dev)[:, None] * n_pad
+                    + torch.arange(n_pad + 1, device=dev)].contiguous()
+
+    hit = (lens_p + lens_s) > 0                             # (S, src)
+    n_fan = hit.sum(0)
+    max_fan = max(int(n_fan.max()), 1)
+    order = torch.argsort((~hit).to(torch.uint8), dim=0,
+                          stable=True).T[:, :max_fan]
+    fan = torch.arange(max_fan, device=dev)
+    fanout = torch.where(fan < n_fan[:, None], order, -1).to(torch.int32)
+    store = (MultapseStore if multapses else SynapseStore)(
+        row_ptr(lens_s), targets_s, weights_s,
+        torch.zeros(1, dtype=torch.int64, device=dev))
+    plastic = PlasticLists(row_ptr(lens_p), targets_p, int(lens_p.max()))
+    return SparsePartition(
+        n_shards=n_shards, n_neurons=n_pad, per_shard=per,
+        n_synapses=n_s, fanout=fanout.contiguous(), store=store,
+        is_inh=inh, delays_steps=np.full(n_pad, delay_steps, np.int32),
+        plastic=plastic,
+        plastic_weights=torch.full((n_p,), w_exc, dtype=torch.float32,
+                                   device=dev))
 

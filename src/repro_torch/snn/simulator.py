@@ -76,6 +76,19 @@ source is ``src_base + address``.  Delivery walks the live events in order
 (``kernels/synapse_deliver.py``, one launch a window), each synapse one
 f32 add into the rings, inside a ``window/deliver`` span of the segments'
 tracer.
+
+A sparse partition with plastic lists (``network.build_indegree_partition``,
+NEST's HPC benchmark) runs with ``stdp`` (``snn.stdp.StdpParams``): the
+carry gains ``SimCarry.plastic`` (``snn.stdp.PlasticState``: the plastic
+weights, each source's trace and last spike per shard, the neurons'
+post-spike archive, the counters); delivery adds the static synapses and
+then, updating each before its add, the plastic ones
+(``synapse_deliver.stdp_deliver``); the LIF window appends each spike to
+the archive.  Its neurons are NEST's ``iaf_psc_alpha`` when
+``cfg.params`` is an ``lif.AlphaParams`` (``ShardState.neuron`` an
+``lif.AlphaState``; the exponential form's types unchanged).  Each
+segment's carry owns its plastic state: an eager segment copies it first,
+a replayed one copies it in and out.
 """
 from __future__ import annotations
 
@@ -91,10 +104,10 @@ from repro_torch.core.routing import RoutingTables
 from repro_torch.fabric import faults as fabric_faults
 from repro_torch.kernels import dispatch
 from repro_torch.kernels import fused_route_bucket as frb
-from repro_torch.kernels.lif_step import lif_window
-from repro_torch.kernels.synapse_deliver import synapse_deliver
+from repro_torch.kernels.lif_step import lif_alpha_window, lif_window
+from repro_torch.kernels.synapse_deliver import stdp_deliver, synapse_deliver
 from repro_torch.obs import recorder as obs_recorder, spans
-from repro_torch.snn import lif, network
+from repro_torch.snn import lif, network, stdp as stdp_mod
 
 
 SEGMENTS: dict[str, int] = {"eager": 0, "replayed": 0, "captured": 0}
@@ -116,7 +129,7 @@ class SimConfig(NamedTuple):
     ring_len: int = 32        # delay ring slots (> max delay + window)
     e_max: int = 512          # spike-compaction buffer per window
     capacity: int = 256       # bucket capacity (events per dest per window)
-    params: lif.LIFParams = lif.LIFParams()
+    params: lif.LIFParams | lif.AlphaParams = lif.LIFParams()
     residue: int = 256        # deferred-event carry buffer (re-offered)
     transport: str = "alltoall"   # "alltoall" | "torus2d" | "torus3d"
     torus_nx: int = 0         # torus shape (0 = most-square/cubic)
@@ -130,7 +143,7 @@ class SimConfig(NamedTuple):
 
 
 class ShardState(NamedTuple):
-    neuron: lif.LIFState      # (S, per) per field
+    neuron: lif.LIFState      # (S, per) per field (lif.AlphaState: alpha)
     ring_exc: torch.Tensor    # (ring_len, S, per) scheduled exc current
     ring_inh: torch.Tensor    # (ring_len, S, per) scheduled inh current
     t: torch.Tensor           # (S,) int32 global step
@@ -184,12 +197,14 @@ class WindowStats(NamedTuple):
 
 class SimCarry(NamedTuple):
     """Resumable between-segment state of a sharded simulation; ``ring``
-    is the flight recorder's ring (only with ``recorder=``)."""
+    is the flight recorder's ring (only with ``recorder=``), ``plastic``
+    the plastic synapses' state (only with ``stdp=``)."""
 
     state: ShardState
     pending: PendingWindow
     link: tp.LinkState
     ring: obs_recorder.TelemetryRing | None = None
+    plastic: stdp_mod.PlasticState | None = None
 
 
 def tensors_of(tree) -> list:
@@ -226,7 +241,8 @@ def stack_windows(rows):
 
 def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                       recorder=None, sparse: bool = False,
-                      tracer: spans.Tracer = spans.NULL):
+                      tracer: spans.Tracer = spans.NULL,
+                      stdp: stdp_mod.StdpParams | None = None):
     """Build the pipelined per-window machinery.
 
     ``fault_schedule`` (a ``fabric.faults.FaultSchedule``; credited torus
@@ -240,7 +256,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     module docstring): ``body``'s ``tables`` is then the fan-out (S, per,
     max_fan) int32, and ``weights_t`` (of ``body`` and ``drain``) a
     ``network.SynapseStore``; delivery is recorded as ``window/deliver``
-    spans on ``tracer``, on the issuing thread's track.
+    spans on ``tracer``, on the issuing thread's track.  ``stdp``
+    (sparse only; an ``snn.stdp.StdpParams``): ``weights_t`` is a
+    ``network.StdpStore`` and ``body``'s carry is (state, pending, link,
+    ring or None, plastic state), the plastic state updated in place.
 
     Returns ``(init_pending, init_link, body, drain)``:
       init_pending()  -> empty PendingWindow (sparse: SourcePendingWindow)
@@ -295,6 +314,14 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     shard_ix = torch.arange(S, device=device)[:, None]
     row_dest = torch.arange(S, dtype=torch.int32, device=device)[
         None, :, None].expand(S, S, C).reshape(S, -1) if sparse else None
+    alpha = isinstance(cfg.params, lif.AlphaParams)
+    if stdp is not None and not (sparse and alpha):
+        raise ValueError("stdp needs a sparse partition and alpha neurons "
+                         "(lif.AlphaParams): the archive is the alpha "
+                         "window's")
+    decays = None if stdp is None else tuple(
+        lif.decay_table(cfg.params.dt, tau, device)
+        for tau in (stdp.tau_plus, stdp.tau_minus))
 
     def init_pending():
         z = lambda *shape: torch.zeros(shape, dtype=torch.int32,
@@ -337,20 +364,31 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         lat = torch.clamp(wait_us, min=0.0) + hop_us[..., None]
         return wire.summarize_latency(lat, live, batch_dims=1)
 
+    def _deliver(ring_exc, ring_inh, words, counts, t, weights_t, inh_src,
+                 plastic):
+        if stdp is None:
+            return synapse_deliver(ring_exc, ring_inh, words, counts, t,
+                                   weights_t, inh_src, cfg.per_shard)
+        miss = synapse_deliver(ring_exc, ring_inh, words, counts, t,
+                               weights_t.static, inh_src, cfg.per_shard)
+        stdp_deliver(ring_exc, ring_inh, words, counts, t, weights_t.plastic,
+                     plastic, inh_src, cfg.per_shard, stdp, decays)
+        return miss
+
     def _apply_events(ring_exc, ring_inh, words, counts, t, weights_t,
-                      inh_src, window=None):
+                      inh_src, window=None, plastic=None):
         """Scatter the weighted input of received events (S, S_src, C) into
         the delay rings (in place) at the (S,) steps ``t``; returns (S,)
         deadline misses.  ``window`` (the window's index on the host, or
         None) labels the sparse delivery's span; without it none is
-        recorded."""
+        recorded.  ``plastic``: the plastic state (``stdp`` only)."""
         if sparse:
             if window is None:
-                return synapse_deliver(ring_exc, ring_inh, words, counts, t,
-                                       weights_t, inh_src, cfg.per_shard)
+                return _deliver(ring_exc, ring_inh, words, counts, t,
+                                weights_t, inh_src, plastic)
             with tracer.span("window/deliver", window=window):
-                return synapse_deliver(ring_exc, ring_inh, words, counts, t,
-                                       weights_t, inh_src, cfg.per_shard)
+                return _deliver(ring_exc, ring_inh, words, counts, t,
+                                weights_t, inh_src, plastic)
         t = t[:, None, None]
         live = slots < counts[..., None]
         src = src_base + ev.address(words) // cfg.max_fan
@@ -370,9 +408,17 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         ring_inh += acc[:, L:].transpose(0, 1)
         return miss
 
-    def _simulate_steps(neuron, ring_exc, ring_inh, t0, drive):
+    def _simulate_steps(neuron, ring_exc, ring_inh, t0, drive,
+                        plastic=None):
         """``window`` LIF steps off the rings (consumed slots cleared in
-        place) -> (neuron, spikes (S, window, per) bool)."""
+        place) -> (neuron, spikes (S, window, per) bool); with ``plastic``
+        each spike is appended to its archive."""
+        if alpha:
+            return lif_alpha_window(
+                neuron, cfg.params, ring_exc, ring_inh, t0,
+                drive.contiguous(),
+                archive=None if plastic is None else plastic.archive,
+                minus_table=None if plastic is None else decays[1])
         return lif_window(neuron, cfg.params, ring_exc, ring_inh, t0,
                           drive.contiguous())
 
@@ -411,6 +457,7 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
     def body(carry, t: int | None, tables: RoutingTables, weights_t,
              inh_src, delays, drive):
         state, pend, lstate = carry[:3]
+        plastic = carry[4] if stdp is not None else None
         now = state.t
         if t is None and (fault_schedule is not None or recorder is not None):
             raise ValueError("a fault schedule or a recorder needs the "
@@ -426,10 +473,10 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
         latency = _window_latency(now, rmeta, counts, qcol, links)
         miss = _apply_events(state.ring_exc, state.ring_inh, recv, counts,
                              now, weights_t, inh_src,
-                             None if t is None else t // cfg.window)
+                             None if t is None else t // cfg.window, plastic)
         # 2. simulate window k
         neuron, spikes = _simulate_steps(state.neuron, state.ring_exc,
-                                         state.ring_inh, now, drive)
+                                         state.ring_inh, now, drive, plastic)
         # 3. route + aggregate: transport-deferred rows first, then the
         #    residue, then fresh spikes (oldest deadlines win bucket slots)
         words, inject, lost, fired, dest = _spikes_to_events(
@@ -477,20 +524,25 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
                 fw.payload)
         pend = (SourcePendingWindow(*pend, fw.residue_dest) if sparse
                 else PendingWindow(*pend))
+        ring = None
         if recorder is not None:
             ring = obs_recorder.record(carry[3], t // cfg.window - 1, lstats,
                                        lstate, latency.hist)
+        if stdp is not None:
+            return (state, pend, lstate, ring, plastic), stats
+        if recorder is not None:
             return (state, pend, lstate, ring), stats
         return (state, pend, lstate), stats
 
     def drain(state: ShardState, pend: PendingWindow, lstate, t: int,
-              weights_t, inh_src):
+              weights_t, inh_src, plastic=None):
         """Deliver every row still parked in the fabric (``drain_fabric``),
         then flush the last window's buckets with credits bypassed, into
         the rings, at the step ``state.t`` (``t`` on the host); the final
         residue stays deferred.  The drain's link statistics are not
         reported (they would break the per-window identities); its
-        deadline misses are."""
+        deadline misses are.  ``plastic`` (``stdp`` only) is updated in
+        place."""
         miss = torch.zeros((S,), dtype=torch.int32, device=device)
         window = t // cfg.window
         if can_defer:
@@ -498,12 +550,12 @@ def make_pipeline_fns(cfg: SimConfig, *, device=None, fault_schedule=None,
             recv_f, _ = wire.decode_planar(fab.recv_payload)
             miss = miss + _apply_events(state.ring_exc, state.ring_inh,
                                         recv_f, fab.recv_counts, state.t,
-                                        weights_t, inh_src, window)
+                                        weights_t, inh_src, window, plastic)
             lstate = fab.state
         recv, _, counts, *_ = _exchange(pend, lstate, enforce_credits=False)
         return miss + _apply_events(state.ring_exc, state.ring_inh, recv,
                                     counts, state.t, weights_t, inh_src,
-                                    window)
+                                    window, plastic)
 
     return init_pending, init_link, body, drain
 
@@ -512,7 +564,8 @@ class WindowInputs(NamedTuple):
     """What ``body`` reads besides its carry and drive, on the device."""
 
     tables: RoutingTables | torch.Tensor  # sparse: the (S, per, F) fan-out
-    weights_t: torch.Tensor | network.SynapseStore  # dense: (S, N, per)
+    weights_t: (torch.Tensor | network.SynapseStore  # dense: (S, N, per)
+                | network.StdpStore)
     inh_src: torch.Tensor        # (N,) bool inhibitory sources
     delays: torch.Tensor         # (S, per) int32 axonal delays in steps
     bg: torch.Tensor             # (S, per) f32 background rates [Hz]
@@ -527,8 +580,11 @@ def window_inputs(cfg: SimConfig,
     device = dispatch.resolve_device(device)
     S, per, n_tot = cfg.n_shards, cfg.per_shard, part.n_neurons
     if isinstance(part, network.SparsePartition):
-        weights_t = network.SynapseStore(*(x.to(device)
-                                           for x in part.store))
+        weights_t = type(part.store)(*(x.to(device) for x in part.store))
+        if part.plastic is not None:
+            pl = part.plastic
+            weights_t = network.StdpStore(weights_t, network.PlasticLists(
+                pl.row_ptr.to(device), pl.targets.to(device), pl.longest))
         tables = part.fanout.to(device).reshape(S, per, -1)
         delay_local = part.delays_steps.reshape(S, per)
     else:
@@ -548,7 +604,8 @@ def build_sharded_segments(cfg: SimConfig,
                            part: network.Partition | network.SparsePartition,
                            bg_rates: np.ndarray, bg_weight: float = 87.8,
                            fault_schedule=None, recorder=None, *,
-                           device=None, tracer: spans.Tracer = spans.NULL):
+                           device=None, tracer: spans.Tracer = spans.NULL,
+                           stdp: stdp_mod.StdpParams | None = None):
     """Segment-granular simulator of all ``cfg.n_shards`` shards on one
     device (``None`` = CUDA, raising without one).
 
@@ -556,6 +613,10 @@ def build_sharded_segments(cfg: SimConfig,
     weights uploaded as an (S, N, per) matrix) or a
     ``network.SparsePartition`` (the source layout; its store and fan-out
     moved to ``device``, its delivery spans recorded on ``tracer``).
+    A sparse partition with plastic lists runs them under ``stdp`` (an
+    ``snn.stdp.StdpParams``, required with them and only with them, its
+    ``delay_steps`` every delay of the partition): the carry's
+    ``plastic`` starts from the partition's initial weights.
 
     Returns ``(init, run_segment, finish)``:
       init(seed)                     -> SimCarry: potentials drawn from a
@@ -582,19 +643,34 @@ def build_sharded_segments(cfg: SimConfig,
     count them, and no window records a ``window/deliver`` span.
     """
     sparse = isinstance(part, network.SparsePartition)
+    plastic0 = part.plastic_weights if sparse else None
+    if (plastic0 is None) != (stdp is None):
+        raise ValueError("build_sharded_segments: stdp= goes with a "
+                         "partition that has plastic lists, and only with "
+                         "one")
+    if stdp is not None and not np.all(part.delays_steps
+                                       == stdp.delay_steps):
+        raise ValueError(f"build_sharded_segments: the rule's dendritic "
+                         f"delay ({stdp.delay_steps} steps) is not every "
+                         f"delay of the partition")
     init_pending, init_link, body, drain = make_pipeline_fns(
         cfg, device=device, fault_schedule=fault_schedule, recorder=recorder,
-        sparse=sparse, tracer=tracer)
+        sparse=sparse, tracer=tracer, stdp=stdp)
     device = dispatch.resolve_device(device)
     S, per = cfg.n_shards, cfg.per_shard
     tables, weights_t, inh_src, delays, bg = window_inputs(
         cfg, part, bg_rates, device=device)
     drive_shape = (cfg.window, S, per)
 
+    if stdp is not None:
+        plastic0 = plastic0.to(device)
+
     def init(seed: int = 0) -> SimCarry:
         gen = torch.Generator(device=device).manual_seed(seed)
         neuron = lif.init_state((S, per), cfg.params, generator=gen,
                                 device=device)
+        if isinstance(cfg.params, lif.AlphaParams):
+            neuron = lif.init_alpha_state(neuron.v)
         ring = torch.zeros((cfg.ring_len, S, per), dtype=torch.float32,
                            device=device)
         state = ShardState(neuron, ring, ring.clone(),
@@ -604,7 +680,9 @@ def build_sharded_segments(cfg: SimConfig,
         telemetry = None if recorder is None else obs_recorder.ring_init(
             recorder.depth, link, (), (wire.N_LATENCY_BINS,),
             link.bank.credits.shape[0], n_shards=S)
-        return SimCarry(state, init_pending(), link, telemetry)
+        plastic = None if stdp is None else stdp_mod.init_plastic(
+            plastic0, S, per, stdp)
+        return SimCarry(state, init_pending(), link, telemetry, plastic)
 
     def _own_rings(state: ShardState) -> ShardState:
         return state._replace(ring_exc=state.ring_exc.clone(),
@@ -637,7 +715,7 @@ def build_sharded_segments(cfg: SimConfig,
         inputs = [x.clone() for x in tensors_of(carry)]
         drive_buf = torch.empty((n_windows,) + drive_shape,
                                 dtype=torch.float32, device=device)
-        loop = _refill(carry, iter(inputs))[:3]
+        loop = _refill(carry, iter(inputs))[:3 if stdp is None else 5]
         before = dispatch.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with tracer.span("segment/capture", windows=n_windows):
@@ -685,6 +763,9 @@ def build_sharded_segments(cfg: SimConfig,
         loop = (state, carry.pending, carry.link)
         if recorder is not None:
             loop += (obs_recorder.ring_clone(carry.ring),)
+        if stdp is not None:
+            loop = loop[:3] + (loop[3] if recorder is not None else None,
+                               stdp_mod.clone(carry.plastic))
         t = int(state.t[0])               # all shards share the step count
         SEGMENTS["eager"] += 1
         return _windows(loop, n_windows, (
@@ -694,7 +775,8 @@ def build_sharded_segments(cfg: SimConfig,
     def finish(carry: SimCarry):
         state = _own_rings(carry.state)
         miss = drain(state, carry.pending, carry.link, int(state.t[0]),
-                     weights_t, inh_src)
+                     weights_t, inh_src,
+                     None if stdp is None else stdp_mod.clone(carry.plastic))
         return state, miss
 
     return init, run_segment, finish
